@@ -1,0 +1,30 @@
+"""rgbdslam_tpu_torch — the RGB-D SLAM tracking step in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of `rgbdslam_tpu` (JAX/XLA/Pallas), which stays the reference it is
+tested against. The module layout and function names follow the JAX
+package, so each counterpart is easy to find; public functions keep its
+array layouts ((N, 2) uv, (N, 3) xyz, (N, 8) descriptor words, (4, 4)
+poses). Descriptor words are uint32 bits held in torch.int32.
+
+Subpackages:
+  geometry  SE(3) math, pinhole RGB-D camera model
+  ops       image ops, FAST/Shi-Tomasi detection, BRIEF, Hamming, and the
+            CUDA kernel wrappers (ops/kernels.py, sources in csrc/)
+  frontend  per-frame feature build + matching
+  solvers   Horn fit, Mahalanobis RANSAC, plane-to-plane GICP
+  slam      PipelinedOdometry (the per-frame tracking step over a sequence)
+  io        synthetic renderer, TUM trajectory files
+  eval      ATE/RPE
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The Horn fit and the 6x6 Gauss-Newton solves need true f32 products:
+# TF32 keeps ~3 decimal digits and breaks pose estimation (the JAX package
+# pins f32 matmul precision for the same reason).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")

@@ -1,0 +1,78 @@
+"""Descriptor matching with the reference Matcher's gates (port of
+rgbdslam_tpu/frontend/matcher.py; Features/Matcher.cpp:106-139).
+
+2-NN Hamming matching of frame-1 (query) against frame-2 (train)
+descriptors, Lowe ratio test, mutual-nearest train dedup, and validity
+gates. On CUDA the 2-NN and the column best come from kernel K2, which
+never builds the N x M distance matrix.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
+from rgbdslam_tpu_torch.ops import kernels
+from rgbdslam_tpu_torch.ops.hamming import BIG_DIST
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """Matches from frame1 (ref/query) into frame2 (cur/train), N1 slots."""
+
+    idx2: torch.Tensor    # (N1,) i32 matched index in frame2
+    dist: torch.Tensor    # (N1,) i32 Hamming distance
+    valid: torch.Tensor   # (N1,) bool match survives all gates
+
+    @property
+    def num_matches(self) -> torch.Tensor:
+        return torch.sum(self.valid)
+
+
+def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
+                      desc2: torch.Tensor, valid2: torch.Tensor,
+                      ratio: float = 0.9) -> MatchResult:
+    """2-NN ratio + mutual-nearest matching on packed descriptors: (i -> j)
+    is kept iff j is i's nearest train, i is j's nearest query, and the
+    Lowe ratio passes. Kernel K2 for CUDA tensors, its plain version for
+    CPU tensors."""
+    if desc1.dtype.is_floating_point:
+        raise NotImplementedError("float (L2) descriptors are not yet ported")
+    if kernels.on_cuda(desc1, desc2):
+        best_idx, best_dist, second, col_best = kernels.hamming_match_2nn(
+            desc1.contiguous(), desc2.contiguous(), valid1.contiguous(),
+            valid2.contiguous())
+    else:
+        best_idx, best_dist, second, col_best = kernels.hamming_match_2nn_ref(
+            desc1, desc2, valid1, valid2)
+    ratio_ok = best_dist.to(torch.float32) < ratio * second.to(torch.float32)
+    rows = torch.arange(desc1.shape[0], dtype=torch.int32, device=desc1.device)
+    mutual = col_best[best_idx.long()] == rows
+    valid = ratio_ok & mutual & valid1 & (best_dist < BIG_DIST)
+    return MatchResult(idx2=best_idx, dist=best_dist, valid=valid)
+
+
+def match_frames(f1: FrameFeatures, f2: FrameFeatures, ratio: float = 0.9) -> MatchResult:
+    """Matcher::match over FrameFeatures: both endpoints must be valid
+    observations (detected + valid depth, Features/Matcher.cpp:130)."""
+    m = match_descriptors(f1.desc, f1.obs_valid, f2.desc, f2.obs_valid, ratio)
+    m.valid = m.valid & f2.obs_valid[m.idx2.long()]
+    return m
+
+
+def correspondence_weights(p1: torch.Tensor, p2: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Fit weights 1/(z1*z2) for matched 3-D pairs, zero where invalid
+    (Solver/SolverSE3.cpp:174)."""
+    z1 = torch.clamp_min(p1[:, 2], 1e-6)
+    z2 = torch.clamp_min(p2[:, 2], 1e-6)
+    return torch.where(valid, 1.0 / (z1 * z2), 0.0)
+
+
+def gather_matched_points(f1: FrameFeatures, f2: FrameFeatures, m: MatchResult):
+    """(p1 [N,3], p2 [N,3], w [N], valid [N]) — the RANSAC inputs."""
+    p1 = f1.xyz
+    p2 = f2.xyz[m.idx2.long()]
+    return p1, p2, correspondence_weights(p1, p2, m.valid), m.valid

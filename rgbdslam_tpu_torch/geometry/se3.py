@@ -1,0 +1,166 @@
+"""SE(3) / SO(3) / quaternion math on torch tensors (port of
+rgbdslam_tpu/geometry/se3.py).
+
+float32 homogeneous 4x4 matrices with the reference's `Tcw` (world->camera)
+convention; leading batch dimensions broadcast. Tangent-space convention:
+xi = [rho, phi] (translation part first), T = exp(hat(xi)).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+_EPS = 1e-8
+
+
+@functools.lru_cache()
+def _bottom_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[0, 0, 0, 1] on `device`, copied there once: a copy from host memory
+    makes the host wait for the device, which the per-frame path must not."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
+def hat(phi: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric."""
+    x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula with small-angle Taylor fallback. (...,3)->(...,3,3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    W = hat(phi)
+    WW = W @ W
+    return _eye3(phi) + a[..., None, None] * W + b[..., None, None] * WW
+
+
+def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    W = hat(phi)
+    WW = W @ W
+    return _eye3(phi) + b[..., None, None] * W + c[..., None, None] * WW
+
+
+def exp(xi: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential map: (..., 6) [rho, phi] -> (..., 4, 4)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = so3_exp(phi)
+    t = (_so3_left_jacobian(phi) @ rho[..., None])[..., 0]
+    return from_Rt(R, t)
+
+
+def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble (..., 4, 4) from rotation (...,3,3) and translation (...,3)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = _bottom_row(R.dtype, R.device).expand(batch + (4,))[..., None, :]
+    return torch.cat([top, bottom], dim=-2)
+
+
+def inverse_np(T):
+    """Host-numpy closed-form inverse of (..., 4, 4) pose stacks:
+    [R^T | -R^T t] (the same form the device uses)."""
+    T = np.asarray(T)
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Rt = np.swapaxes(R, -1, -2)
+    out = np.zeros_like(T)
+    out[..., :3, :3] = Rt
+    out[..., :3, 3] = -np.einsum("...ij,...j->...i", Rt, t)
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def orthonormalize_np(T):
+    """Project the rotation block of (..., 4, 4) host poses back onto SO(3)
+    (polar projection via SVD, det-corrected), keeping the translation.
+    Returns float32.
+
+    Chained f32 composes drift the rotation's scale by ~1e-7 per product,
+    and the closed-form `inverse_np` mirrors that scale error instead of
+    inverting it; re-anchoring poses through it then feeds the error back
+    with the wrong sign (see the JAX package's twin for the measured
+    blow-up). Project every pose that is composed on the host and later
+    inverted in closed form."""
+    T = np.asarray(T)
+    R = T[..., :3, :3].astype(np.float64)
+    U, _, Vt = np.linalg.svd(R)
+    d = np.sign(np.linalg.det(U @ Vt))
+    U = U.copy()
+    U[..., :, 2] *= np.asarray(d)[..., None]
+    out = T.astype(np.float32).copy()
+    out[..., :3, :3] = (U @ Vt).astype(np.float32)
+    return out
+
+
+def quat_from_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (...,3,3) -> unit quaternion (...,4) as (x,y,z,w).
+
+    Branch-free Shepperd's method: all four candidate forms, the numerically
+    best picked by the largest diagonal combination."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp_min(1.0 + tr, 0.0)
+    qx2 = torch.clamp_min(1.0 + m00 - m11 - m22, 0.0)
+    qy2 = torch.clamp_min(1.0 - m00 + m11 - m22, 0.0)
+    qz2 = torch.clamp_min(1.0 - m00 - m11 + m22, 0.0)
+
+    sw = torch.sqrt(qw2 + 1e-20)
+    qa = torch.stack([m21 - m12, m02 - m20, m10 - m01, sw * sw], -1) / (2.0 * sw[..., None])
+    sx = torch.sqrt(qx2 + 1e-20)
+    qb = torch.stack([sx * sx, m01 + m10, m02 + m20, m21 - m12], -1) / (2.0 * sx[..., None])
+    sy = torch.sqrt(qy2 + 1e-20)
+    qc = torch.stack([m01 + m10, sy * sy, m12 + m21, m02 - m20], -1) / (2.0 * sy[..., None])
+    sz = torch.sqrt(qz2 + 1e-20)
+    qd = torch.stack([m02 + m20, m12 + m21, sz * sz, m10 - m01], -1) / (2.0 * sz[..., None])
+
+    choice = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], -1), dim=-1)[..., None]
+    q = torch.where(choice == 0, qa,
+                    torch.where(choice == 1, qb, torch.where(choice == 2, qc, qd)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rotation_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (...,4) (x,y,z,w) -> rotation matrix (...,3,3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

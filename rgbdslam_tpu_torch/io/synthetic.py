@@ -1,0 +1,165 @@
+"""Procedural synthetic RGB-D sequences with ground truth, rendered on the
+device (port of rgbdslam_tpu/io/synthetic.py).
+
+Frames of a textured box room are ray cast in float32; the texture is
+multi-frequency blocky value noise from an integer lattice hash. The hash's uint32 multiply-wrap
+arithmetic runs in int64, split into 16-bit halves so no product leaves the
+int64 range, and masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC, Camera, undistort_normalized
+
+ROOM_HALF = (3.0, 2.0, 3.0)           # box half-extents (x, y, z)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a in [0, 2^32) (int64), without int64 overflow."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash3(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor, seed: int) -> torch.Tensor:
+    """Integer lattice hash -> [0, 1) float32 (the JAX uint32 hash, bit for bit)."""
+    h = (_mul32(ix & _M32, 0x8DA6B343) + _mul32(iy & _M32, 0xD8163841)
+         + _mul32(iz & _M32, 0xCB1AB31F) + ((seed * 0x9E3779B9) & _M32)) & _M32
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 16)
+    return h.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def _blocky_noise(p: torch.Tensor, freq: float, seed: int) -> torch.Tensor:
+    q = torch.floor(p * freq).to(torch.int64)
+    return _hash3(q[..., 0], q[..., 1], q[..., 2], seed)
+
+
+def texture(p: torch.Tensor) -> torch.Tensor:
+    """World-space texture in [0, 1]: multi-scale blocky noise."""
+    return (0.45 * _blocky_noise(p, 2.0, 1) + 0.30 * _blocky_noise(p, 5.0, 2)
+            + 0.18 * _blocky_noise(p, 11.0, 3) + 0.07 * _blocky_noise(p, 23.0, 4))
+
+
+def render_frame(cam: Camera, Twc, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ray-cast one frame of the box room: (gray [H, W] f32 in [0, 255],
+    depth [H, W] f32 meters along camera z) on `device`. Twc:
+    camera-to-world (4, 4). The multi-room world is not yet ported."""
+    dev = torch.device(device)
+    Twc = torch.as_tensor(np.asarray(Twc, dtype=np.float32), device=dev)
+    h, w = cam.height, cam.width
+    vv, uu = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    # XLA divides by a constant as a multiply by its reciprocal; so does this
+    xn = torch.stack([(uu - cam.cx) * (1.0 / cam.fx), (vv - cam.cy) * (1.0 / cam.fy)],
+                     dim=-1)
+    if cam.has_distortion:
+        xn = undistort_normalized(cam, xn)
+    R = Twc[:3, :3]
+    o = Twc[:3, 3]
+    # d_cam @ R.T with d_cam = (x, y, 1), as separate f32 multiplies and adds:
+    # the same bits as XLA's dot on the CPU, and on every device (a BLAS
+    # matmul sums in its own order, and cuBLAS with FMAs)
+    x, y = xn[..., 0], xn[..., 1]
+    d_world = torch.stack([x * R[i, 0] + y * R[i, 1] + R[i, 2] for i in range(3)], dim=-1)
+    half = torch.as_tensor(ROOM_HALF, dtype=torch.float32, device=dev)
+
+    t_best = torch.full((h, w), float("inf"), dtype=torch.float32, device=dev)
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            bound = sign * half[axis]
+            denom = d_world[..., axis]
+            t = (bound - o[axis]) / torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+            hit = o + t[..., None] * d_world
+            ok = t > 1e-3
+            for other in range(3):
+                if other != axis:
+                    ok = ok & (torch.abs(hit[..., other]) <= half[other] + 1e-4)
+            t_best = torch.where(ok & (t < t_best), t, t_best)
+
+    depth = torch.where(torch.isfinite(t_best), t_best, 0.0)
+    # Walls lie on texel boundaries (e.g. z = 3 m at 2 texels/m), so the
+    # texel of a wall hit depends on the last bit of o + t*d. Computed in
+    # float64 and rounded once, as a fused multiply-add would (XLA's CPU
+    # code does), it gives the same texels on every device.
+    hit_pts = (o.double() + t_best.double()[..., None] * d_world.double()).float()
+    shade = texture(hit_pts)
+    gray = torch.clamp(30.0 + 210.0 * shade * (1.0 / (1.0 + 0.05 * depth)), 0.0, 255.0)
+    gray = torch.where(depth > 0, gray, 0.0)
+    return gray, depth
+
+
+def look_at_pose(eye: np.ndarray, target: np.ndarray, up=(0.0, -1.0, 0.0)) -> np.ndarray:
+    """Twc with camera z pointing at `target` (x right, y down, z forward)."""
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    up = np.asarray(up, dtype=np.float64)
+    x = np.cross(-up, z)
+    if np.linalg.norm(x) < 1e-6:
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = x, y, z, eye
+    return T
+
+
+def orbit_trajectory(n_frames: int, radius: float = 1.2, height_amp: float = 0.25,
+                     loops: float = 1.0) -> np.ndarray:
+    """A smooth closed orbit inside the room, looking outward. Twc [N, 4, 4]."""
+    poses = []
+    for i in range(n_frames):
+        a = 2.0 * np.pi * loops * i / n_frames
+        eye = np.array([radius * np.cos(a), height_amp * np.sin(2 * a), radius * np.sin(a)])
+        look_dir = np.array([-np.sin(a), 0.15 * np.cos(2 * a), np.cos(a)])
+        poses.append(look_at_pose(eye, eye + look_dir))
+    return np.stack(poses)
+
+
+def sweep_trajectory(n_frames: int, span: float = 1.6) -> np.ndarray:
+    """A back-and-forth lateral sweep facing one wall — the odometry case."""
+    poses = []
+    for i in range(n_frames):
+        s = np.sin(2 * np.pi * i / n_frames)
+        eye = np.array([span * s, 0.2 * np.sin(4 * np.pi * i / n_frames), -1.0])
+        target = np.array([0.6 * span * s, 0.0, float(ROOM_HALF[2])])
+        poses.append(look_at_pose(eye, target))
+    return np.stack(poses)
+
+
+class SyntheticDataset:
+    """Dataset over the renderer: grab(i) -> (timestamp, gray [H,W] f32,
+    depth [H,W] f32 meters) as tensors on `device`; ground truth in
+    `.poses_twc`. Sensor noise is not yet ported."""
+
+    name = "SYNTH"
+
+    def __init__(self, n_frames: int = 120, cam: Camera = SYNTHETIC,
+                 trajectory: str = "orbit", fps: float = 30.0,
+                 loops: float = 1.0, device="cpu"):
+        self.cam = cam
+        self.fps = fps
+        self.device = torch.device(device)
+        if trajectory == "orbit":
+            self.poses_twc = orbit_trajectory(n_frames, loops=loops)
+        elif trajectory == "sweep":
+            self.poses_twc = sweep_trajectory(n_frames)
+        else:
+            raise NotImplementedError(f"trajectory {trajectory!r} is not yet ported "
+                                      "(sweep, orbit)")
+        self.timestamps = np.arange(n_frames, dtype=np.float64) / fps
+
+    def __len__(self) -> int:
+        return len(self.poses_twc)
+
+    def grab(self, i: int):
+        gray, depth = render_frame(self.cam, self.poses_twc[i], device=self.device)
+        return self.timestamps[i], gray, depth

@@ -1,0 +1,176 @@
+"""Dense FAST corner test + Shi-Tomasi score + grid NMS into a fixed
+keypoint budget (port of rgbdslam_tpu/ops/fast.py, `fast_st` response).
+
+Per pyramid level a dense FAST-10 mask, a dense Shi-Tomasi min-eigenvalue
+map and 3x3 NMS give a masked score map (kernel K1 on CUDA, see
+ops/kernels.py); the best corner per grid cell across levels and the top-N
+cells fill the N keypoint slots (reference: Features/SVOextractor.cpp:79-133).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rgbdslam_tpu_torch.ops import image as image_ops
+
+# Bresenham circle of radius 3 — the 16 FAST ring offsets (dx, dy), clockwise
+# from 12 o'clock (csrc/detect.cu holds the same table).
+FAST_RING = np.array(
+    [
+        (0, -3), (1, -3), (2, -2), (3, -1),
+        (3, 0), (3, 1), (2, 2), (1, 3),
+        (0, 3), (-1, 3), (-2, 2), (-3, 1),
+        (-3, 0), (-3, -1), (-2, -2), (-1, -3),
+    ],
+    dtype=np.int32,
+)
+
+
+def fast_corner_mask(img: torch.Tensor, threshold: float, arc: int = 10) -> torch.Tensor:
+    """Dense FAST segment test: True where >= `arc` contiguous ring pixels
+    are all brighter than center+t or all darker than center-t, on the
+    3-pixel interior (the ring reads wrap around outside it)."""
+    h, w = img.shape
+    ring = torch.stack([torch.roll(img, shifts=(-int(dy), -int(dx)), dims=(0, 1))
+                        for dx, dy in FAST_RING])             # (16, H, W)
+    brighter = ring > (img + threshold)[None]
+    darker = ring < (img - threshold)[None]
+    bits = (1 << torch.arange(16, device=img.device, dtype=torch.int64))[:, None, None]
+    window = (1 << arc) - 1
+
+    def has_arc(flags: torch.Tensor) -> torch.Tensor:
+        m = torch.sum(flags.to(torch.int64) * bits, dim=0)    # 16 flag bits
+        ext = m | (m << 16)                                    # wrap-around
+        out = torch.zeros((h, w), dtype=torch.bool, device=img.device)
+        for s in range(16):
+            out = out | (((ext >> s) & window) == window)
+        return out
+
+    mask = has_arc(brighter) | has_arc(darker)
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    interior = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
+    return mask & interior
+
+
+def shi_tomasi_map(img: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """Dense Shi-Tomasi min-eigenvalue score (SVO ShiTomasiScore semantics,
+    Features/SVOextractor.cpp:39-77: central-difference gradients, zero-padded
+    box sum, normalisation by 2*box_area written as a multiply, as the
+    Pallas and CUDA kernels write it)."""
+    dx, dy = image_ops.sobel_gradients(img)
+    inv = 1.0 / (2.0 * float((2 * radius + 1) ** 2))
+    dxx = image_ops.box_filter_sum(dx * dx, radius) * inv
+    dyy = image_ops.box_filter_sum(dy * dy, radius) * inv
+    dxy = image_ops.box_filter_sum(dx * dy, radius) * inv
+    tr = dxx + dyy
+    diff = dxx - dyy
+    det_term = torch.sqrt(torch.clamp_min(diff * diff + 4.0 * dxy * dxy, 0.0))
+    return 0.5 * (tr - det_term)
+
+
+def nms3x3(score: torch.Tensor) -> torch.Tensor:
+    """True where score >= every value of its 3x3 neighbourhood (-inf outside)."""
+    nb = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    return score >= nb
+
+
+class Keypoints(NamedTuple):
+    """Fixed-budget keypoint set (level-0 pixel coords)."""
+
+    uv: torch.Tensor       # (N, 2) float32 — (u=x, v=y) at level 0
+    level: torch.Tensor    # (N,) int32 pyramid level
+    score: torch.Tensor    # (N,) float32 Shi-Tomasi response
+    valid: torch.Tensor    # (N,) bool
+
+
+def masked_score_map(img: torch.Tensor, fast_threshold: float):
+    """Per-level (masked, raw) detector maps: kernel K1 for a CUDA tensor,
+    its plain version for a CPU tensor."""
+    from rgbdslam_tpu_torch.ops import kernels
+
+    if kernels.on_cuda(img):
+        return kernels.detect_score_map(img, fast_threshold)
+    return kernels.detect_score_map_ref(img, fast_threshold)
+
+
+def detect_keypoints(
+    pyramid: List[torch.Tensor],
+    num_features: int,
+    cell_size: int,
+    fast_threshold: float,
+    min_response: float,
+    min_border: int,
+) -> Keypoints:
+    """Multi-level FAST detection with best-per-cell grid NMS into N slots
+    (SVOextractor::detect, Features/SVOextractor.cpp:79-133): one winner per
+    `cell_size` cell across all levels, final response gate `min_response`,
+    top `num_features` cells by score (ties: lower cell index first, as
+    jax.lax.top_k)."""
+    h0, w0 = pyramid[0].shape
+    dev = pyramid[0].device
+    grid_rows = h0 // cell_size
+    grid_cols = w0 // cell_size
+    n_cells = grid_rows * grid_cols
+
+    best_score = torch.full((n_cells,), float("-inf"), dtype=torch.float32, device=dev)
+    best_u = torch.zeros((n_cells,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n_cells,), dtype=torch.float32, device=dev)
+    best_level = torch.zeros((n_cells,), dtype=torch.int32, device=dev)
+    cell_row = torch.arange(n_cells, dtype=torch.int64, device=dev) // grid_cols
+    cell_col = torch.arange(n_cells, dtype=torch.int64, device=dev) % grid_cols
+
+    for lvl, img in enumerate(pyramid):
+        scale = 1 << lvl
+        cell_l = cell_size // scale
+        if cell_l < 1:
+            break
+        h, w = img.shape
+        score, _raw = masked_score_map(img, fast_threshold)
+        # border gate in level-0 coordinates
+        yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] * scale
+        xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] * scale
+        inb = ((xx >= min_border) & (xx < w0 - min_border)
+               & (yy >= min_border) & (yy < h0 - min_border))
+        masked = torch.where(inb, score, float("-inf"))
+
+        hc, wc = grid_rows * cell_l, grid_cols * cell_l
+        tiles = masked[:hc, :wc].reshape(grid_rows, cell_l, grid_cols, cell_l)
+        tiles = tiles.permute(0, 2, 1, 3).reshape(n_cells, cell_l * cell_l)
+        cell_max = torch.amax(tiles, dim=-1)
+        # first maximum; an all -inf tile gives index 0, as jnp.argmax does
+        cell_arg = torch.argmax(tiles, dim=-1)
+        py = cell_arg // cell_l
+        px = cell_arg % cell_l
+        u = ((cell_col * cell_l + px) * scale).to(torch.float32)
+        v = ((cell_row * cell_l + py) * scale).to(torch.float32)
+
+        better = cell_max > best_score
+        best_score = torch.where(better, cell_max, best_score)
+        best_u = torch.where(better, u, best_u)
+        best_v = torch.where(better, v, best_v)
+        best_level = torch.where(better, torch.full_like(best_level, lvl), best_level)
+
+    valid_cell = best_score > min_response            # Features/SVOextractor.cpp:128
+    sel_scores = torch.where(valid_cell, best_score, float("-inf"))
+
+    k = min(num_features, n_cells)
+    order = torch.sort(sel_scores, descending=True, stable=True)
+    top_scores, top_idx = order.values[:k], order.indices[:k]
+    uv = torch.stack([best_u[top_idx], best_v[top_idx]], dim=-1)
+    level = best_level[top_idx]
+    valid = torch.isfinite(top_scores) & (top_scores > min_response)
+
+    if k < num_features:  # pad to the fixed budget
+        pad = num_features - k
+        uv = torch.cat([uv, torch.zeros((pad, 2), dtype=torch.float32, device=dev)])
+        level = torch.cat([level, torch.zeros((pad,), dtype=torch.int32, device=dev)])
+        top_scores = torch.cat([top_scores, torch.full((pad,), float("-inf"), device=dev)])
+        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool, device=dev)])
+
+    return Keypoints(uv=uv, level=level,
+                     score=torch.where(valid, top_scores, 0.0), valid=valid)

@@ -1,0 +1,217 @@
+"""Batched 3D-3D RANSAC rigid registration under the RGB-D Mahalanobis noise
+model (port of rgbdslam_tpu/solvers/ransac_se3.py, `mahalanobis` error model;
+Solver/SolverSE3.cpp).
+
+1. draw H hypotheses of S samples, uniform over the valid slots;
+2. fit all H transforms at once (batched Horn fit); slot 0 is the identity;
+3. score all H x N Mahalanobis residuals — kernel K3 on CUDA;
+4. pick the best by (inlier count, error);
+5. run `refine_iters` masked re-fits on the full inlier set.
+
+Sampling uses an explicit torch.Generator on the points' device (it cannot
+reproduce jax.random's bits); `draws` injects the (H, S) sample indices
+instead, so tests can hand both packages the same hypotheses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from rgbdslam_tpu_torch.config import RansacConfig
+from rgbdslam_tpu_torch.ops import kernels
+from rgbdslam_tpu_torch.solvers.kabsch import weighted_rigid_transform
+
+
+@dataclasses.dataclass
+class RansacResult:
+    T21: torch.Tensor          # (4, 4) best transform frame1 -> frame2 coords
+    inliers: torch.Tensor      # (N,) bool final inlier mask
+    num_inliers: torch.Tensor  # () int32
+    rmse: torch.Tensor         # () f32 sqrt(mean m^2) over inliers
+    success: torch.Tensor      # () bool num_inliers >= min_inliers
+
+
+def _sigma_diag(z: torch.Tensor, cfg: RansacConfig) -> torch.Tensor:
+    """Per-point diagonal covariance (..., 3) of the Khoshelham noise model
+    (Solver/SolverSE3.cpp:216-297)."""
+    rx = 3.0 * math.tan(math.radians(cfg.cam_angle_x) / cfg.cam_resol_x)
+    ry = 3.0 * math.tan(math.radians(cfg.cam_angle_y) / cfg.cam_resol_y)
+    raster_cov_x = rx * rx
+    raster_cov_y = ry * ry
+    sz = cfg.depth_std_factor * z * z
+    return torch.stack([raster_cov_x * z, raster_cov_y * z, sz * sz], dim=-1)
+
+
+def _inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / det)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    co_a = e * i - f * h
+    co_b = -(d * i - f * g)
+    co_c = d * h - e * g
+    det = a * co_a + b * co_b + c * co_c
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
+    adj = torch.stack(
+        [
+            torch.stack([co_a, -(b * i - c * h), b * f - c * e], dim=-1),
+            torch.stack([co_b, a * i - c * g, -(a * f - c * d)], dim=-1),
+            torch.stack([co_c, -(a * h - b * g), a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
+
+
+def mahalanobis_sq_planes(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                          s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """Squared Mahalanobis distance (..., N) of each correspondence under
+    T (..., 4, 4), given the diagonal covariances s1, s2 (N, 3).
+
+    d = R p1 + t - p2, C = R diag(s1) R^T + diag(s2) as six (..., N)
+    planes, m^2 = d^T adj(C) d / det(C) clamped at 0 — in the operation
+    order of the Pallas kernel and csrc/mahal.cu, so all three round alike."""
+    def r(i, j):
+        return T[..., i, j, None]
+
+    x1, y1, z1 = p1[:, 0], p1[:, 1], p1[:, 2]
+    x2, y2, z2 = p2[:, 0], p2[:, 1], p2[:, 2]
+    d1 = r(0, 0) * x1 + r(0, 1) * y1 + r(0, 2) * z1 + r(0, 3) - x2
+    d2 = r(1, 0) * x1 + r(1, 1) * y1 + r(1, 2) * z1 + r(1, 3) - y2
+    d3 = r(2, 0) * x1 + r(2, 1) * y1 + r(2, 2) * z1 + r(2, 3) - z2
+
+    def centry(i, j):
+        c = (r(i, 0) * r(j, 0) * s1[:, 0] + r(i, 1) * r(j, 1) * s1[:, 1]
+             + r(i, 2) * r(j, 2) * s1[:, 2])
+        return c + s2[:, i] if i == j else c
+
+    a, b, c = centry(0, 0), centry(0, 1), centry(0, 2)
+    d, e, f = centry(1, 1), centry(1, 2), centry(2, 2)
+    A11 = d * f - e * e
+    A12 = c * e - b * f
+    A13 = b * e - c * d
+    A22 = a * f - c * c
+    A23 = b * c - a * e
+    A33 = a * d - b * b
+    det = a * A11 + b * A12 + c * A13
+    quad = (A11 * d1 * d1 + A22 * d2 * d2 + A33 * d3 * d3
+            + 2.0 * (A12 * d1 * d2 + A13 * d1 * d3 + A23 * d2 * d3))
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    return torch.clamp_min(quad * inv_det, 0.0)
+
+
+def mahalanobis_sq(T21: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                   cfg: RansacConfig) -> torch.Tensor:
+    """Squared Mahalanobis distance (..., N) under T21 (errorFunction2,
+    Solver/SolverSE3.cpp:216-280)."""
+    return mahalanobis_sq_planes(T21, p1, p2, _sigma_diag(p1[:, 2], cfg),
+                                 _sigma_diag(p2[:, 2], cfg))
+
+
+def _rmse(cnt: torch.Tensor, err_sum: torch.Tensor) -> torch.Tensor:
+    # meanError semantics (Solver/SolverSE3.cpp:206-213): <3 inliers -> huge
+    return torch.where(cnt >= 3, torch.sqrt(err_sum / torch.clamp_min(cnt, 1)), 1e9)
+
+
+def _score(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+           valid: torch.Tensor, cfg: RansacConfig):
+    """Inlier mask, count and rmse for transforms T (..., 4, 4) under the
+    Mahalanobis model."""
+    m2 = mahalanobis_sq(T, p1, p2, cfg)
+    inl = (m2 <= cfg.max_mahalanobis * cfg.max_mahalanobis) & valid
+    cnt = torch.sum(inl, dim=-1)
+    err_sum = torch.sum(torch.where(inl, m2, 0.0), dim=-1)
+    return inl, cnt, _rmse(cnt, err_sum)
+
+
+def _hypothesis_scores(T_h, p1, p2, valid, cfg: RansacConfig):
+    """(count (H,), rmse (H,)) of every hypothesis: kernel K3 for CUDA
+    tensors, its plain version for CPU tensors."""
+    s1 = _sigma_diag(p1[:, 2], cfg)
+    s2 = _sigma_diag(p2[:, 2], cfg)
+    th = cfg.max_mahalanobis * cfg.max_mahalanobis
+    if kernels.on_cuda(T_h, p1):
+        cnt, err = kernels.mahal_hypothesis_scores(
+            T_h.contiguous(), p1.contiguous(), p2.contiguous(), s1, s2,
+            valid.contiguous(), th)
+    else:
+        cnt, err = kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)
+    return cnt, _rmse(cnt, err)
+
+
+def ransac_se3(
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    w: torch.Tensor,
+    valid: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    cfg: RansacConfig = RansacConfig(),
+    draws: Optional[torch.Tensor] = None,
+) -> RansacResult:
+    """Estimate T21 with p2 ~= T21 * p1 from masked correspondences.
+
+    p1, p2: (N, 3) matched camera-frame points; w: (N,) fit weights
+    (1/(z1*z2), Solver/SolverSE3.cpp:174), zero for invalid slots; valid:
+    (N,) bool. `generator` draws the samples on the points' device;
+    `draws` (H, S) int, uniform in [0, number of valid slots), replaces it.
+    Nothing here copies to the host."""
+    if cfg.error_model != "mahalanobis":
+        raise NotImplementedError(
+            f"error_model={cfg.error_model!r} is not yet ported (mahalanobis only)")
+    n = p1.shape[0]
+    dev = p1.device
+    H, S = cfg.num_hypotheses, cfg.sample_size
+
+    any_valid = torch.any(valid)
+    pos = torch.cumsum(valid.to(torch.int64), 0) - 1
+    # compact the valid indices; invalid slots write to the extra slot n,
+    # which is dropped (the JAX scatter's mode="drop")
+    slot = torch.where(valid, pos, n)
+    cand = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+    cand = cand.scatter(0, slot, torch.arange(n, dtype=torch.int64, device=dev))[:n]
+    n_valid = torch.clamp_min(torch.sum(valid.to(torch.int64)), 1)
+    if draws is None:
+        if generator is None:
+            raise ValueError("ransac_se3 needs a generator or injected draws")
+        u = torch.rand((H, S), generator=generator, device=dev)
+        draws = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
+    idx = cand[draws.to(torch.int64)]
+
+    sp1 = p1[idx]                                  # (H, S, 3)
+    sp2 = p2[idx]
+    sw = w[idx] * valid[idx]
+    T_h = weighted_rigid_transform(sp1, sp2, sw)   # (H, 4, 4)
+    # hypothesis 0 = identity (identity fallback, Solver/SolverSE3.cpp:105-117)
+    T_h[0] = torch.eye(4, dtype=T_h.dtype, device=dev)
+
+    cnt_h, rmse_h = _hypothesis_scores(T_h, p1, p2, valid, cfg)
+    # lexicographic best: max inliers, then min error (first index on ties)
+    rank = cnt_h.to(torch.float32) * 1e4 - torch.clamp_max(rmse_h, 9e3)
+    best = torch.argmax(rank)
+    T = torch.index_select(T_h, 0, best.reshape(1))[0]
+    inl, cnt, rmse = _score(T, p1, p2, valid, cfg)
+
+    # masked refinement re-fits on the full inlier set
+    # (Solver/SolverSE3.cpp:61-84 refine-until-stable, fixed-trip here)
+    for _ in range(cfg.refine_iters):
+        inl, cnt, rmse = _score(T, p1, p2, valid, cfg)
+        T_new = weighted_rigid_transform(p1, p2, w * inl.to(w.dtype))
+        inl2, cnt2, rmse2 = _score(T_new, p1, p2, valid, cfg)
+        # keep a refit only if it loses no inliers and no accuracy
+        # (Solver/SolverSE3.cpp:72)
+        better = (cnt2 >= cnt) & (rmse2 <= rmse)
+        T = torch.where(better, T_new, T)
+        inl = torch.where(better, inl2, inl)
+        cnt = torch.where(better, cnt2, cnt)
+        rmse = torch.where(better, rmse2, rmse)
+
+    if cfg.mahalanobis_refine:
+        raise NotImplementedError("mahalanobis_refine is not yet ported")
+    success = (cnt >= cfg.min_inliers) & any_valid
+    return RansacResult(T21=T, inliers=inl & success,
+                        num_inliers=cnt.to(torch.int32), rmse=rmse,
+                        success=success)

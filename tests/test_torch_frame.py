@@ -1,0 +1,103 @@
+"""Feature build and renderer of rgbdslam_tpu_torch against rgbdslam_tpu.
+
+build_frame_features gets the same rendered numpy frame in both packages
+(the JAX side runs the Pallas detector in interpret mode). Integer and mask
+fields must agree exactly; float fields within the stated f32 tolerances.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rgbdslam_tpu.config import ExtractorConfig as JExtractorConfig
+from rgbdslam_tpu.frontend.frame import build_frame_features as j_build
+from rgbdslam_tpu.geometry.camera import Camera as JCamera
+from rgbdslam_tpu.io import synthetic as jsyn
+from rgbdslam_tpu_torch.config import ExtractorConfig
+from rgbdslam_tpu_torch.convert import frame_features_from_numpy, frame_features_to_numpy
+from rgbdslam_tpu_torch.frontend.frame import build_frame_features as t_build
+from rgbdslam_tpu_torch.geometry.camera import Camera as TCamera
+from rgbdslam_tpu_torch.io import synthetic as tsyn
+
+CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
+EX = dict(num_features=1024, num_levels=3, cell_size=8, fast_threshold=15.0)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    ds = jsyn.SyntheticDataset(n_frames=24, cam=JCamera(**CAM_ARGS), trajectory="sweep")
+    return [tuple(np.asarray(x) for x in ds.grab(i)[1:]) for i in (0, 7)]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_build_frame_features_matches_jax(frames, which):
+    gray, depth = frames[which]
+    fj = j_build(JCamera(**CAM_ARGS), jnp.asarray(gray), jnp.asarray(depth),
+                 JExtractorConfig(**EX))
+    ft = t_build(TCamera(**CAM_ARGS), torch.from_numpy(gray), torch.from_numpy(depth),
+                 ExtractorConfig(**EX))
+    t = frame_features_to_numpy(ft)
+    j = {k: np.asarray(getattr(fj, k)) for k in t}
+    assert j["valid"].sum() > 300
+    for k in ("uv", "desc", "level", "valid", "has_depth", "smooth", "intensity"):
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert t["desc"].dtype == np.uint32
+    # undistortion of a distortion-free camera: (u - cx) / fx * fx + cx,
+    # which XLA may contract into an FMA -> an ulp of ~300 px
+    np.testing.assert_allclose(t["uv_undist"], j["uv_undist"], rtol=0, atol=1e-4)
+    # score: the same Shi-Tomasi arithmetic, summed as the Pallas kernel sums
+    np.testing.assert_allclose(t["score"], j["score"], rtol=1e-5, atol=1e-3)
+    # xyz: z from the 3x3 mean depth, whose box sum is ordered differently
+    # (reduce_window vs separable) -> a few f32 ulps of ~4 m
+    np.testing.assert_allclose(t["xyz"], j["xyz"], rtol=0, atol=2e-6)
+    # surf_cov: one-pass moments cancel (see test_torch_gicp.py) -> 2e-5
+    np.testing.assert_allclose(t["surf_cov"], j["surf_cov"], rtol=1e-3, atol=2e-5)
+
+
+def test_frame_features_numpy_round_trip(frames):
+    gray, depth = frames[0]
+    ft = t_build(TCamera(**CAM_ARGS), torch.from_numpy(gray), torch.from_numpy(depth),
+                 ExtractorConfig(**EX))
+    back = frame_features_from_numpy(frame_features_to_numpy(ft))
+    for k in ("uv", "xyz", "desc", "valid", "surf_cov", "level"):
+        assert torch.equal(getattr(back, k), getattr(ft, k)), k
+
+
+def test_build_frame_features_rejects_unported_paths(frames):
+    gray, depth = (torch.from_numpy(a) for a in frames[0])
+    with pytest.raises(NotImplementedError):
+        t_build(TCamera(**CAM_ARGS), gray, depth, ExtractorConfig(scale_factor=1.2))
+    with pytest.raises(NotImplementedError):
+        t_build(TCamera(**CAM_ARGS), gray, depth, ExtractorConfig(**EX), descriptor="orb")
+
+
+@pytest.mark.parametrize("trajectory,index", [("sweep", 5), ("orbit", 11)])
+def test_renderer_matches_jax(trajectory, index):
+    cam = dict(CAM_ARGS)
+    dj = jsyn.SyntheticDataset(n_frames=24, cam=JCamera(**cam), trajectory=trajectory)
+    dt = tsyn.SyntheticDataset(n_frames=24, cam=TCamera(**cam), trajectory=trajectory)
+    np.testing.assert_array_equal(dt.poses_twc, dj.poses_twc)
+    np.testing.assert_array_equal(dt.timestamps, dj.timestamps)
+    _, gj, zj = (np.asarray(x) if not isinstance(x, float) else x for x in dj.grab(index))
+    _, gt, zt = dt.grab(index)
+    gt, zt = gt.numpy(), zt.numpy()
+    # The port casts rays with XLA's CPU arithmetic (reciprocal multiplies,
+    # the dot as plain f32 multiply-adds, the hit point rounded once), but
+    # XLA's fusion of the whole ray cast still rounds the depth of some
+    # sweep pixels an ulp apart, and a hit within an ulp of a texel edge
+    # then changes texel. Measured over the 320x240 sweep: at most 0.14 % of
+    # a frame's pixels (orbit frames: none). Depth agrees to f32 precision;
+    # the texel changes are held under 0.3 %.
+    np.testing.assert_allclose(zt, zj, rtol=1e-6, atol=0)
+    differ = np.abs(gt - gj) > 1e-3
+    assert differ.mean() < 3e-3, differ.mean()
+    np.testing.assert_allclose(gt[~differ], gj[~differ], rtol=0, atol=1e-3)
+
+
+def test_texture_hash_bit_exact():
+    rng = np.random.default_rng(0)
+    p = rng.uniform(-7, 7, size=(4096, 3)).astype(np.float32)
+    a = np.asarray(jsyn.texture(jnp.asarray(p)))
+    b = tsyn.texture(torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(b, a)

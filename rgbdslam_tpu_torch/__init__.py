@@ -1,4 +1,5 @@
-"""rgbdslam_tpu_torch — the RGB-D SLAM tracking step in PyTorch, with
+"""rgbdslam_tpu_torch — serial RGB-D SLAM (tracking, keyframes, proximity
+edges, BoW loop closure, pose-graph optimization) in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `rgbdslam_tpu` (JAX/XLA/Pallas), which stays the reference it is
@@ -11,10 +12,13 @@ Subpackages:
   geometry  SE(3) math, pinhole RGB-D camera model
   ops       image ops, FAST/Shi-Tomasi detection, BRIEF, Hamming, and the
             CUDA kernel wrappers (ops/kernels.py, sources in csrc/)
-  frontend  per-frame feature build + matching
-  solvers   Horn fit, Mahalanobis RANSAC, plane-to-plane GICP
-  slam      PipelinedOdometry (the per-frame tracking step over a sequence)
-  io        synthetic renderer, TUM trajectory files
+  frontend  extractor, per-frame feature build + matching
+  solvers   Horn fit, Mahalanobis RANSAC, plane-to-plane GICP, pose-graph
+            Levenberg-Marquardt (dense and matrix-free CG)
+  mapping   keyframe and landmark stores, covisibility (host numpy)
+  loop      binary codebook, BoW vectors, loop-candidate detection
+  slam      Tracker, SlamSystem (serial full SLAM), PipelinedOdometry
+  io        synthetic renderer (box room, multi-room), TUM trajectory files
   eval      ATE/RPE
 """
 

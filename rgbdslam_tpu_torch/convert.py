@@ -1,9 +1,11 @@
 """State carried between the JAX package and the port (numpy only).
 
 The system has no learned weights. What a run carries is its config, the
-BRIEF pattern (the same numpy draw in both packages) and the per-frame
-features the next frame is matched against. Descriptor words cross as
-uint32 bits viewed as int32.
+BRIEF pattern (the same numpy draw in both packages), the per-frame
+features the next frame is matched against, the vocabulary, the keyframe
+bank and pose-graph edges (the per-keyframe result blob is one f32 array:
+`torch.from_numpy` / `.numpy()` carry it). Descriptor words cross as uint32
+bits viewed as int32.
 """
 
 from __future__ import annotations
@@ -62,3 +64,49 @@ def frame_features_to_numpy(f) -> Dict[str, np.ndarray]:
             a = a.view(np.uint32)
         out[name] = a
     return out
+
+
+def desc_words_from_numpy(a: np.ndarray, device="cpu"):
+    """uint32 descriptor or vocabulary words (..., 8) as an int32 tensor of
+    the same bit patterns."""
+    import torch
+
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32),
+                           device=device)
+
+
+def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cpu"):
+    """(words (V, 8) int32 bit patterns, idf (V,) f32) on `device` from the
+    JAX package's uint32 words and f32 idf."""
+    import torch
+
+    return (desc_words_from_numpy(words, device),
+            torch.as_tensor(np.asarray(idf, dtype=np.float32), device=device))
+
+
+def bank_from_numpy(desc: np.ndarray, xyz: np.ndarray, valid: np.ndarray,
+                    bow: np.ndarray, device="cpu"):
+    """The device keyframe bank (D, X, V, B) of slam/system.py from host
+    arrays: desc (K, N, 8) uint32, xyz (K, N, 3) f32, valid (K, N) bool, bow
+    (K, Vw) f32. The tensors are fresh copies (the bank is updated in place)."""
+    import torch
+
+    return (desc_words_from_numpy(desc, device).clone(),
+            torch.tensor(np.asarray(xyz, dtype=np.float32), device=device),
+            torch.tensor(np.asarray(valid, dtype=bool), device=device),
+            torch.tensor(np.asarray(bow, dtype=np.float32), device=device))
+
+
+def pose_graph_edges_from_numpy(a, b, Z, weight, device="cpu"):
+    """solvers.pose_graph.PoseGraphEdges from the JAX package's edge arrays
+    (int32 indices become int64)."""
+    import torch
+
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
+
+    return PoseGraphEdges(
+        a=torch.as_tensor(np.asarray(a, dtype=np.int64), device=device),
+        b=torch.as_tensor(np.asarray(b, dtype=np.int64), device=device),
+        Z=torch.as_tensor(np.asarray(Z, dtype=np.float32), device=device),
+        weight=torch.as_tensor(np.asarray(weight, dtype=np.float32), device=device))
+

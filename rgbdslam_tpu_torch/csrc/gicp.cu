@@ -1,9 +1,14 @@
-// K4: the whole plane-to-plane GICP Gauss-Newton refinement in one launch.
+// K4: the whole plane-to-plane GICP Gauss-Newton refinement in one launch,
+// and K5: one normal-equation build of the same problem.
 //
-// Replaces: rgbdslam_tpu/ops/pallas_kernels.py gicp_refine_kernel (790-825),
+// K4 replaces: rgbdslam_tpu/ops/pallas_kernels.py gicp_refine_kernel (790-825),
 // bodies _gicp_loop_kernel (731-762), _gicp_iteration (559-632),
 // _se3_exp_compose (674-707); the solve of _chol6_solve_neg (635-671) is
 // replaced, see solve6_neg.
+// K5 replaces: gicp_gn_normal_equations (828-862), body _gicp_gn_kernel
+// (710-728): K4's round without the solve. Both entries share the per-point
+// device function accumulate_point and the block reduction reduce_sums, so
+// their sums agree bit for bit at the same pose.
 //
 // Each of `iters` rounds: q = R p1 + t, r = q - p2; S = R C1 R^T + C2 and
 // W = S^-1 by adjugate; gate |r|^2 < max_dist^2 on valid slots; reduce the
@@ -22,7 +27,12 @@
 // Pallas kernel's order), a shared-memory tree combines them, thread 0 does
 // the damped 6x6 solve and the SE(3) exp-compose and publishes R and t
 // through shared memory for the next round. Output: R, t, the last round's
-// cost and count.
+// cost and count. K5 is the same block doing one build at the given pose
+// and writing the 29 sums (21 upper-triangular H entries, 6 of b, cost,
+// gated count); it is bound like K4 by one block reduction's latency: it
+// reads 1024 x 25 floats (100 KB) and does ~0.2 MFLOP. The TPU kernel's
+// (24*8, N/8) planes and (32, 128) output tile are VMEM tiling and are not
+// carried over.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,6 +121,93 @@ __device__ __forceinline__ float sym(const float* C, int i, int j) {
   return i <= j ? C[3 * i + j] : C[3 * j + i];
 }
 
+// One correspondence's contribution to the 29 sums at pose (R, t): the
+// per-point arithmetic of _gicp_iteration (pallas_kernels.py:559-632), in
+// its operation order.
+__device__ __forceinline__ void accumulate_point(
+    const float R[3][3], const float t[3], const float* __restrict__ p1,
+    const float* __restrict__ p2, const float* __restrict__ C1,
+    const float* __restrict__ C2, const unsigned char* __restrict__ valid,
+    int p, float max_dist2, float acc[kSums]) {
+  const float x1[3] = {p1[3 * p], p1[3 * p + 1], p1[3 * p + 2]};
+  const float x2[3] = {p2[3 * p], p2[3 * p + 1], p2[3 * p + 2]};
+  const float* c1 = C1 + 9 * p;
+  const float* c2 = C2 + 9 * p;
+  float q[3], r[3];
+  for (int i = 0; i < 3; ++i) {
+    q[i] = R[i][0] * x1[0] + R[i][1] * x1[1] + R[i][2] * x1[2] + t[i];
+    r[i] = q[i] - x2[i];
+  }
+  // S = R C1 R^T + C2, six unique entries
+  float S[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = i; j < 3; ++j) {
+      float s = 0.0f;
+      bool first = true;
+      for (int k = 0; k < 3; ++k)
+        for (int l = 0; l < 3; ++l) {
+          const float term = (R[i][k] * R[j][l]) * sym(c1, k, l);
+          s = first ? term : s + term;
+          first = false;
+        }
+      S[i][j] = s + sym(c2, i, j);
+    }
+  const float a = S[0][0], b = S[0][1], c = S[0][2];
+  const float d = S[1][1], e = S[1][2], f = S[2][2];
+  const float A11 = d * f - e * e;
+  const float A12 = c * e - b * f;
+  const float A13 = b * e - c * d;
+  const float A22 = a * f - c * c;
+  const float A23 = b * c - a * e;
+  const float A33 = a * d - b * b;
+  const float det = a * A11 + b * A12 + c * A13;
+  const float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
+  const float Wu[3][3] = {{A11 * inv_det, A12 * inv_det, A13 * inv_det},
+                          {0.0f, A22 * inv_det, A23 * inv_det},
+                          {0.0f, 0.0f, A33 * inv_det}};
+  float W[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) W[i][j] = i <= j ? Wu[i][j] : Wu[j][i];
+
+  const float dist2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
+  const float gate = (valid[p] && dist2 < max_dist2) ? 1.0f : 0.0f;
+
+  // J = [I3 | -hat(q)]; columns as 3-vectors
+  float cols[6][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f},
+                      {0.0f, -q[2], q[1]}, {q[2], 0.0f, -q[0]}, {-q[1], q[0], 0.0f}};
+  float Wc[6][3];
+  for (int cc = 0; cc < 6; ++cc)
+    for (int i = 0; i < 3; ++i)
+      Wc[cc][i] = W[i][0] * cols[cc][0] + W[i][1] * cols[cc][1] + W[i][2] * cols[cc][2];
+  int k = 0;
+  for (int i = 0; i < 6; ++i)
+    for (int j = i; j < 6; ++j) {
+      const float hij = cols[i][0] * Wc[j][0] + cols[i][1] * Wc[j][1] + cols[i][2] * Wc[j][2];
+      acc[k++] += hij * gate;
+    }
+  for (int i = 0; i < 6; ++i) {
+    const float bi = Wc[i][0] * r[0] + Wc[i][1] * r[1] + Wc[i][2] * r[2];
+    acc[21 + i] += bi * gate;
+  }
+  float wr[3];
+  for (int i = 0; i < 3; ++i) wr[i] = W[i][0] * r[0] + W[i][1] * r[1] + W[i][2] * r[2];
+  acc[27] += (r[0] * wr[0] + r[1] * wr[1] + r[2] * wr[2]) * gate;
+  acc[28] += gate;
+}
+
+// Sum every thread's 29 partials over the block; the totals land in
+// s_red[k][0] (a shared-memory tree, so the order is fixed).
+__device__ __forceinline__ void reduce_sums(float (*s_red)[kThreads],
+                                            const float acc[kSums], int tid) {
+  for (int k = 0; k < kSums; ++k) s_red[k][tid] = acc[k];
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride)
+      for (int k = 0; k < kSums; ++k) s_red[k][tid] += s_red[k][tid + stride];
+    __syncthreads();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 gicp_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
             const float* __restrict__ p2, const float* __restrict__ C1,
@@ -139,80 +236,10 @@ gicp_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
     float acc[kSums];
     for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
 
-    for (int p = tid; p < n; p += kThreads) {
-      const float x1[3] = {p1[3 * p], p1[3 * p + 1], p1[3 * p + 2]};
-      const float x2[3] = {p2[3 * p], p2[3 * p + 1], p2[3 * p + 2]};
-      const float* c1 = C1 + 9 * p;
-      const float* c2 = C2 + 9 * p;
-      float q[3], r[3];
-      for (int i = 0; i < 3; ++i) {
-        q[i] = R[i][0] * x1[0] + R[i][1] * x1[1] + R[i][2] * x1[2] + t[i];
-        r[i] = q[i] - x2[i];
-      }
-      // S = R C1 R^T + C2, six unique entries
-      float S[3][3];
-      for (int i = 0; i < 3; ++i)
-        for (int j = i; j < 3; ++j) {
-          float s = 0.0f;
-          bool first = true;
-          for (int k = 0; k < 3; ++k)
-            for (int l = 0; l < 3; ++l) {
-              const float term = (R[i][k] * R[j][l]) * sym(c1, k, l);
-              s = first ? term : s + term;
-              first = false;
-            }
-          S[i][j] = s + sym(c2, i, j);
-        }
-      const float a = S[0][0], b = S[0][1], c = S[0][2];
-      const float d = S[1][1], e = S[1][2], f = S[2][2];
-      const float A11 = d * f - e * e;
-      const float A12 = c * e - b * f;
-      const float A13 = b * e - c * d;
-      const float A22 = a * f - c * c;
-      const float A23 = b * c - a * e;
-      const float A33 = a * d - b * b;
-      const float det = a * A11 + b * A12 + c * A13;
-      const float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-      const float Wu[3][3] = {{A11 * inv_det, A12 * inv_det, A13 * inv_det},
-                              {0.0f, A22 * inv_det, A23 * inv_det},
-                              {0.0f, 0.0f, A33 * inv_det}};
-      float W[3][3];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) W[i][j] = i <= j ? Wu[i][j] : Wu[j][i];
+    for (int p = tid; p < n; p += kThreads)
+      accumulate_point(R, t, p1, p2, C1, C2, valid, p, max_dist2, acc);
 
-      const float dist2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
-      const float gate = (valid[p] && dist2 < max_dist2) ? 1.0f : 0.0f;
-
-      // J = [I3 | -hat(q)]; columns as 3-vectors
-      float cols[6][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f},
-                          {0.0f, -q[2], q[1]}, {q[2], 0.0f, -q[0]}, {-q[1], q[0], 0.0f}};
-      float Wc[6][3];
-      for (int cc = 0; cc < 6; ++cc)
-        for (int i = 0; i < 3; ++i)
-          Wc[cc][i] = W[i][0] * cols[cc][0] + W[i][1] * cols[cc][1] + W[i][2] * cols[cc][2];
-      int k = 0;
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) {
-          const float hij = cols[i][0] * Wc[j][0] + cols[i][1] * Wc[j][1] + cols[i][2] * Wc[j][2];
-          acc[k++] += hij * gate;
-        }
-      for (int i = 0; i < 6; ++i) {
-        const float bi = Wc[i][0] * r[0] + Wc[i][1] * r[1] + Wc[i][2] * r[2];
-        acc[21 + i] += bi * gate;
-      }
-      float wr[3];
-      for (int i = 0; i < 3; ++i) wr[i] = W[i][0] * r[0] + W[i][1] * r[1] + W[i][2] * r[2];
-      acc[27] += (r[0] * wr[0] + r[1] * wr[1] + r[2] * wr[2]) * gate;
-      acc[28] += gate;
-    }
-
-    for (int k = 0; k < kSums; ++k) s_red[k][tid] = acc[k];
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-      if (tid < stride)
-        for (int k = 0; k < kSums; ++k) s_red[k][tid] += s_red[k][tid + stride];
-      __syncthreads();
-    }
+    reduce_sums(s_red, acc, tid);
     if (tid == 0) {
       float Hs[21], bs[6], x[6];
       for (int k = 0; k < 21; ++k) Hs[k] = s_red[k][0];
@@ -247,6 +274,28 @@ gicp_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
   }
 }
 
+// K5: the 29 sums of one build at pose T0, no solve.
+__global__ void __launch_bounds__(kThreads)
+gicp_gn_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
+               const float* __restrict__ p2, const float* __restrict__ C1,
+               const float* __restrict__ C2,
+               const unsigned char* __restrict__ valid, int n, float max_dist2,
+               float* __restrict__ out) {
+  __shared__ float s_red[kSums][kThreads];
+  const int tid = threadIdx.x;
+  float R[3][3], t[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) R[i][j] = T0[4 * i + j];
+    t[i] = T0[4 * i + 3];
+  }
+  float acc[kSums];
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  for (int p = tid; p < n; p += kThreads)
+    accumulate_point(R, t, p1, p2, C1, C2, valid, p, max_dist2, acc);
+  reduce_sums(s_red, acc, tid);
+  if (tid < kSums) out[tid] = s_red[tid][0];
+}
+
 }  // namespace
 
 extern "C" int rgbd_gicp_refine(const void* T, const void* p1, const void* p2,
@@ -256,6 +305,16 @@ extern "C" int rgbd_gicp_refine(const void* T, const void* p1, const void* p2,
   gicp_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)T, (const float*)p1, (const float*)p2, (const float*)C1,
       (const float*)C2, (const unsigned char*)valid, n, iters, max_dist2,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rgbd_gicp_gn(const void* T, const void* p1, const void* p2,
+                            const void* C1, const void* C2, const void* valid,
+                            int n, float max_dist2, void* out, void* stream) {
+  gicp_gn_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)T, (const float*)p1, (const float*)p2, (const float*)C1,
+      (const float*)C2, (const unsigned char*)valid, n, max_dist2,
       (float*)out);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,11 @@
 // 2^20, ties go to the lowest index, second is the minimum over j != best
 // (so a tie with the best gives second == best), a row with no valid pair
 // gets index 0 and distances 2^20.
+//
+// Batch: blockIdx.z is the batch entry (the keyframe backend verifies its
+// candidate keyframes against one frame in a single launch). Either side
+// may be shared by all entries (batch stride 0); outputs and the column
+// keys are per entry. The unbatched call is the batch of one.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -34,9 +39,23 @@ __global__ void __launch_bounds__(kWarps * 32)
 hamming_kernel(const unsigned* __restrict__ d1, const unsigned* __restrict__ d2,
                const unsigned char* __restrict__ v1,
                const unsigned char* __restrict__ v2, int n, int m,
+               int batched1, int batched2,
                int* __restrict__ best_idx, int* __restrict__ best_dist,
                int* __restrict__ second_dist,
                unsigned long long* __restrict__ col_key) {
+  const size_t z = blockIdx.z;
+  if (batched1) {
+    d1 += z * (size_t)n * 8;
+    v1 += z * (size_t)n;
+  }
+  if (batched2) {
+    d2 += z * (size_t)m * 8;
+    v2 += z * (size_t)m;
+  }
+  best_idx += z * (size_t)n;
+  best_dist += z * (size_t)n;
+  second_dist += z * (size_t)n;
+  col_key += z * (size_t)m;
   __shared__ unsigned s_d2[8][kChunk];
   __shared__ unsigned char s_v2[kChunk];
   __shared__ unsigned long long s_col[kChunk];
@@ -110,27 +129,32 @@ hamming_kernel(const unsigned* __restrict__ d1, const unsigned* __restrict__ d2,
   }
 }
 
+// total = batch * m entries, laid out alike in both arrays
 __global__ void col_best_kernel(const unsigned long long* __restrict__ col_key,
-                                int m, int* __restrict__ col_best_row) {
+                                int total, int* __restrict__ col_best_row) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < m) col_best_row[j] = (int)(col_key[j] & 0xffffffffull);
+  if (j < total) col_best_row[j] = (int)(col_key[j] & 0xffffffffull);
 }
 
 }  // namespace
 
 extern "C" int rgbd_hamming_match_2nn(const void* d1, const void* d2,
                                       const void* v1, const void* v2, int n,
-                                      int m, void* best_idx, void* best_dist,
+                                      int m, int batch, int batched1,
+                                      int batched2, void* best_idx,
+                                      void* best_dist,
                                       void* second_dist, void* col_key,
                                       void* col_best_row, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  hamming_kernel<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+  const dim3 grid((n + kWarps - 1) / kWarps, 1, batch);
+  hamming_kernel<<<grid, kWarps * 32, 0, s>>>(
       (const unsigned*)d1, (const unsigned*)d2, (const unsigned char*)v1,
-      (const unsigned char*)v2, n, m, (int*)best_idx, (int*)best_dist,
-      (int*)second_dist, (unsigned long long*)col_key);
+      (const unsigned char*)v2, n, m, batched1, batched2, (int*)best_idx,
+      (int*)best_dist, (int*)second_dist, (unsigned long long*)col_key);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  col_best_kernel<<<(m + 255) / 256, 256, 0, s>>>(
-      (const unsigned long long*)col_key, m, (int*)col_best_row);
+  const int total = batch * m;
+  col_best_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+      (const unsigned long long*)col_key, total, (int*)col_best_row);
   return (int)cudaGetLastError();
 }

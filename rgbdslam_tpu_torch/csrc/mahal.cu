@@ -19,6 +19,11 @@
 // Pallas kernel's operation order, and the library is built with
 // -fmad=false, so m^2 rounds exactly as in the plain version and the counts
 // agree exactly; only the order of the float sum differs.
+//
+// Batch: blockIdx.y is the batch entry with its own hypotheses,
+// correspondences and validity (the keyframe backend scores the RANSAC
+// hypotheses of all its candidate keyframes in one launch). The unbatched
+// call is the batch of one.
 
 #include <cuda_runtime.h>
 
@@ -35,7 +40,14 @@ mahal_kernel(const float* __restrict__ T, const float* __restrict__ p1,
   __shared__ int s_cnt[kThreads];
   __shared__ float s_err[kThreads];
 
-  const float* Th = T + blockIdx.x * 16;
+  const size_t z = blockIdx.y;
+  const size_t hyp = z * gridDim.x + blockIdx.x;
+  p1 += z * (size_t)n * 3;
+  p2 += z * (size_t)n * 3;
+  s1 += z * (size_t)n * 3;
+  s2 += z * (size_t)n * 3;
+  valid += z * (size_t)n;
+  const float* Th = T + hyp * 16;
   const float R0 = Th[0], R1 = Th[1], R2 = Th[2], tx = Th[3];
   const float R3 = Th[4], R4 = Th[5], R5 = Th[6], ty = Th[7];
   const float R6 = Th[8], R7 = Th[9], R8 = Th[10], tz = Th[11];
@@ -88,8 +100,8 @@ mahal_kernel(const float* __restrict__ T, const float* __restrict__ p1,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    cnt_out[blockIdx.x] = s_cnt[0];
-    err_out[blockIdx.x] = s_err[0];
+    cnt_out[hyp] = s_cnt[0];
+    err_out[hyp] = s_err[0];
   }
 }
 
@@ -98,9 +110,9 @@ mahal_kernel(const float* __restrict__ T, const float* __restrict__ p1,
 extern "C" int rgbd_mahal_hypothesis_scores(const void* T, const void* p1,
                                             const void* p2, const void* s1,
                                             const void* s2, const void* valid,
-                                            int h, int n, float th, void* cnt,
-                                            void* err, void* stream) {
-  mahal_kernel<<<h, kThreads, 0, (cudaStream_t)stream>>>(
+                                            int batch, int h, int n, float th,
+                                            void* cnt, void* err, void* stream) {
+  mahal_kernel<<<dim3(h, batch), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)T, (const float*)p1, (const float*)p2, (const float*)s1,
       (const float*)s2, (const unsigned char*)valid, n, th, (int*)cnt,
       (float*)err);

@@ -53,9 +53,11 @@ class FrameFeatures:
 
 def build_frame_features(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
                          cfg: ExtractorConfig = ExtractorConfig(),
-                         descriptor: str = "brief") -> FrameFeatures:
+                         descriptor: str = "brief",
+                         fast_threshold: float | None = None) -> FrameFeatures:
     """gray [H, W] f32 (0..255), depth [H, W] f32 meters -> FrameFeatures,
-    on the tensors' device."""
+    on the tensors' device. `fast_threshold` overrides cfg.fast_threshold
+    (the ADAPTIVE extractor's feedback)."""
     if cfg.scale_factor != 2.0:
         raise NotImplementedError("the x1.2 ORB scale space is not yet ported "
                                   "(scale_factor must be 2.0)")
@@ -68,7 +70,7 @@ def build_frame_features(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
         pyramid,
         num_features=cfg.num_features,
         cell_size=cfg.cell_size,
-        fast_threshold=cfg.fast_threshold,
+        fast_threshold=cfg.fast_threshold if fast_threshold is None else fast_threshold,
         min_response=cfg.min_response,
         min_border=cfg.min_border,
     )
@@ -106,3 +108,34 @@ def _assemble_features(cam: Camera, gray, depth, kp, desc) -> FrameFeatures:
         level=kp.level, valid=kp.valid, has_depth=has_depth,
         intensity=intensity, smooth=smooth, surf_cov=surf_cov,
     )
+
+
+def pack_features_for_host(f: FrameFeatures) -> torch.Tensor:
+    """Everything the host-side keyframe store needs as one (N, 16) f32
+    tensor, so the device-to-host copy is a single transfer. Layout:
+    [uv_undist(2) | xyz(3) | desc(8, bit patterns) | intensity(1) |
+    obs_valid(1) | smooth(1)]. The descriptor words cross as f32 bit
+    patterns (a copy is bit-exact; the host views them back as uint32)."""
+    return torch.cat(
+        [
+            f.uv_undist,
+            f.xyz,
+            f.desc.view(torch.float32),
+            f.intensity[:, None],
+            f.obs_valid[:, None].to(torch.float32),
+            f.smooth[:, None].to(torch.float32),
+        ],
+        dim=1,
+    )
+
+
+def pack_features_slim(f: FrameFeatures) -> torch.Tensor:
+    """Descriptor-free host packing, (N, 4): [uv_undist(2) | z(1) |
+    4*round(intensity) + obs_valid + 2*smooth (1)]. The host rebuilds xyz
+    from (uv_undist, z) with the pinhole unprojection the device used;
+    descriptors stay in the device bank. The flag lane is at most 1023 and
+    exact in f32."""
+    flags = (4.0 * torch.round(torch.clamp(f.intensity, 0.0, 255.0))
+             + f.obs_valid.to(torch.float32)
+             + 2.0 * f.smooth.to(torch.float32))
+    return torch.cat([f.uv_undist, f.xyz[:, 2:3], flags[:, None]], dim=1)

@@ -37,7 +37,8 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     """2-NN ratio + mutual-nearest matching on packed descriptors: (i -> j)
     is kept iff j is i's nearest train, i is j's nearest query, and the
     Lowe ratio passes. Kernel K2 for CUDA tensors, its plain version for
-    CPU tensors."""
+    CPU tensors. The query side may carry a leading batch dimension
+    ((B, N1, 8), (B, N1)) against one train set: one launch for all."""
     if desc1.dtype.is_floating_point:
         raise NotImplementedError("float (L2) descriptors are not yet ported")
     if kernels.on_cuda(desc1, desc2):
@@ -48,8 +49,8 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
         best_idx, best_dist, second, col_best = kernels.hamming_match_2nn_ref(
             desc1, desc2, valid1, valid2)
     ratio_ok = best_dist.to(torch.float32) < ratio * second.to(torch.float32)
-    rows = torch.arange(desc1.shape[0], dtype=torch.int32, device=desc1.device)
-    mutual = col_best[best_idx.long()] == rows
+    rows = torch.arange(desc1.shape[-2], dtype=torch.int32, device=desc1.device)
+    mutual = torch.gather(col_best, -1, best_idx.long()) == rows
     valid = ratio_ok & mutual & valid1 & (best_dist < BIG_DIST)
     return MatchResult(idx2=best_idx, dist=best_dist, valid=valid)
 
@@ -66,8 +67,8 @@ def correspondence_weights(p1: torch.Tensor, p2: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """Fit weights 1/(z1*z2) for matched 3-D pairs, zero where invalid
     (Solver/SolverSE3.cpp:174)."""
-    z1 = torch.clamp_min(p1[:, 2], 1e-6)
-    z2 = torch.clamp_min(p2[:, 2], 1e-6)
+    z1 = torch.clamp_min(p1[..., 2], 1e-6)
+    z2 = torch.clamp_min(p2[..., 2], 1e-6)
     return torch.where(valid, 1.0 / (z1 * z2), 0.0)
 
 

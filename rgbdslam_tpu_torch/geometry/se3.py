@@ -83,6 +83,105 @@ def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def inverse(T: torch.Tensor) -> torch.Tensor:
+    """Rigid-transform inverse [R^T | -R^T t] (no linear solve)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return from_Rt(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map of SO(3): (..., 3, 3) -> (..., 3), for angles up to pi.
+
+    The generic branch normalises by |w| = 2 sin(theta) from the skew part;
+    near pi the axis comes from the column of R + I with the largest
+    diagonal entry, signed to agree with w."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    w = vee(R - R.transpose(-1, -2))
+    w_norm = torch.linalg.norm(w, dim=-1)
+    theta = torch.atan2(w_norm, trace - 1.0)
+    small = w_norm < 1e-6
+    scale = torch.where(small, 0.5 + theta * theta / 12.0,
+                        theta / torch.where(small, 1.0, w_norm))
+    generic = w * scale[..., None]
+    B = R + _eye3(R)
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    largest = torch.argmax(diag, dim=-1)
+    col = torch.take_along_dim(
+        B, largest[..., None, None].expand(B.shape[:-1] + (1,)), dim=-1)[..., :, 0]
+    axis = col / torch.clamp_min(torch.linalg.norm(col, dim=-1, keepdim=True), 1e-12)
+    w_dot = torch.sum(axis * w, dim=-1, keepdim=True)
+    axis = torch.where(w_dot < 0, -axis, axis)
+    near_pi = theta > (np.pi - 3e-4)
+    return torch.where(near_pi[..., None], axis * theta[..., None], generic)
+
+
+def _so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    half = 0.5 * theta
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp_min(torch.sin(half), 1e-20))
+        / torch.clamp_min(theta2, _EPS * _EPS))
+    W = hat(phi)
+    return _eye3(phi) - 0.5 * W + cot[..., None, None] * (W @ W)
+
+
+def log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) log map: (..., 4, 4) -> (..., 6) [rho, phi]."""
+    phi = so3_log(T[..., :3, :3])
+    rho = (_so3_left_jacobian_inv(phi) @ T[..., :3, 3, None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+def so3_log_smooth(R: torch.Tensor) -> torch.Tensor:
+    """atan2-based SO(3) log, smooth at the identity (valid for theta < pi):
+    the form Gauss-Newton residuals and their derivatives use."""
+    w = vee(R - R.transpose(-1, -2))
+    s = torch.sqrt(torch.sum(w * w, dim=-1) + 1e-20)
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.atan2(s, tr - 1.0)
+    small = s < 1e-6
+    s_safe = torch.where(small, 1.0, s)
+    factor = torch.where(small, 0.5 + theta * theta / 12.0, theta / s_safe)
+    return w * factor[..., None]
+
+
+def log_smooth(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) log with smooth derivatives near the identity: (..., 4, 4) ->
+    (..., 6) [rho, phi]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    phi = so3_log_smooth(R)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, 1.0, theta2)
+    half = 0.5 * torch.sqrt(theta2_safe)
+    sin_half = torch.sin(half)
+    sin_half_safe = torch.where(torch.abs(sin_half) < 1e-8, 1e-8, sin_half)
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - half * torch.cos(half) / sin_half_safe) / theta2_safe)
+    W = hat(phi)
+    Jinv = _eye3(T) - 0.5 * W + coef[..., None, None] * (W @ W)
+    rho = (Jinv @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
 def inverse_np(T):
     """Host-numpy closed-form inverse of (..., 4, 4) pose stacks:
     [R^T | -R^T t] (the same form the device uses)."""

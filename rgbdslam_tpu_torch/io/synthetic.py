@@ -17,6 +17,27 @@ import torch
 from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC, Camera, undistort_normalized
 
 ROOM_HALF = (3.0, 2.0, 3.0)           # box half-extents (x, y, z)
+
+# The multi-room world: a 12 x 4 x 6 m shell split by a doorway wall, with
+# solid crates and pillars in each room (occlusion boundaries, depth
+# discontinuities, and loop closures that pass through a different place).
+MULTIROOM_HALF = (6.0, 2.0, 3.0)
+MULTIROOM_BOXES = np.array(
+    [
+        # dividing wall at x ~ 0, full height, doorway gap |z| < 0.7
+        [[-0.1, -2.0, -3.0], [0.1, 2.0, -0.7]],
+        [[-0.1, -2.0, 0.7], [0.1, 2.0, 3.0]],
+        # room A (x < 0): corner crates + a pillar
+        [[-5.6, -2.0, 1.9], [-4.7, -0.4, 2.7]],
+        [[-5.4, -2.0, -2.7], [-4.6, -0.9, -2.0]],
+        [[-2.3, -2.0, -2.8], [-1.7, 0.6, -2.2]],
+        # room B (x > 0): crates + a pillar
+        [[4.6, -2.0, 1.8], [5.4, -0.3, 2.6]],
+        [[4.8, -2.0, -2.7], [5.6, -1.0, -1.9]],
+        [[1.7, -2.0, 2.2], [2.3, 0.5, 2.8]],
+    ],
+    dtype=np.float32,
+)
 _M32 = 0xFFFFFFFF
 
 
@@ -48,10 +69,13 @@ def texture(p: torch.Tensor) -> torch.Tensor:
             + 0.18 * _blocky_noise(p, 11.0, 3) + 0.07 * _blocky_noise(p, 23.0, 4))
 
 
-def render_frame(cam: Camera, Twc, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def render_frame(cam: Camera, Twc, device="cpu", room_half=None, boxes=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ray-cast one frame of the box room: (gray [H, W] f32 in [0, 255],
     depth [H, W] f32 meters along camera z) on `device`. Twc:
-    camera-to-world (4, 4). The multi-room world is not yet ported."""
+    camera-to-world (4, 4). room_half: shell half-extents (default
+    ROOM_HALF); boxes: optional (Nb, 2, 3) solid boxes [min, max] inside the
+    shell (the multi-room world)."""
     dev = torch.device(device)
     Twc = torch.as_tensor(np.asarray(Twc, dtype=np.float32), device=dev)
     h, w = cam.height, cam.width
@@ -70,7 +94,8 @@ def render_frame(cam: Camera, Twc, device="cpu") -> Tuple[torch.Tensor, torch.Te
     # matmul sums in its own order, and cuBLAS with FMAs)
     x, y = xn[..., 0], xn[..., 1]
     d_world = torch.stack([x * R[i, 0] + y * R[i, 1] + R[i, 2] for i in range(3)], dim=-1)
-    half = torch.as_tensor(ROOM_HALF, dtype=torch.float32, device=dev)
+    half = torch.as_tensor(ROOM_HALF if room_half is None else room_half,
+                           dtype=torch.float32, device=dev)
 
     t_best = torch.full((h, w), float("inf"), dtype=torch.float32, device=dev)
     for axis in range(3):
@@ -84,6 +109,19 @@ def render_frame(cam: Camera, Twc, device="cpu") -> Tuple[torch.Tensor, torch.Te
                 if other != axis:
                     ok = ok & (torch.abs(hit[..., other]) <= half[other] + 1e-4)
             t_best = torch.where(ok & (t < t_best), t, t_best)
+
+    if boxes is not None:
+        # solid boxes, slab method: the entry distance where the ray has
+        # crossed all three slabs (the camera is outside every solid)
+        bx = torch.as_tensor(np.asarray(boxes, dtype=np.float32), device=dev)
+        inv_d = 1.0 / torch.where(torch.abs(d_world) < 1e-9, 1e-9, d_world)
+        t0 = (bx[:, 0] - o) * inv_d[..., None, :]            # (H, W, Nb, 3)
+        t1 = (bx[:, 1] - o) * inv_d[..., None, :]
+        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)   # (H, W, Nb)
+        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        hit_box = (t_near < t_far) & (t_near > 1e-3)
+        t_box = torch.amin(torch.where(hit_box, t_near, float("inf")), dim=-1)
+        t_best = torch.minimum(t_best, t_box)
 
     depth = torch.where(torch.isfinite(t_best), t_best, 0.0)
     # Walls lie on texel boundaries (e.g. z = 3 m at 2 texels/m), so the
@@ -124,6 +162,21 @@ def orbit_trajectory(n_frames: int, radius: float = 1.2, height_amp: float = 0.2
     return np.stack(poses)
 
 
+def tour_trajectory(n_frames: int, loops: float = 1.0) -> np.ndarray:
+    """A figure-eight tour through both rooms of the multi-room world,
+    crossing the doorway (x = 0) at z = 0 twice per revolution: the loop
+    closure case where the revisited place was left for a different one in
+    between. Twc [N, 4, 4]."""
+    poses = []
+    for i in range(n_frames):
+        a = 2.0 * np.pi * loops * i / n_frames
+        eye = np.array([4.2 * np.sin(a), 0.25 * np.sin(2 * a), 1.6 * np.sin(2 * a)])
+        tangent = np.array([4.2 * np.cos(a), 0.5 * np.cos(2 * a), 3.2 * np.cos(2 * a)])
+        tangent /= np.linalg.norm(tangent)
+        poses.append(look_at_pose(eye, eye + tangent))
+    return np.stack(poses)
+
+
 def sweep_trajectory(n_frames: int, span: float = 1.6) -> np.ndarray:
     """A back-and-forth lateral sweep facing one wall — the odometry case."""
     poses = []
@@ -148,18 +201,24 @@ class SyntheticDataset:
         self.cam = cam
         self.fps = fps
         self.device = torch.device(device)
+        self._room_half = None
+        self._boxes = None
         if trajectory == "orbit":
             self.poses_twc = orbit_trajectory(n_frames, loops=loops)
         elif trajectory == "sweep":
             self.poses_twc = sweep_trajectory(n_frames)
+        elif trajectory == "tour":
+            self.poses_twc = tour_trajectory(n_frames, loops=loops)
+            self._room_half = MULTIROOM_HALF
+            self._boxes = MULTIROOM_BOXES
         else:
-            raise NotImplementedError(f"trajectory {trajectory!r} is not yet ported "
-                                      "(sweep, orbit)")
+            raise ValueError(f"unknown trajectory {trajectory!r}")
         self.timestamps = np.arange(n_frames, dtype=np.float64) / fps
 
     def __len__(self) -> int:
         return len(self.poses_twc)
 
     def grab(self, i: int):
-        gray, depth = render_frame(self.cam, self.poses_twc[i], device=self.device)
+        gray, depth = render_frame(self.cam, self.poses_twc[i], device=self.device,
+                                   room_half=self._room_half, boxes=self._boxes)
         return self.timestamps[i], gray, depth

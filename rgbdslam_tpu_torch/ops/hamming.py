@@ -26,13 +26,34 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """(N, W) int32 words -> (N, 32 W) f32 of 0/1, least significant bit
+    first within each word."""
+    shifts = torch.arange(32, dtype=torch.int64, device=desc.device)
+    bits = ((desc.to(torch.int64) & 0xFFFFFFFF)[:, :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[0], -1).to(torch.float32)
+
+
 def hamming_distance_matrix(desc1: torch.Tensor, desc2: torch.Tensor,
                             valid1: torch.Tensor | None = None,
-                            valid2: torch.Tensor | None = None) -> torch.Tensor:
+                            valid2: torch.Tensor | None = None,
+                            impl: str = "popcount") -> torch.Tensor:
     """(N, 8) x (M, 8) words -> (N, M) int32 Hamming distances; pairs with
-    an invalid end are BIG_DIST."""
-    x = desc1[:, None, :] ^ desc2[None, :, :]
-    d = torch.sum(_popcount32(x), dim=-1).to(torch.int32)
+    an invalid end are BIG_DIST.
+
+    impl: 'popcount' (XOR + popcount over the packed words) or 'matmul'
+    (d = pop(a) + pop(b) - 2 bits(a) . bits(b), one (N, 256) x (256, M) f32
+    product of 0/1 values: exact, and the cheaper form when M is a
+    vocabulary of thousands of words). Both give the same integers."""
+    if impl == "matmul":
+        common = unpack_bits(desc1) @ unpack_bits(desc2).T
+        d = (popcount_rows(desc1)[:, None] + popcount_rows(desc2)[None, :]
+             - 2 * common.to(torch.int32))
+    elif impl == "popcount":
+        x = desc1[:, None, :] ^ desc2[None, :, :]
+        d = torch.sum(_popcount32(x), dim=-1).to(torch.int32)
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
     if valid1 is not None:
         d = torch.where(valid1[:, None], d, BIG_DIST)
     if valid2 is not None:

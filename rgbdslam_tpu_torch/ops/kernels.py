@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the tracking step, their launch wrappers and
+"""Hand-written CUDA kernels of the tracking step and of the keyframe
+backend's candidate verification, their launch wrappers and
 their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py).
 
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
@@ -7,6 +8,11 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 | hamming.cu  (K2)         | hamming_match_2nn, 86-150             | hamming_match_2nn_ref      |
 | mahal.cu    (K3)         | mahal_hypothesis_scores, 479-526      | mahal_hypothesis_scores_ref|
 | gicp.cu     (K4)         | gicp_refine_kernel, 790-825           | gicp_refine_ref            |
+| gicp.cu     (K5)         | gicp_gn_normal_equations, 828-862     | gicp_gn_normal_equations_ref|
+
+K2 and K3 take an optional leading batch dimension (one launch whatever
+the batch): the keyframe backend verifies all its candidate keyframes
+against the current frame at once.
 
 A wrapper (`detect_score_map`, ...) takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates its outputs, launches on the
@@ -35,12 +41,18 @@ LAUNCHES = {
     "hamming_match_2nn": 0,
     "mahal_hypothesis_scores": 0,
     "gicp_refine_kernel": 0,
+    "gicp_gn_normal_equations": 0,
 }
 
 
+# of those, the launches that carried a batch dimension (K2 and K3)
+BATCHED_LAUNCHES = {"hamming_match_2nn": 0, "mahal_hypothesis_scores": 0}
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BATCHED_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -125,33 +137,53 @@ def hamming_match_2nn(desc1: torch.Tensor, desc2: torch.Tensor,
     """(best_idx [N], best_dist [N], second_dist [N], col_best_row [M]) by
     csrc/hamming.cu. desc: (N, 8) / (M, 8) int32 words of 32 bits; valid:
     bool. Pairs with an invalid end have distance BIG; ties go to the lowest
-    index; a row with no valid pair gets index 0 and distances BIG."""
-    n, m = desc1.shape[0], desc2.shape[0]
-    _check(desc1, "desc1", torch.int32, (n, 8))
-    _check(desc2, "desc2", torch.int32, (m, 8))
-    _check(valid1, "valid1", torch.bool, (n,))
-    _check(valid2, "valid2", torch.bool, (m,))
-    if n < 1 or m < 1:
+    index; a row with no valid pair gets index 0 and distances BIG.
+
+    Either side may carry a leading batch dimension ((B, N, 8) with
+    (B, N) validity); the other is then shared by every entry or batched
+    alike, and every output gains the batch dimension. One launch."""
+    b1, b2 = desc1.dim() == 3, desc2.dim() == 3
+    batch = desc1.shape[0] if b1 else (desc2.shape[0] if b2 else 1)
+    lead = (batch,) if (b1 or b2) else ()
+    n, m = desc1.shape[-2], desc2.shape[-2]
+    _check(desc1, "desc1", torch.int32, ((batch,) if b1 else ()) + (n, 8))
+    _check(desc2, "desc2", torch.int32, ((batch,) if b2 else ()) + (m, 8))
+    _check(valid1, "valid1", torch.bool, ((batch,) if b1 else ()) + (n,))
+    _check(valid2, "valid2", torch.bool, ((batch,) if b2 else ()) + (m,))
+    if n < 1 or m < 1 or batch < 1:
         raise ValueError("hamming_match_2nn needs at least one query and one train row")
     dev = desc1.device
-    best_idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    best_dist = torch.empty((n,), dtype=torch.int32, device=dev)
-    second = torch.empty((n,), dtype=torch.int32, device=dev)
-    col_best = torch.empty((m,), dtype=torch.int32, device=dev)
+    best_idx = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    best_dist = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    second = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    col_best = torch.empty(lead + (m,), dtype=torch.int32, device=dev)
     # (dist << 32 | row) keys; BIG << 32 gives row 0 to columns with no
     # valid pair, like argmin over a column of BIGs
-    col_key = torch.full((m,), BIG << 32, dtype=torch.int64, device=dev)
+    col_key = torch.full(lead + (m,), BIG << 32, dtype=torch.int64, device=dev)
     _launch("rgbd_hamming_match_2nn", dev, _ptr(desc1), _ptr(desc2),
-            _ptr(valid1), _ptr(valid2), n, m, _ptr(best_idx), _ptr(best_dist),
-            _ptr(second), _ptr(col_key), _ptr(col_best))
+            _ptr(valid1), _ptr(valid2), n, m, batch, int(b1), int(b2),
+            _ptr(best_idx), _ptr(best_dist), _ptr(second), _ptr(col_key),
+            _ptr(col_best))
     LAUNCHES["hamming_match_2nn"] += 1
+    BATCHED_LAUNCHES["hamming_match_2nn"] += int(b1 or b2)
     return best_idx, best_dist, second, col_best
 
 
 def hamming_match_2nn_ref(desc1, desc2, valid1, valid2):
-    """Plain version of K2: the popcount distance matrix + knn2 + column
-    argmin (rgbdslam_tpu/ops/hamming.py:68-75, 77-90)."""
-    d = hamming.hamming_distance_matrix(desc1, desc2, valid1, valid2)
+    """Plain version of K2: the N x M distance matrix + knn2 + column
+    argmin (rgbdslam_tpu/ops/hamming.py:45-90). The matrix comes from the
+    matmul form, which gives the integers of XOR + popcount at a fraction
+    of their cost on a CPU. A batch is a loop over its entries."""
+    b1, b2 = desc1.dim() == 3, desc2.dim() == 3
+    if b1 or b2:
+        batch = desc1.shape[0] if b1 else desc2.shape[0]
+        outs = [hamming_match_2nn_ref(desc1[i] if b1 else desc1,
+                                      desc2[i] if b2 else desc2,
+                                      valid1[i] if b1 else valid1,
+                                      valid2[i] if b2 else valid2)
+                for i in range(batch)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    d = hamming.hamming_distance_matrix(desc1, desc2, valid1, valid2, impl="matmul")
     best_idx, best_dist, second = hamming.knn2(d)
     col_best = torch.argmin(d, dim=0).to(torch.int32)
     return best_idx, best_dist, second, col_best
@@ -167,30 +199,38 @@ def mahal_hypothesis_scores(T_h: torch.Tensor, p1: torch.Tensor, p2: torch.Tenso
                             valid: torch.Tensor, th: float):
     """Inlier count (H,) int32 and sum of m^2 over inliers (H,) f32 per
     hypothesis, by csrc/mahal.cu. T_h (H, 4, 4); p1, p2, s1, s2 (N, 3) f32
-    (s = diagonal sensor covariances); valid (N,) bool; th = max m^2."""
-    H, N = T_h.shape[0], p1.shape[0]
-    _check(T_h, "T_h", torch.float32, (H, 4, 4))
+    (s = diagonal sensor covariances); valid (N,) bool; th = max m^2.
+
+    With a leading batch dimension on every argument (T_h (B, H, 4, 4),
+    points (B, N, 3), valid (B, N)) the outputs are (B, H). One launch."""
+    batched = T_h.dim() == 4
+    lead = (T_h.shape[0],) if batched else ()
+    H, N = T_h.shape[-3], p1.shape[-2]
+    _check(T_h, "T_h", torch.float32, lead + (H, 4, 4))
     for t, name in ((p1, "p1"), (p2, "p2"), (s1, "s1"), (s2, "s2")):
-        _check(t, name, torch.float32, (N, 3))
-    _check(valid, "valid", torch.bool, (N,))
+        _check(t, name, torch.float32, lead + (N, 3))
+    _check(valid, "valid", torch.bool, lead + (N,))
     dev = T_h.device
-    cnt = torch.empty((H,), dtype=torch.int32, device=dev)
-    err = torch.empty((H,), dtype=torch.float32, device=dev)
-    if H == 0:
+    cnt = torch.empty(lead + (H,), dtype=torch.int32, device=dev)
+    err = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
+    if cnt.numel() == 0:
         return cnt, err
     _launch("rgbd_mahal_hypothesis_scores", dev, _ptr(T_h), _ptr(p1), _ptr(p2),
-            _ptr(s1), _ptr(s2), _ptr(valid), H, N, float(th), _ptr(cnt), _ptr(err))
+            _ptr(s1), _ptr(s2), _ptr(valid), lead[0] if batched else 1, H, N,
+            float(th), _ptr(cnt), _ptr(err))
     LAUNCHES["mahal_hypothesis_scores"] += 1
+    BATCHED_LAUNCHES["mahal_hypothesis_scores"] += int(batched)
     return cnt, err
 
 
 def mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th: float):
     """Plain version of K3: the plane-form m^2 of
-    rgbdslam_tpu/solvers/ransac_se3.py:84-129 + the count/sum of 183-189."""
+    rgbdslam_tpu/solvers/ransac_se3.py:84-129 + the count/sum of 183-189,
+    batched alike."""
     from rgbdslam_tpu_torch.solvers.ransac_se3 import mahalanobis_sq_planes
 
-    m2 = mahalanobis_sq_planes(T_h, p1, p2, s1, s2)      # (H, N)
-    inl = (m2 <= th) & valid
+    m2 = mahalanobis_sq_planes(T_h, p1, p2, s1, s2)      # (..., H, N)
+    inl = (m2 <= th) & valid[..., None, :]
     cnt = torch.sum(inl, dim=-1).to(torch.int32)
     err = torch.sum(torch.where(inl, m2, 0.0), dim=-1)
     return cnt, err
@@ -199,6 +239,17 @@ def mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th: float):
 # ---------------------------------------------------------------------------
 # K4: the whole plane-to-plane GICP Gauss-Newton loop
 # ---------------------------------------------------------------------------
+
+
+def _check_gicp_inputs(T, p1, p2, C1, C2, valid) -> int:
+    N = p1.shape[0]
+    _check(T, "T", torch.float32, (4, 4))
+    for t, name in ((p1, "p1"), (p2, "p2")):
+        _check(t, name, torch.float32, (N, 3))
+    for t, name in ((C1, "C1"), (C2, "C2")):
+        _check(t, name, torch.float32, (N, 3, 3))
+    _check(valid, "valid", torch.bool, (N,))
+    return N
 
 
 def gicp_refine_kernel(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
@@ -212,13 +263,7 @@ def gicp_refine_kernel(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     Returns (T (4, 4), cost (), count ()) where cost/count are the gated
     plane-to-plane cost and correspondence count of the last round's build.
     """
-    N = p1.shape[0]
-    _check(T_init, "T_init", torch.float32, (4, 4))
-    for t, name in ((p1, "p1"), (p2, "p2")):
-        _check(t, name, torch.float32, (N, 3))
-    for t, name in ((C1, "C1"), (C2, "C2")):
-        _check(t, name, torch.float32, (N, 3, 3))
-    _check(valid, "valid", torch.bool, (N,))
+    N = _check_gicp_inputs(T_init, p1, p2, C1, C2, valid)
     out = torch.empty((18,), dtype=torch.float32, device=T_init.device)
     _launch("rgbd_gicp_refine", T_init.device, _ptr(T_init), _ptr(p1), _ptr(p2),
             _ptr(C1), _ptr(C2), _ptr(valid), N, int(iters),
@@ -243,3 +288,53 @@ def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):
         W = _inv3x3(C1r + C2)
         T, cost, count = _gn_step(T, p1, p2, W, valid, max_dist)
     return T, cost, count
+
+
+# ---------------------------------------------------------------------------
+# K5: one plane-to-plane GICP normal-equation build
+# ---------------------------------------------------------------------------
+
+
+def gicp_gn_normal_equations(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                             C1: torch.Tensor, C2: torch.Tensor,
+                             valid: torch.Tensor, max_dist: float):
+    """One Gauss-Newton build at pose T by csrc/gicp.cu (`rgbd_gicp_gn`):
+    (H (6, 6), b (6,), cost (), count ()) of min sum r^T W r with
+    r = R p1 + t - p2, W = (R C1 R^T + C2)^-1, J = [I | -hat(R p1 + t)],
+    over valid pairs with |r| < max_dist. No damping, no solve: it is one
+    round of `gicp_refine_kernel` up to the block reduction. The kernel
+    writes the 21 upper-triangular entries of H; the symmetric H is
+    assembled here."""
+    _check_gicp_inputs(T, p1, p2, C1, C2, valid)
+    out = torch.empty((29,), dtype=torch.float32, device=T.device)
+    _launch("rgbd_gicp_gn", T.device, _ptr(T), _ptr(p1), _ptr(p2), _ptr(C1),
+            _ptr(C2), _ptr(valid), p1.shape[0],
+            float(max_dist) * float(max_dist), _ptr(out))
+    LAUNCHES["gicp_gn_normal_equations"] += 1
+    iu = torch.triu_indices(6, 6, device=T.device)
+    r, c = iu[0], iu[1]
+    H = torch.zeros((6, 6), dtype=torch.float32, device=T.device)
+    H[r, c] = out[:21]
+    H[c, r] = out[:21]
+    return H, out[21:27], out[27], out[28]
+
+
+def gicp_gn_normal_equations_ref(T, p1, p2, C1, C2, valid, max_dist: float):
+    """Plain version of K5: the build half of `solvers.icp._gn_step`
+    (rgbdslam_tpu/solvers/icp.py:140-165), gated on |r|^2 < max_dist^2 like
+    the kernels."""
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import _inv3x3
+
+    R, t = T[:3, :3], T[:3, 3]
+    W = _inv3x3(torch.einsum("ij,njk,lk->nil", R, C1, R) + C2)
+    q = p1 @ R.T + t
+    r = q - p2
+    wm = (valid & (torch.sum(r * r, dim=-1) < max_dist * max_dist)).to(T.dtype)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(q.shape[0], 3, 3)
+    J = torch.cat([eye, -se3.hat(q)], dim=-1)                 # (N, 3, 6)
+    WJ = W @ J
+    H = torch.einsum("nij,nik,n->jk", J, WJ, wm)
+    b = torch.einsum("nij,ni,n->j", WJ, r, wm)
+    cost = torch.sum(torch.einsum("ni,nij,nj->n", r, W, r) * wm)
+    return H, b, cost, torch.sum(wm)

@@ -18,19 +18,12 @@ import numpy as np
 import torch
 
 from rgbdslam_tpu_torch.config import SlamConfig
+from rgbdslam_tpu_torch.device import resolve_device
 from rgbdslam_tpu_torch.frontend.frame import FrameFeatures, build_frame_features
 from rgbdslam_tpu_torch.frontend.matcher import gather_matched_points, match_frames
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA request without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    return dev
 
 
 class PipelinedOdometry:

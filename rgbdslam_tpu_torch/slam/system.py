@@ -1,0 +1,557 @@
+"""Full SLAM system: tracking + pose-graph backend + loop closure (port of
+rgbdslam_tpu/slam/system.py, the serial path).
+
+The reference's 3-thread runtime (its PoseGraph thread polls a queue,
+Solver/PoseGraph.cpp:59-103) is a synchronous backend step invoked per
+keyframe. The heavy work (pairwise matching, RANSAC verification, the
+Levenberg-Marquardt graph solve, BoW scoring) is enqueued on the device.
+
+Backend step per keyframe (updateGraph semantics, Solver/PoseGraph.cpp:105-126):
+  1. add vertex (Twc), odometry edge to the previous KF
+     (createEdgeWithReference, info = 100 I, from-state measurement);
+  2. proximity edges: radius search over KF centers (0.5 m), candidates
+     verified by match (>= 30) + RANSAC before a measured edge is added
+     (createLocalEdges, Solver/PoseGraph.cpp:128-184);
+  3. loop detection: gated (>= 15 KFs since the last loop), BoW candidates,
+     match threshold 0.2 * mean tracking inliers, RANSAC verification
+     (detectLoop, Solver/PoseGraph.cpp:245-287);
+  4. on a loop: optimize(20), write the corrected poses back into the
+     keyframe store and the tracker (Tracking::correct / Frame::correctPose).
+
+Host-device traffic per keyframe: one pinned upload of the `meta` array
+and one copy back of the packed result blob (the layout of the JAX
+package's fused keyframe program). The candidate verification is one
+batched pass over all C + L candidates (kernels K2 and K3 take the
+candidate on a grid axis), never a loop over candidates. The device bank is
+updated in place.
+
+Not yet ported (each raises): local and global bundle adjustment, the
+distributed backend, dense ICP, live export, the batched and ring tracking
+modes.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rgbdslam_tpu_torch.config import SlamConfig
+from rgbdslam_tpu_torch.device import resolve_device, upload
+from rgbdslam_tpu_torch.frontend.frame import (FrameFeatures, pack_features_for_host,
+                                               pack_features_slim)
+from rgbdslam_tpu_torch.frontend.matcher import correspondence_weights, match_descriptors
+from rgbdslam_tpu_torch.geometry import se3
+from rgbdslam_tpu_torch.geometry.camera import Camera
+from rgbdslam_tpu_torch.loop.bow import bow_scores, bow_vector
+from rgbdslam_tpu_torch.loop.detector import LoopDetector
+from rgbdslam_tpu_torch.mapping.keyframes import KeyframeStore
+from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
+from rgbdslam_tpu_torch.slam.tracking import Tracker, _not_ported
+from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraph
+from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+
+#: the packed track-extension lane carries idx2 + 4096 * ok in one f32
+MAX_PACKED_FEATURES = 4096
+
+
+def verify_bank(D, X, V, idx, desc_k, xyz_k, valid_k, cfg: SlamConfig,
+                generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
+    """Verify the bank keyframes `idx` (C,) against the current frame: match
+    + RANSAC for all C candidates in one batched pass (one launch of each
+    kernel whatever C). Returns (C, 19) packed rows
+    [T21 (16) | num_inliers | success | n_matches]; T21[c] maps candidate c's
+    camera frame into the current frame's. `draws` (C, H, S) injects the
+    RANSAC samples."""
+    Di, Xi, Vi = D[idx], X[idx], V[idx]                   # (C, N, ...)
+    m = match_descriptors(Di, Vi, desc_k, valid_k, cfg.matcher.nn_ratio)
+    j = m.idx2.long()
+    mvalid = m.valid & valid_k[j]
+    p2 = xyz_k[j]                                         # (C, N, 3)
+    w = correspondence_weights(Xi, p2, mvalid)
+    res = ransac_se3(Xi, p2, w, mvalid, generator, cfg.ransac, draws=draws)
+    return torch.cat(
+        [res.T21.reshape(-1, 16),
+         torch.stack([res.num_inliers.to(torch.float32),
+                      res.success.to(torch.float32),
+                      torch.sum(mvalid, dim=-1).to(torch.float32)], dim=1)],
+        dim=1)
+
+
+def extend_tracks(D, X, V, kprev, desc_k, xyz_k, valid_k, uv_k, T21, cam: Camera,
+                  cfg: SlamConfig) -> torch.Tensor:
+    """Landmark-track extension: match the previous keyframe (bank row
+    `kprev`, a device scalar) into the current frame and gate each match
+    geometrically. The relative keyframe pose is known, so a correct
+    association maps the old 3-D point onto the new one (within 0.10 m) and
+    reprojects within `track_gate_px` pixels. Returns (2, N) int32:
+    [idx2, ok]."""
+    kp = kprev.reshape(1)
+    Dp, Xp, Vp = D.index_select(0, kp)[0], X.index_select(0, kp)[0], V.index_select(0, kp)[0]
+    m = match_descriptors(Dp, Vp, desc_k, valid_k, cfg.matcher.nn_ratio)
+    j = m.idx2.long()
+    pred = Xp @ T21[:3, :3].T + T21[:3, 3]
+    err = torch.linalg.norm(pred - xyz_k[j], dim=-1)
+    z = torch.clamp_min(pred[:, 2], 1e-6)
+    u_pred = cam.fx * pred[:, 0] / z + cam.cx
+    v_pred = cam.fy * pred[:, 1] / z + cam.cy
+    uv_cur = uv_k[j]
+    err_px = torch.hypot(u_pred - uv_cur[:, 0], v_pred - uv_cur[:, 1])
+    ok = m.valid & (err < 0.10) & (err_px < cfg.track_gate_px) & (pred[:, 2] > 0.05)
+    return torch.stack([m.idx2.to(torch.int32), ok.to(torch.int32)])
+
+
+def kf_core(bank, f: FrameFeatures, meta: torch.Tensor, words, idf, cam: Camera,
+            cfg: SlamConfig, bow_on: bool,
+            generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
+    """All per-keyframe device work, ending in one f32 blob.
+
+    bank: (D (K, N, 8) int32, X (K, N, 3), V (K, N) bool, B (K, Vw) f32),
+    updated in place. meta: one (3 + C + 16,) f32 device array
+    [k, kprev, n_cands, idx (C), T21.ravel (16)], every host scalar of the
+    step in one upload.
+
+    Blob layout (the JAX package's, all f32): with bow_on (a vocabulary is
+    live) the slim pack (N, 4) without descriptors, the packed track
+    extension (N,) as idx2 + 4096 * ok, (C + L, 19) verification rows for
+    the proximity candidates and the BoW loop candidates selected here, the
+    L selected loop indices and their validity. Without bow_on the full
+    (N, 16) pack and (C, 19) rows, no loop section.
+
+    Loop candidates on the device (obtainCandidates semantics,
+    PlaceRecognition/LoopDetector.cpp:28-84): floor = the minimum BoW score
+    over the connected set {kprev} + proximity candidates; a candidate beats
+    the floor, respects the id interval and is not connected; top L by
+    score, the lower index first among equals. Padded proximity rows
+    (index 0) and invalid loop slots are verified too and ignored by the
+    host."""
+    D, X, V, B = bank
+    C = cfg.pose_graph.max_proximity_candidates
+    L = cfg.loop.max_candidates
+    k = meta[0].to(torch.int64)
+    kprev = meta[1].to(torch.int64)
+    n_cands = meta[2].to(torch.int64)
+    idx = meta[3:3 + C].to(torch.int64)
+    T21 = meta[3 + C:].reshape(4, 4)
+    k1 = k.reshape(1)
+    D.index_copy_(0, k1, f.desc[None])
+    X.index_copy_(0, k1, f.xyz[None])
+    V.index_copy_(0, k1, f.obs_valid[None])
+    ps = pack_features_slim(f) if bow_on else pack_features_for_host(f)
+    ext = extend_tracks(D, X, V, kprev, f.desc, f.xyz, f.obs_valid, f.uv_undist,
+                        T21, cam, cfg)
+    # idx2 + 4096 * ok in one f32 lane (exact: < 2^24)
+    ext_packed = (ext[0] + MAX_PACKED_FEATURES * ext[1]).to(torch.float32)
+
+    if not bow_on:
+        ver = verify_bank(D, X, V, idx, f.desc, f.xyz, f.obs_valid, cfg, generator, draws)
+        return torch.cat([ps.reshape(-1), ext_packed, ver.reshape(-1)])
+
+    vec = bow_vector(f.desc, f.obs_valid, words, idf)
+    B.index_copy_(0, k1, vec[None])
+    scores = bow_scores(vec, B)                               # (Kbank,)
+    j_iota = torch.arange(B.shape[0], device=B.device)
+    slot_valid = torch.arange(C, device=B.device) < n_cands
+    conn = (j_iota == kprev) | torch.any(
+        (j_iota[None, :] == idx[:, None]) & slot_valid[:, None], dim=0)
+    floor = torch.amin(torch.where(conn, scores, float("inf")))
+    cand_ok = ((j_iota < k) & ((k - j_iota) > cfg.loop.id_interval)
+               & ~conn & (scores > floor))
+    s_masked = torch.where(cand_ok, scores, -1.0)
+    # most entries tie at -1: the stable descending sort keeps the lower
+    # index first, like jax.lax.top_k
+    top_s, top_j = torch.sort(s_masked, descending=True, stable=True)
+    top_s, top_j = top_s[:L], top_j[:L]
+    loop_valid = top_s > -0.5
+    ver = verify_bank(D, X, V, torch.cat([idx, top_j]), f.desc, f.xyz, f.obs_valid,
+                      cfg, generator, draws)
+    return torch.cat([ps.reshape(-1), ext_packed, ver.reshape(-1),
+                      top_j.to(torch.float32), loop_valid.to(torch.float32)])
+
+
+class SlamSystem:
+    def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
+                 device="cuda"):
+        for flag in ("use_local_ba", "use_global_ba", "distributed", "use_dense_icp"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"SlamConfig.{flag} is not yet ported")
+        if cfg.extractor.num_features > MAX_PACKED_FEATURES:
+            raise ValueError("num_features > 4096 breaks the packed track-extension lane")
+        self.cam = cam
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        kf_cfg = cfg.keyframe
+        self.tracker = Tracker(cam, cfg, seed=seed, device=self.device)
+        self.store = KeyframeStore(kf_cfg.max_keyframes, cfg.extractor.num_features)
+        self.graph = PoseGraph(
+            kf_cfg.max_keyframes,
+            cfg.pose_graph.max_edges,
+            information=cfg.pose_graph.edge_information,
+            huber_delta=cfg.pose_graph.huber_delta,
+            cg_threshold=cfg.pose_graph.cg_vertex_threshold,
+            cg_iters=cfg.pose_graph.cg_iters,
+            lm_lambda0=cfg.pose_graph.lm_lambda0,
+            device=self.device,
+        )
+        self.loop_detector = LoopDetector(cfg.loop, kf_cfg.max_keyframes, seed=seed,
+                                          device=self.device)
+        self.landmarks = LandmarkStore(cfg.max_landmarks, cfg.max_obs_per_landmark,
+                                       cfg.extractor.num_features)
+        self.kfs_since_loop = 0
+        self.loops_closed = 0
+        self.loop_solve_ms = []   # wall ms of each mid-run loop-closure
+                                  # optimize(20) (Solver/PoseGraph.cpp:71)
+        self.last_loop_candidates = 0   # Tracking::loopCandidates analog
+        self.reloc_verifications = 0    # candidate verifications run for LOST frames
+        self.kf_backend_ms = []   # wall ms of each keyframe's backend step,
+                                  # the loop-closure solve included
+        self.map_epoch = 0        # bumped after each loop-closure optimization
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 12345)
+        # keyframe rows whose descriptors and BoW vectors were not shipped
+        # in the slim blob: hydrated from the device bank on demand
+        self._lazy_rows = set()
+        self.tracker.on_keyframe = self._on_keyframe
+        if cfg.use_relocalization:
+            self.tracker.relocalize_fn = self._relocalize
+
+        # Device-resident keyframe bank: descriptors, 3-D points, validity
+        # and BoW vectors stay on the device across the run; backend work
+        # gathers candidates from it by index.
+        self._bank = None     # (desc [K, N, 8], xyz [K, N, 3], valid [K, N], bow [K, V])
+        self._bow_dev = None  # (words, idf) on the device once a codebook exists
+
+    @property
+    def live_export(self):
+        return None
+
+    @live_export.setter
+    def live_export(self, value):
+        if value is not None:
+            raise NotImplementedError("live_export is not yet ported")
+
+    track_batch = _not_ported("track_batch")
+    track_batch_dispatch = _not_ported("track_batch_dispatch")
+    track_batch_complete = _not_ported("track_batch_complete")
+    track_pipelined = _not_ported("track_pipelined")
+    track_pipelined_flush = _not_ported("track_pipelined_flush")
+
+    # ------------------------------------------------------------------
+    def track(self, timestamp: float, gray, depth) -> np.ndarray:
+        return self.tracker.track(timestamp, gray, depth)
+
+    def _ensure_bank(self, n_feat: int):
+        if self._bank is None:
+            K = self.cfg.keyframe.max_keyframes
+            dev = self.device
+            self._bank = (
+                torch.zeros((K, n_feat, 8), dtype=torch.int32, device=dev),
+                torch.zeros((K, n_feat, 3), dtype=torch.float32, device=dev),
+                torch.zeros((K, n_feat), dtype=torch.bool, device=dev),
+                # the BoW width follows the detector's codebook (a preloaded
+                # vocabulary may differ from LoopConfig.vocab_size)
+                torch.zeros((K, self.loop_detector.vocab_width), dtype=torch.float32,
+                            device=dev),
+            )
+
+    def _bow_table(self, rows: int) -> torch.Tensor:
+        """The host BoW table as a (rows, vocab_width) device tensor."""
+        ld = self.loop_detector
+        B = np.zeros((rows, ld.vocab_width), np.float32)
+        n = min(rows, ld.bow_db.shape[0])
+        B[:n] = ld.bow_db[:n, : ld.vocab_width]
+        return upload(B, self.device)
+
+    def load_vocabulary(self, path: str) -> None:
+        """Load a pre-trained vocabulary (the reference's startup load,
+        main.cpp:15,32) and sync the device codebook and BoW bank, so the
+        next keyframe quantizes on the device at the loaded width."""
+        ld = self.loop_detector
+        ld.load_vocabulary(path)
+        self._bow_dev = (ld.words, ld.idf)
+        if self._bank is not None:
+            self._bank = self._bank[:3] + (self._bow_table(self._bank[0].shape[0]),)
+
+    def hydrate_host(self):
+        """Fetch the deferred descriptor and BoW rows from the device bank
+        into the host mirrors (slim-blob mode ships neither). One gather
+        and two copies however many keyframes are pending; for the rare
+        host consumers, never on the tracking path."""
+        if not self._lazy_rows or self._bank is None:
+            return
+        ks = np.asarray(sorted(self._lazy_rows), np.int64)
+        idx = upload(ks, self.device)
+        desc_rows = self._bank[0][idx].cpu().numpy().view(np.uint32)
+        bow_rows = self._bank[3][idx].cpu().numpy()
+        ld = self.loop_detector
+        w = min(bow_rows.shape[1], ld.bow_db.shape[1])
+        for i, k in enumerate(ks):
+            self.store.desc[k] = desc_rows[i]
+            if k < ld.bow_db.shape[0]:
+                ld.bow_db[k, :w] = bow_rows[i, :w]
+        self._lazy_rows.clear()
+
+    def rebuild_bank_from_store(self):
+        """Re-sync the device bank (descriptors, points, validity, BoW
+        vectors) from the host store, as needed after the host arrays were
+        restored from elsewhere."""
+        if self.store.count == 0:
+            return
+        ld = self.loop_detector
+        self._bank = (
+            upload(np.ascontiguousarray(self.store.desc).view(np.int32), self.device),
+            upload(self.store.xyz, self.device),
+            upload(self.store.obs_valid, self.device),
+            self._bow_table(self.store.max_keyframes),
+        )
+        if ld.words is not None:
+            self._bow_dev = (ld.words, ld.idf)
+
+    # ------------------------------------------------------------------
+    def _verify_candidates(self, cands, f: FrameFeatures):
+        """Batched match + RANSAC of the bank keyframes `cands` against
+        frame `f`: host arrays (T21 (C, 4, 4), ninl, ok, n_matches), one
+        device pass and one copy. T21[c] = T_{f<-cand_c}. Padding rows
+        (index 0) come back too and are ignored by the callers."""
+        C = self.cfg.pose_graph.max_proximity_candidates
+        idx = np.zeros((C,), np.int64)
+        idx[: len(cands)] = cands
+        D, X, V = self._bank[:3]
+        rows = verify_bank(D, X, V, upload(idx, self.device), f.desc, f.xyz,
+                           f.obs_valid, self.cfg, self.generator)
+        return self._verify_decode(rows.cpu().numpy())
+
+    @staticmethod
+    def _verify_decode(packed: np.ndarray):
+        T = packed[:, :16].reshape(-1, 4, 4)
+        ninl = packed[:, 16].astype(np.int32)
+        ok = packed[:, 17] > 0.5
+        nm = packed[:, 18].astype(np.int32)
+        return T, ninl, ok, nm
+
+    def _on_keyframe(self, k: int, timestamp: float, f: FrameFeatures, Tcw: np.ndarray):
+        """Backend step per keyframe: one upload, the device work, one copy
+        of the blob back; everything after is host numpy and the (rare)
+        loop-closure solve."""
+        t0 = time.perf_counter()
+        h = self._kf_dispatch(k, timestamp, f, Tcw)
+        self._kf_complete(h, h["blob"].cpu().numpy())
+        self.kf_backend_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def _kf_dispatch(self, k: int, timestamp: float, f: FrameFeatures,
+                     Tcw: np.ndarray) -> dict:
+        """Register the keyframe's pose, compute the proximity candidates
+        on the host, and enqueue the device work. No copy back."""
+        pg_cfg = self.cfg.pose_graph
+        N = f.uv.shape[0]
+        self._ensure_bank(N)
+        if k >= self._bank[0].shape[0]:
+            # budget doubling of the device bank
+            self._bank = tuple(torch.cat([a, torch.zeros_like(a)], dim=0)
+                               for a in self._bank)
+        bow_on = self._bow_dev is not None
+
+        store_k = self.store.register(timestamp, Tcw)
+        vk = self.graph.add_vertex(se3.inverse_np(Tcw))
+        if store_k != k or vk != k:
+            raise RuntimeError(f"keyframe {k} out of step with the store ({store_k}) "
+                               f"or the graph ({vk})")
+        connections = set()
+        if k > 0:
+            # odometry edge (createEdgeWithReference)
+            self.graph.add_odometry_edge(k, k - 1)
+            connections.add(k - 1)
+
+        # proximity candidates (createLocalEdges' radius search) from the
+        # host poses (Solver/PoseGraph.cpp:157-184)
+        cands = []
+        if k > 0:
+            ck = -Tcw[:3, :3].T @ Tcw[:3, 3]
+            c_all = self.store.centers()[:k]
+            d = np.linalg.norm(c_all - ck, axis=-1)
+            order = np.argsort(d)
+            cands = [int(j) for j in order
+                     if d[j] <= pg_cfg.proximity_radius and j != k - 1
+                     and not self.graph.has_edge(k, j)]
+            cands = cands[: pg_cfg.max_proximity_candidates]
+        C = pg_cfg.max_proximity_candidates
+        T21_prev = (Tcw @ se3.inverse_np(self.store.poses_cw[k - 1])
+                    if k > 0 else np.eye(4, dtype=np.float32))
+        # one host-to-device copy for every scalar the device work needs
+        meta = np.zeros((3 + C + 16,), np.float32)
+        meta[0] = k
+        meta[1] = max(k - 1, 0)
+        meta[2] = len(cands)
+        meta[3:3 + len(cands)] = cands
+        meta[3 + C:] = T21_prev.astype(np.float32).ravel()
+
+        words, idf = self._bow_dev if bow_on else (None, None)
+        blob = kf_core(self._bank, f, upload(meta, self.device), words, idf, self.cam,
+                       self.cfg, bow_on, self.generator)
+        return {"k": k, "ts": timestamp, "f": f, "Tcw": Tcw, "cands": cands,
+                "connections": connections, "bow_on": bow_on, "N": N, "blob": blob}
+
+    def _kf_complete(self, h: dict, blob: np.ndarray):
+        """Host bookkeeping from the fetched blob: store rows, proximity
+        edges, BoW registration, landmark tracks, loop detection and the
+        (rare) solve."""
+        k, Tcw, cands = h["k"], h["Tcw"], h["cands"]
+        connections, bow_on, N = h["connections"], h["bow_on"], h["N"]
+        nd = 8
+        pg_cfg = self.cfg.pose_graph
+        C = pg_cfg.max_proximity_candidates
+        L = self.cfg.loop.max_candidates
+        width = 4 if bow_on else nd + 8       # slim pack ships no descriptors
+        off = N * width
+        ps = blob[:off].reshape(N, width)
+        extp = blob[off:off + N]              # idx2 + 4096 * ok, one f32 lane
+        off += N
+        n_ver = C + L if bow_on else C        # loop rows ride the same blob
+        ver = blob[off:off + n_ver * 19].reshape(n_ver, 19)
+        off += n_ver * 19
+        loop_j = loop_valid = None
+        if bow_on:
+            loop_j = blob[off:off + L].astype(np.int32)
+            loop_valid = blob[off + L:off + 2 * L] > 0.5
+            self.store.fill_features_slim(k, ps, self.cam)
+            self._lazy_rows.add(k)            # desc + BoW row hydrate on demand
+        else:
+            self.store.fill_features(k, ps, nd, True)
+        self.kfs_since_loop += 1
+
+        # proximity edges (createLocalEdges)
+        T_b, ninl_b, ok_b, nm_b = self._verify_decode(ver)
+        for c, j in enumerate(cands):
+            if (not ok_b[c] or nm_b[c] < pg_cfg.proximity_min_matches
+                    or ninl_b[c] < pg_cfg.proximity_min_matches):
+                continue
+            # RansacSE3(F1=j, F2=k) yields T with p_k = T p_j = T_{k<-j};
+            # edge (a=k, b=j) needs Z = T_{a<-b} in the Twc-vertex
+            # convention: Z = X_k^-1 X_j = Tcw_k Twc_j = T_{k<-j}
+            # (Solver/PoseGraph.cpp:147-153)
+            self.graph.add_edge(k, j, np.asarray(T_b[c]))
+            connections.add(j)
+            self.loop_detector.connect(k, j)
+
+        # BoW registration: with a codebook the device quantized the vector
+        # and keeps it in the bank; before one exists the host accumulates
+        # descriptors and trains after `train_after` keyframes
+        if bow_on:
+            self.loop_detector.add_precomputed(None, connections)
+        else:
+            self.loop_detector.add(self.store.desc[k], self.store.obs_valid[k],
+                                   connections)
+            if self.loop_detector.words is not None:
+                # codebook just trained: device copies + backfill the bank
+                self._bow_dev = (self.loop_detector.words, self.loop_detector.idf)
+                self._bank = self._bank[:3] + (
+                    self._bow_table(self._bank[0].shape[0]),)
+
+        # landmark-track extension (Landmark::addObservation analog),
+        # computed on the device; tracks accept only depth-edge-free
+        # observations
+        match_idx = match_valid = None
+        if k > 0:
+            match_idx = extp.astype(np.int32) & (MAX_PACKED_FEATURES - 1)
+            match_valid = extp >= float(MAX_PACKED_FEATURES)
+        self.landmarks.add_keyframe(
+            k, self.store.uv[k], self.store.xyz[k],
+            self.store.obs_valid[k] & self.store.smooth[k],
+            None if bow_on else self.store.desc[k],
+            self.store.intensity[k], Tcw,
+            match_idx, match_valid, k - 1 if k > 0 else None,
+            kf_centers=self.store.centers(),
+        )
+
+        # loop closure (detectLoop, Solver/PoseGraph.cpp:245-287): candidate
+        # selection and verification already ran on the device; only the
+        # host gates and the solve remain
+        if (bow_on and self.kfs_since_loop >= self.cfg.loop.min_kfs_since_loop
+                and self._close_loop_from_rows(k, loop_j, loop_valid, ver[C:])):
+            self.kfs_since_loop = 0
+
+    def _close_loop_from_rows(self, k: int, loop_j, loop_valid, rows: np.ndarray) -> bool:
+        """Host half of detectLoop: apply the inlier and match thresholds
+        to the device-verified loop candidates, insert edges, run
+        optimize(20) (Solver/PoseGraph.cpp:260-287)."""
+        th = max(int(self.tracker.stats.mean_inliers * self.cfg.loop.match_fraction),
+                 self.cfg.ransac.min_inliers)
+        T_b, ninl_b, ok_b, nm_b = self._verify_decode(rows)
+        self.last_loop_candidates = int(loop_valid.sum())
+        closed = False
+        for c in range(len(loop_j)):
+            if not loop_valid[c]:
+                continue
+            j = int(loop_j[c])
+            if self.graph.has_edge(k, j):
+                continue
+            if not ok_b[c] or nm_b[c] < th or ninl_b[c] < th:
+                continue
+            self.graph.add_edge(k, j, np.asarray(T_b[c]), kind=3)
+            self.loop_detector.connect(k, j)
+            closed = True
+        if closed:
+            t0 = time.perf_counter()
+            self._optimize(self.cfg.pose_graph.opt_iters_loop)
+            self.loop_solve_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+            self.loops_closed += 1
+            self.map_epoch += 1
+        return closed
+
+    def _relocalize(self, f: FrameFeatures):
+        """LOST-state global relocalization: BoW retrieval over the
+        keyframe database + batched RANSAC verification of the top
+        candidates (two device reads). Returns (ok, Tcw) for the tracker."""
+        ld = self.loop_detector
+        if ld.words is None or ld.count < 1:
+            return False, None
+        vec = bow_vector(f.desc, f.obs_valid, ld.words, ld.idf)
+        if self._bow_dev is not None and self._bank is not None:
+            db = self._bank[3]       # the device-resident BoW bank
+        else:
+            db = upload(ld.bow_db[: ld.count], self.device)
+        scores = bow_scores(vec, db).cpu().numpy()[: ld.count]
+        n_cand = min(self.cfg.reloc_max_candidates, ld.count)
+        # the most recent keyframe is always a candidate: after a short
+        # sensor dropout it is by far the likeliest match
+        cands = [ld.count - 1]
+        cands += [int(j) for j in np.argsort(-scores)[:n_cand] if int(j) != ld.count - 1]
+        cands = cands[:n_cand]
+
+        self.reloc_verifications += 1
+        T_b, ninl_b, ok_b, _nm_b = self._verify_candidates(cands, f)
+        best, best_inl = -1, self.cfg.reloc_min_inliers - 1
+        for c in range(len(cands)):
+            if ok_b[c] and int(ninl_b[c]) > best_inl:
+                best, best_inl = c, int(ninl_b[c])
+        if best < 0:
+            return False, None
+        # T_b = T_{query<-KF}: Tcw_query = T @ Tcw_KF
+        Tcw = np.asarray(T_b[best]) @ self.store.poses_cw[cands[best]]
+        return True, Tcw.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    def _optimize(self, iterations: int):
+        """Global pose-graph optimization + pose write-back
+        (PoseGraph::optimize + Frame::correctPose + Tracking::correct)."""
+        Twc_opt = self.graph.optimize(iterations)
+        K = len(Twc_opt)
+        old_poses_cw = self.store.poses_cw[:K].copy()
+        Tcw_opt = se3.inverse_np(np.asarray(Twc_opt)).astype(np.float32)
+        # move the landmark cloud with its keyframes (Core/Frame.cpp:437-454)
+        self.landmarks.reanchor(old_poses_cw, Tcw_opt)
+        self.store.set_poses(Tcw_opt)
+        self.tracker.apply_correction(Tcw_opt)
+
+    def finish(self):
+        """Final optimization (PoseGraph::shutdown,
+        Solver/PoseGraph.cpp:407-418)."""
+        if self.graph.n_vertices > 5:
+            self._optimize(self.cfg.pose_graph.opt_iters_default)
+
+    def camera_trajectory(self):
+        return self.tracker.camera_trajectory()
+
+    def keyframe_trajectory(self):
+        return self.tracker.keyframe_trajectory()

@@ -112,6 +112,21 @@ def gicp_refine(
     return _finish_gicp(T_fin, T_init, p1, p2, valid, cfg)
 
 
+def gicp_normal_equations(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                          C1: torch.Tensor, C2: torch.Tensor, valid: torch.Tensor,
+                          cfg: IcpConfig = IcpConfig()):
+    """One plane-to-plane Gauss-Newton build at pose T: (H (6, 6), b (6,),
+    cost (), gated count ()), the undamped normal equations of one round of
+    `gicp_refine` (the JAX package's `gicp_gn_normal_equations`). Kernel K5
+    for CUDA tensors, its plain version for CPU tensors."""
+    if kernels.on_cuda(T, p1):
+        return kernels.gicp_gn_normal_equations(
+            T.contiguous(), p1.contiguous(), p2.contiguous(), C1.contiguous(),
+            C2.contiguous(), valid.contiguous(), cfg.max_correspondence_dist)
+    return kernels.gicp_gn_normal_equations_ref(T, p1, p2, C1, C2, valid,
+                                                cfg.max_correspondence_dist)
+
+
 def _finish_gicp(T_fin, T_init, p1, p2, valid, cfg: IcpConfig):
     """Convergence gate + fallback: enough valid pairs, enough gated pairs
     at the final pose, and a finite result."""

@@ -11,6 +11,11 @@ Solver/SolverSE3.cpp).
 Sampling uses an explicit torch.Generator on the points' device (it cannot
 reproduce jax.random's bits); `draws` injects the (H, S) sample indices
 instead, so tests can hand both packages the same hypotheses.
+
+Every function takes optional leading batch dimensions (the JAX package's
+`vmap` over candidate keyframes, written out): points (..., N, 3), masks
+(..., N), draws (..., H, S). A batch costs the same number of launches as
+one problem.
 """
 
 from __future__ import annotations
@@ -74,20 +79,30 @@ def mahalanobis_sq_planes(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
 
     d = R p1 + t - p2, C = R diag(s1) R^T + diag(s2) as six (..., N)
     planes, m^2 = d^T adj(C) d / det(C) clamped at 0 — in the operation
-    order of the Pallas kernel and csrc/mahal.cu, so all three round alike."""
+    order of the Pallas kernel and csrc/mahal.cu, so all three round alike.
+    Points may carry leading batch dimensions (B..., N, 3); T then has the
+    same ones, followed by any further dimensions (B..., H..., 4, 4)."""
     def r(i, j):
         return T[..., i, j, None]
 
-    x1, y1, z1 = p1[:, 0], p1[:, 1], p1[:, 2]
-    x2, y2, z2 = p2[:, 0], p2[:, 1], p2[:, 2]
+    extra = (T.dim() - 2) - (p1.dim() - 2)
+
+    def col(p, i):
+        c = p[..., i]
+        return c.reshape(c.shape[:-1] + (1,) * extra + c.shape[-1:])
+
+    x1, y1, z1 = col(p1, 0), col(p1, 1), col(p1, 2)
+    x2, y2, z2 = col(p2, 0), col(p2, 1), col(p2, 2)
+    s1 = torch.stack([col(s1, 0), col(s1, 1), col(s1, 2)], dim=-1)
+    s2 = torch.stack([col(s2, 0), col(s2, 1), col(s2, 2)], dim=-1)
     d1 = r(0, 0) * x1 + r(0, 1) * y1 + r(0, 2) * z1 + r(0, 3) - x2
     d2 = r(1, 0) * x1 + r(1, 1) * y1 + r(1, 2) * z1 + r(1, 3) - y2
     d3 = r(2, 0) * x1 + r(2, 1) * y1 + r(2, 2) * z1 + r(2, 3) - z2
 
     def centry(i, j):
-        c = (r(i, 0) * r(j, 0) * s1[:, 0] + r(i, 1) * r(j, 1) * s1[:, 1]
-             + r(i, 2) * r(j, 2) * s1[:, 2])
-        return c + s2[:, i] if i == j else c
+        c = (r(i, 0) * r(j, 0) * s1[..., 0] + r(i, 1) * r(j, 1) * s1[..., 1]
+             + r(i, 2) * r(j, 2) * s1[..., 2])
+        return c + s2[..., i] if i == j else c
 
     a, b, c = centry(0, 0), centry(0, 1), centry(0, 2)
     d, e, f = centry(1, 1), centry(1, 2), centry(2, 2)
@@ -108,8 +123,8 @@ def mahalanobis_sq(T21: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                    cfg: RansacConfig) -> torch.Tensor:
     """Squared Mahalanobis distance (..., N) under T21 (errorFunction2,
     Solver/SolverSE3.cpp:216-280)."""
-    return mahalanobis_sq_planes(T21, p1, p2, _sigma_diag(p1[:, 2], cfg),
-                                 _sigma_diag(p2[:, 2], cfg))
+    return mahalanobis_sq_planes(T21, p1, p2, _sigma_diag(p1[..., 2], cfg),
+                                 _sigma_diag(p2[..., 2], cfg))
 
 
 def _rmse(cnt: torch.Tensor, err_sum: torch.Tensor) -> torch.Tensor:
@@ -119,8 +134,8 @@ def _rmse(cnt: torch.Tensor, err_sum: torch.Tensor) -> torch.Tensor:
 
 def _score(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
            valid: torch.Tensor, cfg: RansacConfig):
-    """Inlier mask, count and rmse for transforms T (..., 4, 4) under the
-    Mahalanobis model."""
+    """Inlier mask, count and rmse for one transform per problem, T
+    (..., 4, 4) with points (..., N, 3), under the Mahalanobis model."""
     m2 = mahalanobis_sq(T, p1, p2, cfg)
     inl = (m2 <= cfg.max_mahalanobis * cfg.max_mahalanobis) & valid
     cnt = torch.sum(inl, dim=-1)
@@ -129,10 +144,10 @@ def _score(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
 
 
 def _hypothesis_scores(T_h, p1, p2, valid, cfg: RansacConfig):
-    """(count (H,), rmse (H,)) of every hypothesis: kernel K3 for CUDA
-    tensors, its plain version for CPU tensors."""
-    s1 = _sigma_diag(p1[:, 2], cfg)
-    s2 = _sigma_diag(p2[:, 2], cfg)
+    """(count (..., H), rmse (..., H)) of every hypothesis: kernel K3 for
+    CUDA tensors, its plain version for CPU tensors."""
+    s1 = _sigma_diag(p1[..., 2], cfg)
+    s2 = _sigma_diag(p2[..., 2], cfg)
     th = cfg.max_mahalanobis * cfg.max_mahalanobis
     if kernels.on_cuda(T_h, p1):
         cnt, err = kernels.mahal_hypothesis_scores(
@@ -141,6 +156,19 @@ def _hypothesis_scores(T_h, p1, p2, valid, cfg: RansacConfig):
     else:
         cnt, err = kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)
     return cnt, _rmse(cnt, err)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx[...], :] per batch entry: x (..., N) or (..., N, 3) with
+    idx (..., H, S) int64 -> (..., H, S) or (..., H, S, 3)."""
+    if idx.dim() == 2:
+        return x[idx]
+    lead = idx.shape[:-2]
+    flat = idx.reshape(lead + (-1,))
+    if x.dim() == len(lead) + 1:
+        return torch.gather(x, -1, flat).reshape(idx.shape)
+    flat = flat[..., None].expand(lead + (flat.shape[-1], x.shape[-1]))
+    return torch.gather(x, -2, flat).reshape(idx.shape + (x.shape[-1],))
 
 
 def ransac_se3(
@@ -158,41 +186,50 @@ def ransac_se3(
     (1/(z1*z2), Solver/SolverSE3.cpp:174), zero for invalid slots; valid:
     (N,) bool. `generator` draws the samples on the points' device;
     `draws` (H, S) int, uniform in [0, number of valid slots), replaces it.
-    Nothing here copies to the host."""
+    With leading batch dimensions on every argument ((B, N, 3), (B, N),
+    draws (B, H, S)) each entry is an independent problem and every field
+    of the result gains the batch dimension. Nothing here copies to the
+    host."""
     if cfg.error_model != "mahalanobis":
         raise NotImplementedError(
             f"error_model={cfg.error_model!r} is not yet ported (mahalanobis only)")
-    n = p1.shape[0]
+    n = p1.shape[-2]
+    lead = p1.shape[:-2]
     dev = p1.device
     H, S = cfg.num_hypotheses, cfg.sample_size
 
-    any_valid = torch.any(valid)
-    pos = torch.cumsum(valid.to(torch.int64), 0) - 1
+    any_valid = torch.any(valid, dim=-1)
+    pos = torch.cumsum(valid.to(torch.int64), -1) - 1
     # compact the valid indices; invalid slots write to the extra slot n,
     # which is dropped (the JAX scatter's mode="drop")
     slot = torch.where(valid, pos, n)
-    cand = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
-    cand = cand.scatter(0, slot, torch.arange(n, dtype=torch.int64, device=dev))[:n]
-    n_valid = torch.clamp_min(torch.sum(valid.to(torch.int64)), 1)
+    cand = torch.zeros(lead + (n + 1,), dtype=torch.int64, device=dev)
+    cand = cand.scatter(
+        -1, slot, torch.arange(n, dtype=torch.int64, device=dev).expand(lead + (n,))
+    )[..., :n]
+    n_valid = torch.clamp_min(torch.sum(valid.to(torch.int64), dim=-1), 1)
     if draws is None:
         if generator is None:
             raise ValueError("ransac_se3 needs a generator or injected draws")
-        u = torch.rand((H, S), generator=generator, device=dev)
-        draws = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
-    idx = cand[draws.to(torch.int64)]
+        u = torch.rand(lead + (H, S), generator=generator, device=dev)
+        nv = n_valid[..., None, None]
+        draws = torch.minimum(torch.floor(u * nv).to(torch.int64), nv - 1)
+    idx = _take(cand, draws.to(torch.int64))
 
-    sp1 = p1[idx]                                  # (H, S, 3)
-    sp2 = p2[idx]
-    sw = w[idx] * valid[idx]
-    T_h = weighted_rigid_transform(sp1, sp2, sw)   # (H, 4, 4)
+    sp1 = _take(p1, idx)                           # (..., H, S, 3)
+    sp2 = _take(p2, idx)
+    sw = _take(w, idx) * _take(valid, idx)
+    T_h = weighted_rigid_transform(sp1, sp2, sw)   # (..., H, 4, 4)
     # hypothesis 0 = identity (identity fallback, Solver/SolverSE3.cpp:105-117)
-    T_h[0] = torch.eye(4, dtype=T_h.dtype, device=dev)
+    T_h[..., 0, :, :] = torch.eye(4, dtype=T_h.dtype, device=dev)
 
     cnt_h, rmse_h = _hypothesis_scores(T_h, p1, p2, valid, cfg)
     # lexicographic best: max inliers, then min error (first index on ties)
     rank = cnt_h.to(torch.float32) * 1e4 - torch.clamp_max(rmse_h, 9e3)
-    best = torch.argmax(rank)
-    T = torch.index_select(T_h, 0, best.reshape(1))[0]
+    best = torch.argmax(rank, dim=-1)
+    T = torch.take_along_dim(
+        T_h, best[..., None, None, None].expand(lead + (1, 4, 4)), dim=-3
+    )[..., 0, :, :]
     inl, cnt, rmse = _score(T, p1, p2, valid, cfg)
 
     # masked refinement re-fits on the full inlier set
@@ -204,14 +241,14 @@ def ransac_se3(
         # keep a refit only if it loses no inliers and no accuracy
         # (Solver/SolverSE3.cpp:72)
         better = (cnt2 >= cnt) & (rmse2 <= rmse)
-        T = torch.where(better, T_new, T)
-        inl = torch.where(better, inl2, inl)
+        T = torch.where(better[..., None, None], T_new, T)
+        inl = torch.where(better[..., None], inl2, inl)
         cnt = torch.where(better, cnt2, cnt)
         rmse = torch.where(better, rmse2, rmse)
 
     if cfg.mahalanobis_refine:
         raise NotImplementedError("mahalanobis_refine is not yet ported")
     success = (cnt >= cfg.min_inliers) & any_valid
-    return RansacResult(T21=T, inliers=inl & success,
+    return RansacResult(T21=T, inliers=inl & success[..., None],
                         num_inliers=cnt.to(torch.int32), rmse=rmse,
                         success=success)

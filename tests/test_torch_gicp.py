@@ -41,6 +41,17 @@ from rgbdslam_tpu_torch.solvers import icp as ticp
 jicp = importlib.import_module("rgbdslam_tpu.solvers.icp")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once; a torch process that takes
+    every core for its intra-op threads then spends its time waiting for
+    them. Two threads per process keep the workers out of each other's way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(seed, N=256, noise=0.004):
     rng = np.random.default_rng(seed)
     p1 = rng.uniform(-1, 1, (N, 3)).astype(np.float32)
@@ -176,3 +187,42 @@ def test_gicp_refine_matches_xla_on_indefinite_rendered_covariances(rendered_pai
     assert int(nt) == int(nx)
     assert np.isfinite(Tt.numpy()).all()
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tx), rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("seed,N,md", [(3, 256, 0.15), (8, 1024, 0.07), (9, 64, 0.1)])
+def test_gicp_gn_normal_equations_ref_matches_pallas_kernel(seed, N, md):
+    """K5's plain version against the JAX package's kernel in interpret
+    mode: H and b rtol 1e-5 on the scale of max|H| (f32 sums of N terms in
+    another order), the cost rtol 1e-4, the gated count exact."""
+    from rgbdslam_tpu.ops.pallas_kernels import gicp_gn_normal_equations as j_gn
+
+    T0, p1, p2, C1, C2, valid, _ = _problem(seed, N)
+    Hj, bj, cj, nj = j_gn(*(jnp.asarray(a) for a in (T0, p1, p2, C1, C2, valid)), md,
+                          interpret=True)
+    Ht, bt, ct, nt = kernels.gicp_gn_normal_equations_ref(*_t(T0, p1, p2, C1, C2, valid), md)
+    scale = float(np.abs(np.asarray(Hj)).max())
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
+    assert int(nt) == int(nj) and 0 < int(nt) <= int(valid.sum())
+    assert torch.equal(Ht, Ht.T) or float((Ht - Ht.T).abs().max()) <= 1e-6 * scale
+
+
+def test_gicp_gn_build_is_one_round_of_the_loop():
+    """exp(solve(H + 1e-6 I, -b)) @ T0 is the plain loop's first round
+    (K4's plain version at iters=1), and the build's cost and count are the
+    ones that round reports."""
+    from rgbdslam_tpu_torch.geometry import se3 as tse3
+
+    T0, p1, p2, C1, C2, valid, _ = _problem(4, 512)
+    args = _t(T0, p1, p2, C1, C2, valid)
+    H, b, cost, cnt = kernels.gicp_gn_normal_equations_ref(*args, 0.07)
+    T1, c1, n1 = kernels.gicp_refine_ref(*args, 1, 0.07)
+    xi = torch.linalg.solve(H.double() + 1e-6 * torch.eye(6, dtype=torch.float64), -b.double())
+    T_ref = (tse3.exp(xi) @ args[0].double()).float()
+    torch.testing.assert_close(T1, T_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(c1, cost, rtol=1e-4, atol=1e-6)
+    assert abs(float(n1) - float(cnt)) <= 1.0     # |r| < d against |r|^2 < d^2
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gicp_gn_normal_equations(*args, 0.07)
+    assert kernels.LAUNCHES["gicp_gn_normal_equations"] == 0

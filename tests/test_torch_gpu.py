@@ -152,6 +152,166 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
     ts, poses, st = PipelinedOdometry(cam, cfg, batch=8, device=dev).run(
         ds.grab(i) for i in range(len(ds)))
     assert kernels.LAUNCHES == {"detect_score_map": 3 * 24, "hamming_match_2nn": 23,
-                                "mahal_hypothesis_scores": 23, "gicp_refine_kernel": 23}
+                                "mahal_hypothesis_scores": 23, "gicp_refine_kernel": 23,
+                                "gicp_gn_normal_equations": 0}
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.05
     assert st["failures"] == 0 and np.isfinite(poses).all()
+
+
+def _gicp_problem(dev, seed, N=1024):
+    from rgbdslam_tpu_torch.geometry import se3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p1 = torch.rand(N, 3, generator=g, device=dev) * 2 - 1
+    p1[:, 2] += 2.5
+    T = se3.exp(0.03 * torch.randn(6, generator=g, device=dev))
+    p2 = p1 @ T[:3, :3].T + T[:3, 3] + 0.004 * torch.randn(N, 3, generator=g, device=dev)
+    A = 0.02 * torch.randn(N, 3, 3, generator=g, device=dev)
+    C1 = (A @ A.transpose(1, 2) + 1e-4 * torch.eye(3, device=dev)).contiguous()
+    C2 = C1.flip(0).contiguous()
+    valid = torch.rand(N, generator=g, device=dev) > 0.2
+    T0 = (se3.exp(0.02 * torch.randn(6, generator=g, device=dev)) @ T).contiguous()
+    return T0, p1, p2, C1, C2, valid
+
+
+@pytest.mark.parametrize("n", [1024, 1000, 8])
+def test_gicp_gn_kernel_matches_plain(dev, kernels, n):
+    """K5 against its plain version: H and b relative to max|H| at 1e-5
+    (the float sums run in another order), the gated count exact."""
+    args = _gicp_problem(dev, 7, n)
+    kH, kb, kc, kn = kernels.gicp_gn_normal_equations(*args, 0.07)
+    pH, pb, pc, pn = kernels.gicp_gn_normal_equations_ref(*args, 0.07)
+    scale = float(pH.abs().max())
+    assert float((kH - pH).abs().max()) <= 1e-5 * scale
+    assert float((kb - pb).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(kc, pc, rtol=1e-4, atol=1e-6)
+    assert float(kn) == float(pn) and float(kn) > 0.5 * n
+    assert torch.equal(kH, kH.T)
+
+
+def test_gicp_gn_kernel_consistent_with_loop_kernel(dev, kernels):
+    """One round of K4 is K5's build, the damped solve and the exp-compose:
+    exp(solve(H + 1e-6 I, -b)) @ T0 in float64 equals K4 at iters=1 (1e-5)."""
+    from rgbdslam_tpu_torch.geometry import se3
+
+    args = _gicp_problem(dev, 11)
+    H, b, cost, cnt = kernels.gicp_gn_normal_equations(*args, 0.07)
+    T1, c1, n1 = kernels.gicp_refine_kernel(*args, 1, 0.07)
+    xi = torch.linalg.solve(H.double() + 1e-6 * torch.eye(6, device=dev, dtype=torch.float64),
+                            -b.double())
+    T_ref = (se3.exp(xi) @ args[0].double()).float()
+    torch.testing.assert_close(T1, T_ref, rtol=0, atol=1e-5)
+    assert float(c1) == float(cost) and float(n1) == float(cnt)
+
+
+@pytest.mark.parametrize("batched2", [False, True])
+def test_hamming_kernel_batched_matches_plain(dev, kernels, batched2):
+    """K2 with 13 query sets in one launch: every output equal to the plain
+    version's, and row b of the batch equal to the unbatched call on entry b."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, n, m = 13, 1024, 1024
+    d1 = torch.randint(-2**31, 2**31 - 1, (B, n, 8), generator=g, device=dev, dtype=torch.int32)
+    d2 = torch.randint(-2**31, 2**31 - 1, (B, m, 8) if batched2 else (m, 8), generator=g,
+                       device=dev, dtype=torch.int32)
+    d1[:, : n // 2] = d2[..., : n // 2, :] ^ (d1[:, : n // 2] & 0x01010101)
+    v1 = torch.rand(B, n, generator=g, device=dev) > 0.1
+    v2 = torch.rand((B, m) if batched2 else (m,), generator=g, device=dev) > 0.1
+    ko = kernels.hamming_match_2nn(d1, d2, v1, v2)
+    po = kernels.hamming_match_2nn_ref(d1, d2, v1, v2)
+    for a, b in zip(ko, po):
+        assert a.shape == b.shape and torch.equal(a.long(), b.long())
+    one = kernels.hamming_match_2nn(d1[3].contiguous(), d2[3].contiguous() if batched2 else d2,
+                                    v1[3].contiguous(), v2[3].contiguous() if batched2 else v2)
+    for a, b in zip(ko, one):
+        assert torch.equal(a[3], b)
+
+
+def test_mahal_kernel_batched_matches_plain(dev, kernels):
+    """K3 with 13 problems in one launch: counts exact, error sums within
+    rtol 1e-5 (sum order), and entry b bit-equal to the unbatched call."""
+    from rgbdslam_tpu_torch.config import RansacConfig
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import _sigma_diag
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    B = 13
+    T_h = se3.exp(0.1 * torch.randn(B, 256, 6, generator=g, device=dev)).contiguous()
+    p1 = torch.rand(B, 1024, 3, generator=g, device=dev) * 2 - 1
+    p1[..., 2] += 2.5
+    p2 = p1 + 0.01 * torch.randn(B, 1024, 3, generator=g, device=dev)
+    T_h[:, 0] = torch.eye(4, device=dev)
+    valid = torch.rand(B, 1024, generator=g, device=dev) > 0.2
+    cfg = RansacConfig()
+    s1, s2 = _sigma_diag(p1[..., 2], cfg), _sigma_diag(p2[..., 2], cfg)
+    kc, ke = kernels.mahal_hypothesis_scores(T_h, p1, p2, s1, s2, valid, 9.0)
+    pc, pe = kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, 9.0)
+    assert kc.shape == (B, 256) and torch.equal(kc, pc) and int(kc[:, 0].min()) > 500
+    torch.testing.assert_close(ke, pe, rtol=1e-5, atol=1e-4)
+    oc, oe = kernels.mahal_hypothesis_scores(
+        T_h[5].contiguous(), p1[5].contiguous(), p2[5].contiguous(), s1[5].contiguous(),
+        s2[5].contiguous(), valid[5].contiguous(), 9.0)
+    assert torch.equal(oc, kc[5]) and torch.equal(oe, ke[5])
+
+
+def test_batched_ransac_on_card_matches_per_entry(dev, kernels):
+    """ransac_se3 over a batch with injected draws equals the unbatched
+    call on each entry (same kernels, batch of one)."""
+    from rgbdslam_tpu_torch.config import RansacConfig
+    from rgbdslam_tpu_torch.frontend.matcher import correspondence_weights
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, N = 5, 512
+    cfg = RansacConfig()
+    p1 = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
+    p1[..., 2] += 2.5
+    T = se3.exp(0.05 * torch.randn(B, 6, generator=g, device=dev))
+    p2 = p1 @ T[:, :3, :3].transpose(1, 2) + T[:, None, :3, 3]
+    p2 = p2 + 0.003 * torch.randn(B, N, 3, generator=g, device=dev)
+    valid = torch.rand(B, N, generator=g, device=dev) > 0.3
+    w = correspondence_weights(p1, p2, valid)
+    draws = torch.randint(0, 100, (B, cfg.num_hypotheses, cfg.sample_size), generator=g,
+                          device=dev)
+    kernels.reset_launch_counts()
+    rb = ransac_se3(p1, p2, w, valid, cfg=cfg, draws=draws)
+    assert kernels.LAUNCHES["mahal_hypothesis_scores"] == 1
+    for i in range(B):
+        r1 = ransac_se3(p1[i], p2[i], w[i], valid[i], cfg=cfg, draws=draws[i])
+        assert int(r1.num_inliers) == int(rb.num_inliers[i])
+        assert torch.equal(r1.inliers, rb.inliers[i])
+        torch.testing.assert_close(r1.T21, rb.T21[i], rtol=1e-5, atol=1e-6)
+    assert bool(rb.success.all())
+
+
+def test_slam_system_on_card_uses_only_kernels(dev, kernels):
+    """Serial full SLAM at 320x240 on the card: the backend's candidate
+    verification rides one batched launch of K2 and K3 per keyframe, and the
+    launch counts follow the run's bookkeeping."""
+    from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+
+    cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
+    cfg = SlamConfig(extractor=ExtractorConfig(num_levels=3, cell_size=8, fast_threshold=15.0),
+                     loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
+    ds = SyntheticDataset(n_frames=60, cam=cam, trajectory="orbit", loops=1.15, device=dev)
+    system = SlamSystem(cam, cfg, seed=0, device=dev)
+    system.load_vocabulary(shipped_vocabulary("svo_fast"))
+    kernels.reset_launch_counts()
+    for i in range(len(ds)):
+        system.track(*ds.grab(i))
+    system.finish()
+    E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
+    assert kernels.LAUNCHES == {"detect_score_map": 3 * 60, "hamming_match_2nn": E + 2 * KF + R,
+                                "mahal_hypothesis_scores": E + KF + R, "gicp_refine_kernel": E,
+                                "gicp_gn_normal_equations": 0}
+    assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R,
+                                        "mahal_hypothesis_scores": KF + R}
+    ts, poses = system.camera_trajectory()
+    assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
+    assert KF >= 10 and system.graph.n_vertices == KF and system.graph.n_edges > KF - 1
+    assert system.tracker.stats.failures <= 3 and np.isfinite(poses).all()

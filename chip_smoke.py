@@ -30,7 +30,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                budget, and where the tour's time goes.
 Phase 3 also holds K5 (one GICP normal-equation build, reached through
 solvers.icp.gicp_normal_equations) against its plain version and against
-one round of K4, and K2 and K3 with a batch of 13.
+one round of K4, K2 and K3 with a batch of 13, the gated matcher against
+the tensor gates (exact), and the fused RANSAC against the plain one, held
+apart: kernel A's poses against the plain fit, its counts against the plain
+scorer on its own poses, kernel B against the plain selection and refits on
+kernel A's outputs, and the whole against the whole, on the first five
+sweep pairs, on 13 sweep candidates and (phase 6) on 13 tour candidates.
+Phase 5 counts the device launches of one ransac_se3 call (at most 4) and
+of one match_descriptors call (at most 2) with the profiler, and runs the
+stage loop and one tour once more on the tensor-code RANSAC and gates that
+the fused kernels replaced, for a before beside the after on the same card.
 The line before the last is the card's name and power limit; the one
 before it a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -90,10 +99,15 @@ def paired_ms(kernel_fn, plain_fn):
 @contextlib.contextmanager
 def plain_versions_forbidden(kernels):
     """Make every plain kernel version raise while the main path runs."""
-    names = ["detect_score_map_ref", "hamming_match_2nn_ref",
-             "mahal_hypothesis_scores_ref", "gicp_refine_ref",
-             "gicp_gn_normal_equations_ref"]
-    saved = {n: getattr(kernels, n) for n in names}
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
+
+    names = [(kernels, n) for n in (
+        "detect_score_map_ref", "hamming_match_2nn_ref", "match_gates_ref", "match_gated_ref",
+        "mahal_hypothesis_scores_ref", "gicp_refine_ref",
+        "gicp_gn_normal_equations_ref")]
+    names += [(ransac_mod, n) for n in ("ransac_se3_ref", "hypotheses_ref",
+                                        "hypothesis_fits_ref", "select_refine_ref")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
 
     def forbid(name):
         def f(*a, **k):
@@ -101,12 +115,37 @@ def plain_versions_forbidden(kernels):
         return f
 
     try:
-        for n in names:
-            setattr(kernels, n, forbid(n))
+        for mod, n in names:
+            setattr(mod, n, forbid(n))
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(kernels, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+@contextlib.contextmanager
+def tensor_code_paths(kernels):
+    """The RANSAC and the matcher's gates as the tensor code the fused
+    kernels replaced (`ransac_se3_ref`, scoring by the scorer kernel, and
+    the 2-NN kernel followed by elementwise gates), on every path of the
+    port: the before of a before/after on one card."""
+    from rgbdslam_tpu_torch.slam import pipeline, system, tracking
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
+
+    def gated(desc1, desc2, valid1, valid2, ratio):
+        out = kernels.hamming_match_2nn(desc1, desc2, valid1, valid2)
+        return out[0], out[1], kernels.match_gates_ref(*out, valid1, ratio)
+
+    saved = [(m, "ransac_se3", m.ransac_se3) for m in (pipeline, system, tracking)]
+    saved.append((kernels, "match_gated", kernels.match_gated))
+    try:
+        for m in (pipeline, system, tracking):
+            m.ransac_se3 = ransac_mod.ransac_se3_ref
+        kernels.match_gated = gated
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def ds_cpu_frame(ds, i: int):
@@ -153,6 +192,47 @@ def sync_calls(fn):
     return len(msgs), (msgs[0][:80] if msgs else ""), out
 
 
+def poses_close(aT, pT, T64, p1, atol=5e-5, factor=10.0):
+    """Hold kernel A's hypothesis poses aT against the plain fit pT (both
+    f32), with the plain fit in float64, T64, as the yardstick. Rotations:
+    atol 5e-5 (30 power iterations summed in another order: the bound the
+    CPU tests hold between torch and XLA). Translations t = c2 - R c1: that
+    bound times (1 + the farthest point's distance), since they carry the
+    rotation's error over the centroid's lever arm (~4 m on these scenes).
+    A sample of nearly coincident or collinear points leaves its fit
+    ill-determined: the moments cancel, and float32 rounding moves the pose
+    by far more than 5e-5 in every implementation. For such a hypothesis
+    the bound is `factor` times the plain float32 fit's own distance from
+    its float64 evaluation, where that is larger; the caller caps how many
+    hypotheses may take that bound and holds them by their scores as well.
+    Four draws of one slot give a NaN pose in all three (S = 0), which
+    scores no inlier. Returns (the mask of hypotheses held to the wider
+    bound, the worst difference over its bound)."""
+    reach = 1.0 + float(torch.linalg.norm(p1, dim=-1).max())
+    scale = torch.ones(4, 4, device=aT.device)
+    scale[:3, 3] = reach
+    own = (pT.double() - T64).abs().amax((-1, -2), keepdim=True).nan_to_num(0.0)
+    tol = torch.clamp_min(factor * own, atol) * scale
+    diff = (aT.double() - pT.double()).abs()
+    both_nan = torch.isnan(aT) & torch.isnan(pT)
+    ratio = torch.where(both_nan, 0.0, diff / tol)
+    ratio = torch.where(torch.isnan(ratio), float("inf"), ratio)
+    return (factor * own > atol)[..., 0, 0], float(ratio.max())
+
+
+def device_launches(fn) -> int:
+    """Kernels, copies and fills the device ran for one fn(), counted by
+    torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()                                   # first-use set-up stays outside
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+
+
 def profile_busy(fn, what: str, smi: str) -> None:
     """Log the device's busy share of fn()'s wall time and the ten kernels
     with the most device time, from torch.profiler."""
@@ -181,6 +261,10 @@ def profile_busy(fn, what: str, smi: str) -> None:
         f"{sum(r[2] for r in rows)} kernel launches ({smi})")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[times]   {dev_us / 1000:9.3f} ms  {count:6d}x  {key[:90]}")
+    own = {key.split("::")[1].split("(")[0]: round(dev_us / count, 1)
+           for dev_us, key, count in rows if key.startswith("(anonymous namespace)::")}
+    log(f"[times] profiler, {what}: device microseconds per launch of the port's own "
+        f"kernels {json.dumps(own)}")
 
 
 def main() -> int:
@@ -202,6 +286,7 @@ def main() -> int:
     from rgbdslam_tpu_torch.ops import _build, image, kernels
     from rgbdslam_tpu_torch.solvers.icp import gicp_refine
     from rgbdslam_tpu_torch.solvers.kabsch import weighted_rigid_transform
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
     from rgbdslam_tpu_torch.solvers.ransac_se3 import _sigma_diag, _take, ransac_se3
     from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
 
@@ -277,6 +362,25 @@ def main() -> int:
     log(f"[kernels] K2 1024x1024: all four outputs equal; "
         f"{int((ko[1] < kernels.BIG).sum())} rows with a valid pair")
 
+    def check_gated(tag, d1, d2, w1, w2):
+        """The gated matcher against the 2-NN's plain version and the
+        tensor gates: idx2, dist and valid exact; a valid match lands on a
+        valid train row (an invalid one is BIG away)."""
+        kg = kernels.match_gated(d1, d2, w1, w2, cfg.matcher.nn_ratio)
+        pg = kernels.match_gated_ref(d1, d2, w1, w2, cfg.matcher.nn_ratio)
+        for a, b, nm in zip(kg, pg, ("idx2", "dist", "valid")):
+            check(a.shape == b.shape and torch.equal(a.to(torch.int64), b.to(torch.int64)),
+                  f"gated matcher {tag}: {nm} differs")
+        check(int(kg[2].sum()) > 0, f"gated matcher {tag}: no match survives")
+        w2_at = torch.gather(w2.expand(kg[0].shape[:-1] + w2.shape[-1:]), -1, kg[0].long())
+        check(bool((w2_at | ~kg[2]).all()), f"gated matcher {tag}: a valid match on an "
+              "invalid train row")
+        log(f"[kernels] gated matcher {tag}: idx2, dist, valid equal; "
+            f"{int(kg[2].sum())} matches survive the gates")
+
+    check_gated("1024x1024", f0.desc, f1.desc, v1, v2)
+    results["match_gated"] = dict(max_abs_err=0.0)
+
     m = match_frames(f0, f1, cfg.matcher.nn_ratio)
     p1, p2, w, valid = gather_matched_points(f0, f1, m)
     rc = RansacConfig()
@@ -297,6 +401,67 @@ def main() -> int:
     log(f"[kernels] K3 256x1024: counts equal (max {int(kc.max())}), "
         f"err-sum max abs diff {results['mahal_hypothesis_scores']['max_abs_err']:.3g}")
 
+    fused_err = {}
+
+    def check_fused(tag, key, q1, q2, qw, qv):
+        """The fused RANSAC against the plain one on one problem (or one
+        batch), held apart. Tolerances: kernel A's poses against the plain
+        Horn fit as `poses_close` states them, with at most 3 % of the
+        hypotheses ill-determined and each of those scoring within 2
+        inliers of the plain fit's pose under the plain scorer (the bound
+        the whole RANSAC's inlier count is held to); kernel A's counts exact and
+        sums rtol 1e-5 against the plain scorer on kernel A's own poses
+        (same operation order, -fmad=false); kernel B against the plain
+        selection and refits on kernel A's outputs, and the whole against
+        the whole plain version: success equal, inlier count within 2, T21
+        rtol 1e-4 / atol 5e-5 (the refits' sums run in another order, so a
+        correspondence on the threshold can change sides)."""
+        lead = q1.shape[:-2]
+        nv = torch.clamp_min(qv.sum(-1), 1)[..., None, None]
+        u = torch.rand(lead + (H, S), generator=gen, device=dev)
+        draws = torch.minimum(torch.floor(u * nv).to(torch.int64), nv - 1)
+        res, (aT, acnt, aerr) = ransac_mod.ransac_se3_cuda(q1, q2, qw, qv, rc, draws=draws)
+        pT, pcnt, perr = ransac_mod.hypotheses_ref(q1, q2, qw, qv, rc, draws=draws)
+        torch.cuda.synchronize()
+        T64 = ransac_mod.hypothesis_fits_ref(q1.double(), q2.double(), qw.double(), qv, H,
+                                             draws=draws)
+        loose, worst = poses_close(aT, pT, T64, q1)
+        check(worst <= 1.0, f"fused RANSAC {tag}: a pose of kernel A is {worst:.3g} times "
+              "its tolerance from the plain fit")
+        n_loose = int(loose.sum())
+        check(n_loose <= 0.03 * loose.numel(), f"fused RANSAC {tag}: {n_loose} of "
+              f"{loose.numel()} hypotheses are held to the ill-determined bound")
+        d_loose = int(((acnt.long() - pcnt.long()).abs() * loose).max())
+        check(d_loose <= 2, f"fused RANSAC {tag}: an ill-determined hypothesis scores "
+              f"{d_loose} inliers away from the plain fit's")
+        scnt, serr = kernels.mahal_hypothesis_scores_ref(
+            aT, q1, q2, _sigma_diag(q1[..., 2], rc), _sigma_diag(q2[..., 2], rc), qv, th)
+        check(torch.equal(acnt, scnt), f"fused RANSAC {tag}: kernel A's counts differ from "
+              "the plain scorer's on its own poses")
+        torch.testing.assert_close(aerr, serr, rtol=1e-5, atol=0.0)
+        part = ransac_mod.select_refine_ref(aT, acnt, aerr, q1, q2, qw, qv, rc)
+        whole = ransac_mod.select_refine_ref(pT, pcnt, perr, q1, q2, qw, qv, rc)
+        for what, ref in (("kernel B", part), ("whole", whole)):
+            check(torch.equal(res.success, ref.success), f"fused RANSAC {tag}, {what}: success")
+            dn = int((res.num_inliers.long() - ref.num_inliers.long()).abs().max())
+            check(dn <= 2, f"fused RANSAC {tag}, {what}: inlier counts differ by {dn}")
+            torch.testing.assert_close(res.T21, ref.T21, rtol=1e-4, atol=5e-5)
+        # the uniforms become the same draws inside the kernel
+        res_u, _ = ransac_mod.ransac_se3_cuda(q1, q2, qw, qv, rc, u=u)
+        check(torch.equal(res_u.T21, res.T21)
+              and torch.equal(res_u.num_inliers, res.num_inliers),
+              f"fused RANSAC {tag}: uniforms and their draws give different results")
+        dT = float((res.T21 - whole.T21).abs().max())
+        fused_err[key] = max(fused_err.get(key, 0.0), dT)
+        log(f"[kernels] fused RANSAC {tag}: kernel A poses max abs diff "
+            f"{float((aT - pT).nan_to_num().abs().max()):.3g} ({worst:.3g} of the bound, "
+            f"{n_loose} ill-determined hypotheses held to 10 x the plain fit's own f32 "
+            f"error and within {d_loose} inliers of the plain fit's score), counts equal (max {int(acnt.max())}), sums "
+            f"max abs diff {float((aerr - serr).abs().max()):.3g}; T21 - plain {dT:.3g}, "
+            f"inliers {res.num_inliers.flatten().tolist()} vs "
+            f"{whole.num_inliers.flatten().tolist()}, success "
+            f"{int(res.success.sum())} of {res.success.numel()}")
+
     # K4 on the first five frame pairs: their depth-patch covariances come
     # out slightly indefinite, where the Pallas kernel's Cholesky gave NaN
     icp = cfg.icp
@@ -307,6 +472,7 @@ def main() -> int:
         fb = f1 if i == 1 else odo.features(frames[i][1], frames[i][2])
         mk = match_frames(fa, fb, cfg.matcher.nn_ratio)
         q1, q2, qw, qv = gather_matched_points(fa, fb, mk)
+        check_fused(f"sweep pair {i}", "ransac_se3_fused", q1, q2, qw, qv)
         res = ransac_se3(q1, q2, qw, qv, gen, rc)
         C1, C2 = fa.surf_cov, fb.surf_cov[mk.idx2.long()].contiguous()
         inl, T0 = res.inliers.contiguous(), res.T21.contiguous()
@@ -330,6 +496,12 @@ def main() -> int:
         fa = fb
     k4_args = gicp_pairs[0]
     results["gicp_refine_kernel"] = dict(max_abs_err=k4_err)
+    # an all-invalid problem: every draw hits slot 0, the fits are the
+    # identity, success is false
+    none = ransac_se3(p1, p2, torch.zeros_like(w), torch.zeros_like(valid), gen, rc)
+    check(not bool(none.success) and int(none.inliers.sum()) == 0
+          and torch.equal(none.T21, torch.eye(4, device=dev)),
+          "fused RANSAC on an all-invalid problem")
 
     # K5 on the same five pairs, through its public entry: the launches of
     # this loop are the ones counted for K5 (it lies on no path of the SLAM
@@ -384,9 +556,11 @@ def main() -> int:
               f"batched K2 {nm} differs")
     log(f"[kernels] K2 batched {tuple(Db.shape)} x {tuple(f1.desc.shape)}: all four "
         f"outputs equal; {int((kob[1] < kernels.BIG).sum())} rows with a valid pair")
+    check_gated(f"batched {tuple(Db.shape)} x {tuple(f1.desc.shape)}", Db, f1.desc, Vb, v2)
+    results["match_gated_b13"] = dict(max_abs_err=0.0)
     mb = match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)
     jb = mb.idx2.long()
-    vb = (mb.valid & v2[jb]).contiguous()
+    vb = mb.valid
     p2b = f1.xyz[jb].contiguous()
     wb = correspondence_weights(Xb, p2b, vb)
     pick = torch.randint(0, 1024, (13, H, S), generator=gen, device=dev)
@@ -402,6 +576,13 @@ def main() -> int:
     results["mahal_hypothesis_scores_b13"] = dict(max_abs_err=float((keb - peb).abs().max()))
     log(f"[kernels] K3 batched {tuple(T_hb.shape)}: counts equal (max {int(kcb.max())}), "
         f"err-sum max abs diff {results['mahal_hypothesis_scores_b13']['max_abs_err']:.3g}")
+    # the fused RANSAC on the same 13 candidates, two of them emptied
+    # (padded candidate slots of the keyframe backend)
+    vb2 = vb.clone()
+    vb2[3] = False
+    vb2[11] = False
+    wb2 = correspondence_weights(Xb, p2b, vb2)
+    check_fused("13 sweep candidates, two empty", "ransac_se3_fused_b13", Xb, p2b, wb2, vb2)
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 4
@@ -447,7 +628,9 @@ def main() -> int:
     pairs = n_frames - 1
     expect = {"detect_score_map": cfg.extractor.num_levels * n_frames * len(seeds),
               "hamming_match_2nn": pairs * len(seeds),
-              "mahal_hypothesis_scores": pairs * len(seeds),
+              "match_gates": pairs * len(seeds),
+              "mahal_hypothesis_scores": 0,
+              "ransac_se3_fused": pairs * len(seeds),
               "gicp_refine_kernel": pairs * len(seeds),
               "gicp_gn_normal_equations": 0}
     check(launches_sweep == expect, f"launch counts {launches_sweep} != {expect}")
@@ -473,6 +656,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     voc = shipped_vocabulary(slam_cfg.detector)
     check(voc is not None, "the shipped vocabulary is missing")
+
+    # the fused RANSAC on 13 candidates of the tour: frames 0-12 against
+    # frame 13, matched as the keyframe backend matches its candidates
+    tf = [odo.features(g, z) for _, g, z in tour_frames[:14]]
+    tD = torch.stack([c.desc for c in tf[:13]]).contiguous()
+    tX = torch.stack([c.xyz for c in tf[:13]]).contiguous()
+    tV = torch.stack([c.obs_valid for c in tf[:13]]).contiguous()
+    tm = match_descriptors(tD, tV, tf[13].desc, tf[13].obs_valid, cfg.matcher.nn_ratio)
+    tp2 = tf[13].xyz[tm.idx2.long()].contiguous()
+    check_fused("13 tour candidates", "ransac_se3_fused_b13", tX, tp2,
+                correspondence_weights(tX, tp2, tm.valid), tm.valid)
 
     def run_tour(seed, per_frame=None, finish=True, n=n_tour):
         system = SlamSystem(SYNTHETIC, slam_cfg, seed=seed, device=dev)
@@ -536,16 +730,19 @@ def main() -> int:
     expect_tour = {
         "detect_score_map": slam_cfg.extractor.num_levels * n_tour * len(slam_seeds),
         "hamming_match_2nn": E_all + 2 * KF_all + R_all,
-        "mahal_hypothesis_scores": E_all + KF_all + R_all,
+        "match_gates": E_all + 2 * KF_all + R_all,
+        "mahal_hypothesis_scores": 0,
+        "ransac_se3_fused": E_all + KF_all + R_all,
         "gicp_refine_kernel": E_all,
         "gicp_gn_normal_equations": 0}
     log(f"[slam] launches over the {len(slam_seeds)} runs {json.dumps(launches_tour)}; "
         f"formula with E={E_all}, KF={KF_all}, R={R_all}: K1 = levels x frames x seeds, "
-        f"K2 = E + 2 KF + R, K3 = E + KF + R, K4 = E, K5 = 0 -> {json.dumps(expect_tour)}; "
-        f"batched {json.dumps(batched_tour)}")
+        f"K2 = gates = E + 2 KF + R, fused RANSAC = E + KF + R, K3's scorer alone = 0, "
+        f"K4 = E, K5 = 0 -> {json.dumps(expect_tour)}; batched {json.dumps(batched_tour)}")
     check(launches_tour == expect_tour, f"launch counts {launches_tour} != {expect_tour}")
-    check(batched_tour == {"hamming_match_2nn": KF_all + R_all,
-                           "mahal_hypothesis_scores": KF_all + R_all},
+    check(batched_tour == {"hamming_match_2nn": KF_all + R_all, "match_gates": KF_all + R_all,
+                           "mahal_hypothesis_scores": 0,
+                           "ransac_se3_fused": KF_all + R_all},
           f"batched launches {batched_tour}")
     log(f"[slam] peak device memory over the {len(slam_seeds)} runs "
         f"{peak_mib:.1f} MiB ({smi})")
@@ -611,7 +808,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return 1000 * (time.perf_counter() - t0) / n_frames, a.elapsed_time(b) / n_frames
 
-    def stage_loop():
+    def stage_loop(ransac_fn=ransac_se3):
         """The pipeline's per-frame work (features, match, RANSAC, GICP) in
         a loop with no sync, marked at each stage boundary by a CUDA event
         and by the host clock. Returns (host ms per frame of the loop,
@@ -632,7 +829,7 @@ def main() -> int:
             q1, q2, ww, vv = gather_matched_points(f_prev, fc, mm)
             h[2] = time.perf_counter()
             e[2].record()
-            rr = ransac_se3(q1, q2, ww, vv, odo.generator, cfg.ransac)
+            rr = ransac_fn(q1, q2, ww, vv, odo.generator, cfg.ransac)
             h[3] = time.perf_counter()
             e[3].record()
             gicp_refine(q1, q2, rr.inliers, rr.T21, cfg.icp, C1=f_prev.surf_cov,
@@ -666,6 +863,56 @@ def main() -> int:
         log(f"[times] round {rnd}: stage loop medians over {len(s_ev['step'])} frames, "
             f"CUDA events {json.dumps(times[-1]['event'])}; host clock "
             f"{json.dumps(times[-1]['host'])} ({smi})")
+
+    # Before, on the same card: the stage loop and one tour on the tensor
+    # code the fused kernels replaced (the plain RANSAC with the scorer
+    # kernel inside, the 2-NN kernel followed by elementwise gates). These
+    # are also the only launches of K3's scorer alone, which lies on no main
+    # path any more: its public entry is ransac_se3_ref on CUDA tensors.
+    kernels.reset_launch_counts()
+    with tensor_code_paths(kernels):
+        b_wall, b_ev, b_host = stage_loop(ransac_mod.ransac_se3_ref)
+        b_sys, b_ms, _ = run_tour(1, finish=False)
+    torch.cuda.synchronize()
+    k3_launches = kernels.LAUNCHES["mahal_hypothesis_scores"]
+    k3_batched = kernels.BATCHED_LAUNCHES["mahal_hypothesis_scores"]
+    b_E, b_KF = b_sys.tracker.stats.estimates, b_sys.store.count
+    check(kernels.LAUNCHES["ransac_se3_fused"] == 0 and kernels.LAUNCHES["match_gates"] == 0,
+          "the before run reached a fused kernel")
+    check(k3_launches == (n_frames - 1) + b_E + b_KF + b_sys.reloc_verifications
+          and k3_batched == b_KF + b_sys.reloc_verifications,
+          f"K3's scorer: {k3_launches} launches ({k3_batched} batched) in the before run")
+    log(f"[times] before (tensor-code RANSAC and gates): stage loop {b_wall:.3f} ms/frame "
+        f"host clock, medians over {len(b_ev['step'])} frames, CUDA events "
+        f"{json.dumps({k: med(v) for k, v in b_ev.items()})}; host clock "
+        f"{json.dumps({k: med(v) for k, v in b_host.items()})} ({smi})")
+    b_kf = np.array(b_sys.kf_backend_ms)
+    log(f"[times] before (tensor-code RANSAC and gates): tour seed 1: {b_ms.mean():.3f} "
+        f"ms/frame over {n_tour} frames (median {np.median(b_ms):.3f}); tracking step "
+        f"{(b_ms.sum() - b_kf.sum()) / n_tour:.3f} ms/frame; keyframe backend "
+        f"{b_kf.mean():.3f} ms/keyframe x {len(b_kf)}, loop-closure solves included "
+        f"({json.dumps([round(float(x), 1) for x in b_sys.loop_solve_ms])} ms); K3's scorer "
+        f"alone launched {k3_launches} times, {k3_batched} batched ({smi})")
+
+    # device launches of one call, by the profiler: at most 4 per
+    # ransac_se3 (the uniform draws, kernel A, kernel B), at most 2 per
+    # match_descriptors (the 2-NN, the gates), whatever the batch
+    n_launch = {
+        "ransac_se3": device_launches(
+            lambda: ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)),
+        "ransac_se3 batch 13": device_launches(
+            lambda: ransac_se3(Xb, p2b, wb, vb, odo.generator, cfg.ransac)),
+        "match_descriptors": device_launches(
+            lambda: match_descriptors(f0.desc, v1, f1.desc, v2, cfg.matcher.nn_ratio)),
+        "match_descriptors batch 13": device_launches(
+            lambda: match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)),
+        "ransac_se3_ref": device_launches(
+            lambda: ransac_mod.ransac_se3_ref(p1, p2, w, valid, odo.generator, cfg.ransac)),
+    }
+    log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}")
+    for k, v in n_launch.items():
+        limit = 4 if k.startswith("ransac_se3") else 2
+        check(k == "ransac_se3_ref" or 0 < v <= limit, f"{k}: {v} launches, limit {limit}")
 
     # the host never waits for the device inside a step, and once per batch
     # in the pipeline (its device-to-host copy of the batch's results)
@@ -721,6 +968,21 @@ def main() -> int:
     timing["mahal_hypothesis_scores_b13"] = paired_ms(
         lambda: kernels.mahal_hypothesis_scores(T_hb, Xb, p2b, s1b, s2b, vb, th),
         lambda: kernels.mahal_hypothesis_scores_ref(T_hb, Xb, p2b, s1b, s2b, vb, th))
+    # the whole calls as the main paths make them: the gated matcher, and
+    # ransac_se3 with its uniform draws, against their tensor-code versions
+    ratio = cfg.matcher.nn_ratio
+    timing["match_gated"] = paired_ms(
+        lambda: kernels.match_gated(f0.desc, f1.desc, v1, v2, ratio),
+        lambda: kernels.match_gated_ref(f0.desc, f1.desc, v1, v2, ratio))
+    timing["match_gated_b13"] = paired_ms(
+        lambda: kernels.match_gated(Db, f1.desc, Vb, v2, ratio),
+        lambda: kernels.match_gated_ref(Db, f1.desc, Vb, v2, ratio))
+    timing["ransac_se3_fused"] = paired_ms(
+        lambda: ransac_se3(p1, p2, w, valid, gen, rc),
+        lambda: ransac_mod.ransac_se3_ref(p1, p2, w, valid, gen, rc))
+    timing["ransac_se3_fused_b13"] = paired_ms(
+        lambda: ransac_se3(Xb, p2b, wb, vb, gen, rc),
+        lambda: ransac_mod.ransac_se3_ref(Xb, p2b, wb, vb, gen, rc))
 
     # Bounds from this run's shapes: every input byte read once, every
     # output byte written once; operations counted per element as the
@@ -735,6 +997,22 @@ def main() -> int:
     def k3_bound(b):       # ~100 float operations per (hypothesis, correspondence)
         return bound(b * (H * 64 + N * 49 + H * 8), b * H * N * 100)
 
+    def gated_bound(b):    # K2's work, the gates' five operations and one flag per query
+        return bound(b * N * 33 + M * 33 + b * N * 9, b * N * M * 8 * 3 + b * N * 5)
+
+    def ransac_bound(b):
+        """The function's work whatever implements it: H x N scorings of
+        ~100 operations, H + refine_iters Horn fits (30 iterations of ~45
+        operations and ~150 around them; a refit's moments ~40 per
+        correspondence), refine_iters + 1 scorings of one pose (the winner's
+        and each refit's: a second scoring of a refit repeats the first bit
+        for bit and is not needed); p1, p2, w, valid and the uniforms read
+        once, T21, the mask and three scalars written once."""
+        r = rc.refine_iters
+        fit = 30 * 45 + 150
+        ops = H * N * 100 + (H + r) * fit + r * N * 40 + (r + 1) * N * 100
+        return bound(b * (N * (24 + 4 + 1) + H * S * 4 + 64 + N + 9), b * ops)
+
     bounds = {
         # Sobel + 3 products + separable 9x9 boxes + eigenvalue + FAST arc + NMS: ~170/px
         "detect_score_map": bound(n_px * 4 * 3, n_px * 170),
@@ -742,6 +1020,10 @@ def main() -> int:
         "hamming_match_2nn_b13": k2_bound(13),
         "mahal_hypothesis_scores": k3_bound(1),
         "mahal_hypothesis_scores_b13": k3_bound(13),
+        "match_gated": gated_bound(1),
+        "match_gated_b13": gated_bound(13),
+        "ransac_se3_fused": ransac_bound(1),
+        "ransac_se3_fused_b13": ransac_bound(13),
         # ~300 float operations per correspondence and round
         "gicp_refine_kernel": bound(gicp_bytes + 72, N * 300 * icp.max_iterations),
         "gicp_gn_normal_equations": bound(gicp_bytes + 116, N * 300),
@@ -749,40 +1031,65 @@ def main() -> int:
     for k, (kms, pms) in timing.items():
         log(f"[times] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{bounds[k][0]:.6f} ms by {bounds[k][1]}, library call none ({smi})")
-    log("[times] every bound lies far under one launch's latency: K4 and K5 are held by "
-        "their dependent block reductions (10 and 1), not by throughput")
+    log("[times] every bound lies far under one launch's latency: K4, K5 and the fused "
+        "RANSAC are held by their dependent block reductions (10, 1 and 2 + 4 x "
+        f"{rc.refine_iters}) and serial Horn fits, not by throughput")
 
-    # launches: the sum over the driven paths, each with the counts set to 0
-    # just before it and read just after (the sweep, the tour; for K5 its
-    # public entry in phase 3, since no path of the SLAM system reaches it)
-    totals = {k: launches_sweep[k] + launches_tour[k] for k in launches_tour}
-    totals["gicp_gn_normal_equations"] += k5_launches
-    batched = {k + "_b13": v for k, v in batched_tour.items()}
+    # launches per entry: (sweep, tour), each path driven with the counts
+    # set to 0 just before it and read just after; an unbatched entry counts
+    # its wrapper's unbatched launches, the _b13 entry its batched ones.
+    # `off_path` holds the launches through a public entry that no main path
+    # reaches: K5's in phase 3, and those of K3's scorer alone in the
+    # before run (ransac_se3_ref on CUDA tensors). They are printed apart as
+    # `launches_off_path`; an entry named here must show none on a main
+    # path, every other entry must show some there.
+    def path_launches(wrapper, b13):
+        n_batched = batched_tour.get(wrapper, 0)       # K1, K4, K5 take no batch
+        if b13:
+            return 0, n_batched
+        return launches_sweep[wrapper], launches_tour[wrapper] - n_batched
+
+    off_path = {"gicp_gn_normal_equations": k5_launches,
+             "mahal_hypothesis_scores": k3_launches - k3_batched,
+             "mahal_hypothesis_scores_b13": k3_batched}
+    results["ransac_se3_fused"] = dict(max_abs_err=fused_err["ransac_se3_fused"])
+    results["ransac_se3_fused_b13"] = dict(max_abs_err=fused_err["ransac_se3_fused_b13"])
+    pallas = "rgbdslam_tpu/ops/pallas_kernels.py"
+    # name: (source, TPU kernel, the wrapper whose count it reads)
     meta = {
-        "detect_score_map": ("detect.cu", "rgbdslam_tpu/ops/pallas_kernels.py:319"),
-        "hamming_match_2nn": ("hamming.cu", "rgbdslam_tpu/ops/pallas_kernels.py:86"),
-        "hamming_match_2nn_b13": ("hamming.cu", "rgbdslam_tpu/ops/pallas_kernels.py:86"),
-        "mahal_hypothesis_scores": ("mahal.cu", "rgbdslam_tpu/ops/pallas_kernels.py:479"),
-        "mahal_hypothesis_scores_b13": ("mahal.cu", "rgbdslam_tpu/ops/pallas_kernels.py:479"),
-        "gicp_refine_kernel": ("gicp.cu", "rgbdslam_tpu/ops/pallas_kernels.py:790"),
-        "gicp_gn_normal_equations": ("gicp.cu", "rgbdslam_tpu/ops/pallas_kernels.py:828"),
+        "detect_score_map": ("detect.cu", f"{pallas}:319", "detect_score_map"),
+        "hamming_match_2nn": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
+        "hamming_match_2nn_b13": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
+        "match_gated": ("hamming.cu", f"{pallas}:86", "match_gates"),
+        "match_gated_b13": ("hamming.cu", f"{pallas}:86", "match_gates"),
+        "mahal_hypothesis_scores": ("mahal.cu", f"{pallas}:479", "mahal_hypothesis_scores"),
+        "mahal_hypothesis_scores_b13": ("mahal.cu", f"{pallas}:479",
+                                        "mahal_hypothesis_scores"),
+        "ransac_se3_fused": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
+        "ransac_se3_fused_b13": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
+        "gicp_refine_kernel": ("gicp.cu", f"{pallas}:790", "gicp_refine_kernel"),
+        "gicp_gn_normal_equations": ("gicp.cu", f"{pallas}:828", "gicp_gn_normal_equations"),
     }
-    line = {"kernels": [
-        {"name": k, "route": "cuda", "source": f"rgbdslam_tpu_torch/csrc/{src}",
-         "replaces": rep,
-         # an unbatched entry counts the wrapper's unbatched launches, the
-         # _b13 entry its batched ones
-         "launches": (batched[k] if k in batched else
-                      totals[k] - batched.get(k + "_b13", 0)),
-         "launches_sweep": 0 if k in batched else launches_sweep[k],
-         "launches_tour": (batched[k] if k in batched else
-                           launches_tour[k] - batched.get(k + "_b13", 0)),
-         "max_abs_err": results[k]["max_abs_err"],
-         "ms": timing[k][0], "plain_ms": timing[k][1],
-         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
-        for k, (src, rep) in meta.items()]}
+    line = {"kernels": []}
+    for k, (src, replaces, wrapper) in meta.items():
+        n_sweep, n_tour_k = path_launches(wrapper, k.endswith("_b13"))
+        line["kernels"].append(
+            {"name": k, "route": "cuda", "source": f"rgbdslam_tpu_torch/csrc/{src}",
+             "replaces": replaces,
+             "launches": n_sweep + n_tour_k + off_path.get(k, 0),
+             "launches_sweep": n_sweep, "launches_tour": n_tour_k,
+             "launches_off_path": off_path.get(k, 0),
+             "max_abs_err": results[k]["max_abs_err"],
+             "ms": timing[k][0], "plain_ms": timing[k][1],
+             "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None})
     for entry in line["kernels"]:
-        check(entry["launches"] > 0, f"{entry['name']} was launched on no driven path")
+        on_path = entry["launches_sweep"] + entry["launches_tour"]
+        if entry["name"] in off_path:
+            check(on_path == 0 and entry["launches_off_path"] > 0,
+                  f"{entry['name']}: {on_path} launches on a main path, "
+                  f"{entry['launches_off_path']} through its public entry")
+        else:
+            check(on_path > 0, f"{entry['name']} was launched on no main path")
     log(json.dumps(line))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

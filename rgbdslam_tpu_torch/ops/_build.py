@@ -43,12 +43,20 @@ SIGNATURES = {
     # img, h, w, thr, out, raw, stream
     "rgbd_detect_score_map": (_P, _I, _I, _F, _P, _P, _P),
     # d1, d2, v1, v2, n, m, batch, batched1, batched2, best_idx, best_dist,
-    # second_dist, col_key, col_best_row, stream
+    # second_dist, col_best_row, stream
     "rgbd_hamming_match_2nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _P, _P, _P, _P, _P, _P),
+                               _P, _P, _P, _P, _P),
+    # best_idx, best_dist, second_dist, col_best_row, v1, n, m, batch,
+    # batched1, ratio, valid_out, stream
+    "rgbd_match_gates": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
     # T_h, p1, p2, s1, s2, valid, batch, h, n, th, cnt, err, stream
     "rgbd_mahal_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                      _P, _P, _P),
+    # p1, p2, w, valid, u, draws, batch, h, n, cov_x, cov_y, depth_std_factor,
+    # th, refine_iters, min_inliers, T_h, cnt_h, err_h, T, inliers, cnt, rmse,
+    # success, stream
+    "rgbd_ransac_se3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # T, p1, p2, C1, C2, valid, n, iters, max_dist2, out, stream
     "rgbd_gicp_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
     # T, p1, p2, C1, C2, valid, n, max_dist2, out, stream

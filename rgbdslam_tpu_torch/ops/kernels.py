@@ -6,28 +6,36 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 |--------------------------|---------------------------------------|----------------------------|
 | detect.cu   (K1)         | detect_score_map, 319-397             | detect_score_map_ref       |
 | hamming.cu  (K2)         | hamming_match_2nn, 86-150             | hamming_match_2nn_ref      |
+| hamming.cu  (K2's gates) | the gates XLA fused behind it         | match_gates_ref            |
 | mahal.cu    (K3)         | mahal_hypothesis_scores, 479-526      | mahal_hypothesis_scores_ref|
+| mahal.cu    (K3, whole RANSAC) | the same, with the rest of ransac_se3 | solvers.ransac_se3.ransac_se3_ref |
 | gicp.cu     (K4)         | gicp_refine_kernel, 790-825           | gicp_refine_ref            |
 | gicp.cu     (K5)         | gicp_gn_normal_equations, 828-862     | gicp_gn_normal_equations_ref|
 
-K2 and K3 take an optional leading batch dimension (one launch whatever
-the batch): the keyframe backend verifies all its candidate keyframes
-against the current frame at once.
+The TPU kernels K2 and K3 sat inside programs XLA fused around them; eager
+PyTorch launches every op, so on this card `match_gated` (2-NN and gates,
+two launches) and `ransac_se3_fused` (the whole RANSAC, two launches) are
+what the main paths call. `hamming_match_2nn` stays as the first of
+`match_gated`'s two launches, `mahal_hypothesis_scores` as the scorer of
+`ransac_se3_ref` on CUDA tensors.
+
+K2 and K3 take an optional leading batch dimension (the same launches
+whatever the batch): the keyframe backend verifies all its candidate
+keyframes against the current frame at once.
 
 A wrapper (`detect_score_map`, ...) takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates its outputs, launches on the
 current stream without synchronising, raises if the launch failed, and adds
 one to its entry in `LAUNCHES`. The public functions of the pipeline
-(`fast.masked_score_map`, `matcher.match_descriptors`, the scorer in
-`ransac_se3`, `icp.gicp_refine`) pick the wrapper for CUDA tensors and the
-plain version for CPU tensors (`on_cuda`); nothing falls back from one to
-the other.
+(`fast.masked_score_map`, `matcher.match_descriptors`, `ransac_se3`,
+`icp.gicp_refine`) pick the wrapper for CUDA tensors and the plain version
+for CPU tensors (`on_cuda`); nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,14 +47,17 @@ BIG = hamming.BIG_DIST
 LAUNCHES = {
     "detect_score_map": 0,
     "hamming_match_2nn": 0,
+    "match_gates": 0,
     "mahal_hypothesis_scores": 0,
+    "ransac_se3_fused": 0,
     "gicp_refine_kernel": 0,
     "gicp_gn_normal_equations": 0,
 }
 
 
 # of those, the launches that carried a batch dimension (K2 and K3)
-BATCHED_LAUNCHES = {"hamming_match_2nn": 0, "mahal_hypothesis_scores": 0}
+BATCHED_LAUNCHES = {"hamming_match_2nn": 0, "match_gates": 0,
+                    "mahal_hypothesis_scores": 0, "ransac_se3_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -157,13 +168,9 @@ def hamming_match_2nn(desc1: torch.Tensor, desc2: torch.Tensor,
     best_dist = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     second = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     col_best = torch.empty(lead + (m,), dtype=torch.int32, device=dev)
-    # (dist << 32 | row) keys; BIG << 32 gives row 0 to columns with no
-    # valid pair, like argmin over a column of BIGs
-    col_key = torch.full(lead + (m,), BIG << 32, dtype=torch.int64, device=dev)
     _launch("rgbd_hamming_match_2nn", dev, _ptr(desc1), _ptr(desc2),
             _ptr(valid1), _ptr(valid2), n, m, batch, int(b1), int(b2),
-            _ptr(best_idx), _ptr(best_dist), _ptr(second), _ptr(col_key),
-            _ptr(col_best))
+            _ptr(best_idx), _ptr(best_dist), _ptr(second), _ptr(col_best))
     LAUNCHES["hamming_match_2nn"] += 1
     BATCHED_LAUNCHES["hamming_match_2nn"] += int(b1 or b2)
     return best_idx, best_dist, second, col_best
@@ -187,6 +194,62 @@ def hamming_match_2nn_ref(desc1, desc2, valid1, valid2):
     best_idx, best_dist, second = hamming.knn2(d)
     col_best = torch.argmin(d, dim=0).to(torch.int32)
     return best_idx, best_dist, second, col_best
+
+
+def match_gates(best_idx: torch.Tensor, best_dist: torch.Tensor, second: torch.Tensor,
+                col_best: torch.Tensor, valid1: torch.Tensor, ratio: float
+                ) -> torch.Tensor:
+    """The matcher's gates on `hamming_match_2nn`'s outputs, one launch of
+    csrc/hamming.cu: match i -> best_idx[i] is valid iff float(best) < ratio
+    * float(second) in f32, i is the best query of train row best_idx[i],
+    valid1[i] and best < BIG (which holds only where the train row is valid
+    too). best_idx, best_dist, second (N,) and col_best (M,) int32, all with or all without one batch
+    dimension; valid1 (N,) or (B, N). Returns valid, shaped like best_idx."""
+    lead = tuple(best_idx.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError("match_gates takes at most one batch dimension")
+    n, m = best_idx.shape[-1], col_best.shape[-1]
+    batch = lead[0] if lead else 1
+    for t, name in ((best_idx, "best_idx"), (best_dist, "best_dist"), (second, "second")):
+        _check(t, name, torch.int32, lead + (n,))
+    _check(col_best, "col_best", torch.int32, lead + (m,))
+    b1 = valid1.dim() == 2
+    _check(valid1, "valid1", torch.bool, (lead if b1 else ()) + (n,))
+    valid = torch.empty(lead + (n,), dtype=torch.bool, device=best_idx.device)
+    _launch("rgbd_match_gates", best_idx.device, _ptr(best_idx), _ptr(best_dist),
+            _ptr(second), _ptr(col_best), _ptr(valid1), n, m, batch, int(b1),
+            float(ratio), _ptr(valid))
+    LAUNCHES["match_gates"] += 1
+    BATCHED_LAUNCHES["match_gates"] += int(bool(lead))
+    return valid
+
+
+def match_gates_ref(best_idx, best_dist, second, col_best, valid1, ratio: float
+                    ) -> torch.Tensor:
+    """Plain version of `match_gates`: the gates of
+    rgbdslam_tpu/frontend/matcher.py:96-110 as tensor code."""
+    ratio_ok = best_dist.to(torch.float32) < ratio * second.to(torch.float32)
+    rows = torch.arange(best_idx.shape[-1], dtype=torch.int32, device=best_idx.device)
+    j = best_idx.long()
+    mutual = torch.gather(col_best, -1, j) == rows
+    return ratio_ok & mutual & valid1 & (best_dist < BIG)
+
+
+def match_gated(desc1: torch.Tensor, desc2: torch.Tensor, valid1: torch.Tensor,
+                valid2: torch.Tensor, ratio: float):
+    """(idx2, dist, valid) of the gated matcher in two launches:
+    `hamming_match_2nn`, then `match_gates`."""
+    best_idx, best_dist, second, col_best = hamming_match_2nn(desc1, desc2, valid1, valid2)
+    return best_idx, best_dist, match_gates(best_idx, best_dist, second, col_best,
+                                            valid1, ratio)
+
+
+def match_gated_ref(desc1, desc2, valid1, valid2, ratio: float):
+    """Plain version of `match_gated`."""
+    best_idx, best_dist, second, col_best = hamming_match_2nn_ref(
+        desc1, desc2, valid1, valid2)
+    return best_idx, best_dist, match_gates_ref(best_idx, best_dist, second, col_best,
+                                                valid1, ratio)
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +297,69 @@ def mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th: float):
     cnt = torch.sum(inl, dim=-1).to(torch.int32)
     err = torch.sum(torch.where(inl, m2, 0.0), dim=-1)
     return cnt, err
+
+
+#: dynamic shared memory a block may use on sm_90, less kernel B's static part
+_SELECT_SHARED_BYTES = 232448 - 1024
+
+
+def ransac_se3_fused(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
+                     valid: torch.Tensor, u: Optional[torch.Tensor],
+                     draws: Optional[torch.Tensor], num_hypotheses: int,
+                     cov_x: float, cov_y: float, depth_std_factor: float,
+                     th: float, refine_iters: int, min_inliers: int):
+    """The whole Mahalanobis RANSAC in two launches of csrc/mahal.cu (see
+    its header): kernel A samples, fits and scores the H hypotheses, kernel
+    B selects the winner and runs the masked refits.
+
+    p1, p2 (N, 3) f32, w (N,) f32, valid (N,) bool, all with or all without
+    one leading batch dimension. Exactly one of `u` ((H, 4) f32 uniforms in
+    [0, 1), scaled to the number of valid slots in the kernel) and `draws`
+    ((H, 4) int32 ranks among the valid slots) is given, batched alike.
+    cov_x, cov_y, depth_std_factor: the noise model's per-point covariance
+    (cov_x z, cov_y z, (depth_std_factor z z)^2); th: the largest m^2 of an
+    inlier.
+
+    Returns (T21 (4, 4), inliers (N,) bool, num_inliers () int32, rmse ()
+    f32, success () bool) and kernel A's (T_h (H, 4, 4), count (H,) int32,
+    sum of m^2 (H,) f32), each with the batch dimension if given."""
+    batched = p1.dim() == 3
+    lead = (p1.shape[0],) if batched else ()
+    N, H = p1.shape[-2], int(num_hypotheses)
+    for t, name in ((p1, "p1"), (p2, "p2")):
+        _check(t, name, torch.float32, lead + (N, 3))
+    _check(w, "w", torch.float32, lead + (N,))
+    _check(valid, "valid", torch.bool, lead + (N,))
+    if (u is None) == (draws is None):
+        raise ValueError("ransac_se3_fused takes exactly one of u and draws")
+    if u is not None:
+        _check(u, "u", torch.float32, lead + (H, 4))
+    else:
+        _check(draws, "draws", torch.int32, lead + (H, 4))
+    if N < 1 or H < 1 or (batched and lead[0] < 1):
+        raise ValueError("ransac_se3_fused needs at least one correspondence slot, "
+                         "one hypothesis and one problem")
+    if N * 31 > _SELECT_SHARED_BYTES:
+        raise ValueError(f"ransac_se3_fused holds the {N} correspondences of a problem "
+                         f"in shared memory: at most {_SELECT_SHARED_BYTES // 31}")
+    dev = p1.device
+    T_h = torch.empty(lead + (H, 4, 4), dtype=torch.float32, device=dev)
+    cnt_h = torch.empty(lead + (H,), dtype=torch.int32, device=dev)
+    err_h = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
+    T = torch.empty(lead + (4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    cnt = torch.empty(lead, dtype=torch.int32, device=dev)
+    rmse = torch.empty(lead, dtype=torch.float32, device=dev)
+    success = torch.empty(lead, dtype=torch.bool, device=dev)
+    _launch("rgbd_ransac_se3", dev, _ptr(p1), _ptr(p2), _ptr(w), _ptr(valid),
+            None if u is None else _ptr(u), None if draws is None else _ptr(draws),
+            lead[0] if batched else 1, H, N, float(cov_x), float(cov_y),
+            float(depth_std_factor), float(th), int(refine_iters), int(min_inliers),
+            _ptr(T_h), _ptr(cnt_h), _ptr(err_h), _ptr(T), _ptr(inliers), _ptr(cnt),
+            _ptr(rmse), _ptr(success))
+    LAUNCHES["ransac_se3_fused"] += 1
+    BATCHED_LAUNCHES["ransac_se3_fused"] += int(batched)
+    return (T, inliers, cnt, rmse, success), (T_h, cnt_h, err_h)
 
 
 # ---------------------------------------------------------------------------

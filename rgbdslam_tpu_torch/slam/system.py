@@ -68,7 +68,7 @@ def verify_bank(D, X, V, idx, desc_k, xyz_k, valid_k, cfg: SlamConfig,
     Di, Xi, Vi = D[idx], X[idx], V[idx]                   # (C, N, ...)
     m = match_descriptors(Di, Vi, desc_k, valid_k, cfg.matcher.nn_ratio)
     j = m.idx2.long()
-    mvalid = m.valid & valid_k[j]
+    mvalid = m.valid
     p2 = xyz_k[j]                                         # (C, N, 3)
     w = correspondence_weights(Xi, p2, mvalid)
     res = ransac_se3(Xi, p2, w, mvalid, generator, cfg.ransac, draws=draws)

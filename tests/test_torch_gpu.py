@@ -152,7 +152,8 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
     ts, poses, st = PipelinedOdometry(cam, cfg, batch=8, device=dev).run(
         ds.grab(i) for i in range(len(ds)))
     assert kernels.LAUNCHES == {"detect_score_map": 3 * 24, "hamming_match_2nn": 23,
-                                "mahal_hypothesis_scores": 23, "gicp_refine_kernel": 23,
+                                "match_gates": 23, "mahal_hypothesis_scores": 0,
+                                "ransac_se3_fused": 23, "gicp_refine_kernel": 23,
                                 "gicp_gn_normal_equations": 0}
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.05
     assert st["failures"] == 0 and np.isfinite(poses).all()
@@ -275,7 +276,8 @@ def test_batched_ransac_on_card_matches_per_entry(dev, kernels):
                           device=dev)
     kernels.reset_launch_counts()
     rb = ransac_se3(p1, p2, w, valid, cfg=cfg, draws=draws)
-    assert kernels.LAUNCHES["mahal_hypothesis_scores"] == 1
+    assert kernels.LAUNCHES["ransac_se3_fused"] == 1
+    assert kernels.LAUNCHES["mahal_hypothesis_scores"] == 0
     for i in range(B):
         r1 = ransac_se3(p1[i], p2[i], w[i], valid[i], cfg=cfg, draws=draws[i])
         assert int(r1.num_inliers) == int(rb.num_inliers[i])
@@ -286,8 +288,9 @@ def test_batched_ransac_on_card_matches_per_entry(dev, kernels):
 
 def test_slam_system_on_card_uses_only_kernels(dev, kernels):
     """Serial full SLAM at 320x240 on the card: the backend's candidate
-    verification rides one batched launch of K2 and K3 per keyframe, and the
-    launch counts follow the run's bookkeeping."""
+    verification rides one batched call of the gated matcher and of the
+    fused RANSAC per keyframe, and the launch counts follow the run's
+    bookkeeping."""
     from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
     from rgbdslam_tpu_torch.eval.ate import ate_rmse
     from rgbdslam_tpu_torch.geometry.camera import Camera
@@ -307,11 +310,216 @@ def test_slam_system_on_card_uses_only_kernels(dev, kernels):
     system.finish()
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
     assert kernels.LAUNCHES == {"detect_score_map": 3 * 60, "hamming_match_2nn": E + 2 * KF + R,
-                                "mahal_hypothesis_scores": E + KF + R, "gicp_refine_kernel": E,
+                                "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
+                                "ransac_se3_fused": E + KF + R, "gicp_refine_kernel": E,
                                 "gicp_gn_normal_equations": 0}
-    assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R,
-                                        "mahal_hypothesis_scores": KF + R}
+    assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R, "match_gates": KF + R,
+                                        "mahal_hypothesis_scores": 0,
+                                        "ransac_se3_fused": KF + R}
     ts, poses = system.camera_trajectory()
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
     assert KF >= 10 and system.graph.n_vertices == KF and system.graph.n_edges > KF - 1
     assert system.tracker.stats.failures <= 3 and np.isfinite(poses).all()
+
+
+# ---------------------------------------------------------------------------
+# the gated matcher and the fused RANSAC
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lead1,lead2,n,m", [
+    ((), (), 1024, 1024), ((), (), 1000, 1500), ((), (), 5, 3),
+    ((13,), (), 1024, 1024), ((4,), (4,), 300, 260)])
+def test_match_gated_matches_plain(dev, kernels, lead1, lead2, n, m):
+    """The gated matcher (2-NN kernel + gate kernel, two launches) against
+    the plain 2-NN and tensor gates: idx2, dist and valid all exact, and a
+    valid match always lands on a valid train row."""
+    g = torch.Generator(device=dev).manual_seed(n + m + len(lead1))
+    d1 = torch.randint(-2**31, 2**31 - 1, lead1 + (n, 8), generator=g, device=dev,
+                       dtype=torch.int32)
+    d2 = torch.randint(-2**31, 2**31 - 1, lead2 + (m, 8), generator=g, device=dev,
+                       dtype=torch.int32)
+    k = min(n, m) // 2
+    d1[..., :k, :] = d2[..., :k, :] ^ (d1[..., :k, :] & 0x01010101)
+    v1 = torch.rand(lead1 + (n,), generator=g, device=dev) > 0.1
+    v2 = torch.rand(lead2 + (m,), generator=g, device=dev) > 0.1
+    kernels.reset_launch_counts()
+    ko = kernels.match_gated(d1, d2, v1, v2, 0.9)
+    assert kernels.LAUNCHES["hamming_match_2nn"] == 1 and kernels.LAUNCHES["match_gates"] == 1
+    po = kernels.match_gated_ref(d1, d2, v1, v2, 0.9)
+    for a, b in zip(ko, po):
+        assert a.shape == b.shape and torch.equal(a.long(), b.long())
+    assert ko[2].dtype == torch.bool and (k < 2 or int(ko[2].sum()) > 0)
+    v2_at = torch.gather(v2.expand(ko[0].shape[:-1] + (m,)), -1, ko[0].long())
+    assert bool((v2_at | ~ko[2]).all())
+
+
+def _ransac_problem(dev, seed, lead=(), N=1024, outliers=0.3, p_valid=0.7):
+    from rgbdslam_tpu_torch.frontend.matcher import correspondence_weights
+    from rgbdslam_tpu_torch.geometry import se3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p1 = torch.rand(lead + (N, 3), generator=g, device=dev) * 2 - 1
+    p1[..., 2] += 2.5
+    T = se3.exp(0.05 * torch.randn(lead + (6,), generator=g, device=dev))
+    p2 = (p1 @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+          + 0.003 * torch.randn(lead + (N, 3), generator=g, device=dev))
+    bad = torch.rand(lead + (N,), generator=g, device=dev) < outliers
+    p2 = p2 + bad[..., None] * 0.5 * torch.randn(lead + (N, 3), generator=g, device=dev)
+    valid = torch.rand(lead + (N,), generator=g, device=dev) < p_valid
+    w = correspondence_weights(p1, p2, valid)
+    return p1.contiguous(), p2.contiguous(), w, valid, T, g
+
+
+def _check_fused_against_plain(kernels, p1, p2, w, valid, cfg, u=None, draws=None):
+    """The held-apart comparisons of the fused RANSAC: kernel A's poses
+    against the plain fit (atol 5e-5: 30 power iterations summed in another
+    order, the bound the CPU tests hold between torch and XLA), kernel A's
+    counts exact and sums rtol 1e-5 against the plain scorer on kernel A's
+    own poses, kernel B against the plain selection and refits on kernel
+    A's outputs, and the whole against the whole plain version."""
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as rs
+
+    res, (T_h, cnt_h, err_h) = rs.ransac_se3_cuda(p1, p2, w, valid, cfg, u=u, draws=draws)
+    assert res.T21.shape == p1.shape[:-2] + (4, 4) and res.inliers.shape == valid.shape
+    pT_h, pcnt_h, perr_h = rs.hypotheses_ref(p1, p2, w, valid, cfg, u=u, draws=draws)
+    # a sample of nearly coincident points leaves its fit ill-determined and
+    # float32 rounding moves it by more than 5e-5 in any implementation: the
+    # bound is then 10 x the plain fit's own distance from its float64
+    # evaluation; four draws of one slot give a NaN pose in all (S = 0)
+    d64 = draws
+    if d64 is None:                     # the draws the f32 product u * n_valid gives
+        nv = torch.clamp_min(valid.sum(-1), 1)[..., None, None]
+        d64 = torch.minimum(torch.floor(u * nv).to(torch.int64), nv - 1)
+    T64 = rs.hypothesis_fits_ref(p1.double(), p2.double(), w.double(), valid,
+                                 cfg.num_hypotheses, draws=d64)
+    own = (pT_h.double() - T64).abs().amax((-1, -2), keepdim=True).nan_to_num(0.0)
+    tol = torch.clamp_min(10.0 * own, 5e-5)
+    diff = (T_h.double() - pT_h.double()).abs()
+    assert bool(((diff <= tol) | (torch.isnan(T_h) & torch.isnan(pT_h))).all())
+    # few hypotheses may take the wider bound, and each of them scores within
+    # 2 inliers of the plain fit's pose (the whole RANSAC's own count bound)
+    loose = (10.0 * own > 5e-5)[..., 0, 0]
+    assert int(loose.sum()) <= 0.03 * loose.numel()
+    assert int(((cnt_h.long() - pcnt_h.long()).abs() * loose).max()) <= 2
+    s1, s2 = rs._sigma_diag(p1[..., 2], cfg), rs._sigma_diag(p2[..., 2], cfg)
+    th = cfg.max_mahalanobis ** 2
+    acnt, aerr = kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)
+    assert torch.equal(cnt_h, acnt)
+    torch.testing.assert_close(err_h, aerr, rtol=1e-5, atol=1e-4)
+    # kernel B on kernel A's outputs: the refits sum in another order, so a
+    # correspondence on the threshold may change sides (count within 2) and
+    # the pose moves in its last digits
+    pb = rs.select_refine_ref(T_h, cnt_h, err_h, p1, p2, w, valid, cfg)
+    _same_result(res, pb)
+    # the whole against the whole: the same tolerances (hypothesis poses
+    # differ in their last bits, so may the winner among equal counts)
+    pw = rs.select_refine_ref(pT_h, pcnt_h, perr_h, p1, p2, w, valid, cfg)
+    _same_result(res, pw)
+    return res
+
+
+def _same_result(a, b):
+    assert torch.equal(a.success, b.success)
+    assert int((a.num_inliers.long() - b.num_inliers.long()).abs().max()) <= 2
+    torch.testing.assert_close(a.T21, b.T21, rtol=1e-4, atol=5e-5)
+    assert int((a.inliers != b.inliers).sum(-1).max()) <= 2
+    ok = a.num_inliers >= 3
+    torch.testing.assert_close(a.rmse[ok], b.rmse[ok], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("lead,N,outliers", [((), 1024, 0.3), ((13,), 1024, 0.5),
+                                             ((), 1000, 0.0), ((3,), 333, 0.3),
+                                             ((), 4096, 0.3)])
+def test_ransac_fused_matches_plain_with_draws(dev, kernels, lead, N, outliers):
+    from rgbdslam_tpu_torch.config import RansacConfig
+
+    cfg = RansacConfig()
+    p1, p2, w, valid, T, g = _ransac_problem(dev, N + len(lead), lead, N, outliers)
+    draws = torch.randint(0, N // 2, lead + (cfg.num_hypotheses, 4), generator=g, device=dev)
+    res = _check_fused_against_plain(kernels, p1, p2, w, valid, cfg, draws=draws)
+    assert bool(res.success.all())
+    # the truth, roughly: the refits are kept only while count and rmse both
+    # improve, so the winner stays near its 4-point fit, and the plain
+    # version (held to 5e-5 above) lies as far from the truth
+    torch.testing.assert_close(res.T21, T, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("lead", [(), (13,)])
+def test_ransac_fused_matches_plain_with_uniforms(dev, kernels, lead):
+    """The kernel turns the uniforms into draws as the plain version does
+    (floor(u * n_valid), clamped), so the hypotheses are the same ones."""
+    from rgbdslam_tpu_torch.config import RansacConfig
+
+    cfg = RansacConfig()
+    p1, p2, w, valid, T, g = _ransac_problem(dev, 77, lead)
+    u = torch.rand(lead + (cfg.num_hypotheses, 4), generator=g, device=dev)
+    u[..., 1, 0] = 0.99999994          # the largest f32 below 1: clamps to n_valid - 1
+    _check_fused_against_plain(kernels, p1, p2, w, valid, cfg, u=u)
+
+
+def test_ransac_fused_all_invalid_and_few_inliers(dev, kernels):
+    """Batch entries with no valid slot (padded candidates): every draw
+    hits slot 0, every fit is the identity, success is false. An entry with
+    two valid slots has fewer than 3 inliers and keeps rmse 1e9."""
+    from rgbdslam_tpu_torch.config import RansacConfig
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3, ransac_se3_ref
+
+    cfg = RansacConfig()
+    p1, p2, w, valid, _, g = _ransac_problem(dev, 5, (4,))
+    valid[1] = False
+    valid[3] = False
+    w[1] = 0.0
+    w[3] = 0.0
+    keep = torch.nonzero(valid[2])[:2, 0]
+    valid[2] = False
+    valid[2, keep] = True
+    w[2] = w[2] * valid[2]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = ransac_se3(p1, p2, w, valid, gen, cfg)
+    assert res.success.tolist()[1::2] == [False, False] and bool(res.success[0])
+    eye = torch.eye(4, device=dev)
+    assert torch.equal(res.T21[1], eye) and torch.equal(res.T21[3], eye)
+    assert int(res.inliers[1].sum()) == 0 and int(res.num_inliers[1]) == 0
+    assert float(res.rmse[1]) == 1e9
+    assert not bool(res.success[2]) and int(res.inliers[2].sum()) == 0
+    assert int(res.num_inliers[2]) <= 2 and float(res.rmse[2]) == 1e9
+    ref = ransac_se3_ref(p1, p2, w, valid, torch.Generator(device=dev).manual_seed(0), cfg)
+    _same_result(res, ref)
+    one = ransac_se3(p1[1], p2[1], w[1], valid[1], gen, cfg)
+    assert not bool(one.success) and torch.equal(one.T21, eye)
+
+
+def test_ransac_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
+    from rgbdslam_tpu_torch.config import RansacConfig
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as rs
+
+    def forbid(*a, **k):
+        raise AssertionError("plain version ran for CUDA tensors")
+
+    for name in ("ransac_se3_ref", "hypotheses_ref", "hypothesis_fits_ref",
+                 "select_refine_ref"):
+        monkeypatch.setattr(rs, name, forbid)
+    monkeypatch.setattr(kernels, "mahal_hypothesis_scores_ref", forbid)
+    p1, p2, w, valid, T, g = _ransac_problem(dev, 9)
+    kernels.reset_launch_counts()
+    res = rs.ransac_se3(p1, p2, w, valid, g, RansacConfig())
+    assert kernels.LAUNCHES["ransac_se3_fused"] == 1 and bool(res.success)
+    torch.testing.assert_close(res.T21, T, rtol=0, atol=1e-2)
+    with pytest.raises(NotImplementedError):
+        rs.ransac_se3(p1, p2, w, valid, g, RansacConfig(sample_size=3))
+    with pytest.raises(ValueError):
+        rs.ransac_se3(p1.cpu(), p2, w, valid, g, RansacConfig())
+
+
+def test_ransac_fused_reproduces_its_run(dev, kernels):
+    """Fixed reduction trees, no float atomics: the same inputs give the
+    same bits."""
+    from rgbdslam_tpu_torch.config import RansacConfig
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+
+    p1, p2, w, valid, _, g = _ransac_problem(dev, 21, (13,))
+    runs = [ransac_se3(p1, p2, w, valid, torch.Generator(device=dev).manual_seed(3),
+                       RansacConfig()) for _ in range(2)]
+    for f in ("T21", "inliers", "num_inliers", "rmse", "success"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f))

@@ -28,18 +28,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                failures, launch counts equal to what the run's bookkeeping
                predicts, host synchronisations per frame equal to the
                budget, and where the tour's time goes.
-Phase 3 also holds K5 (one GICP normal-equation build, reached through
-solvers.icp.gicp_normal_equations) against its plain version and against
-one round of K4, K2 and K3 with a batch of 13, the gated matcher against
-the tensor gates (exact), and the fused RANSAC against the plain one, held
-apart: kernel A's poses against the plain fit, its counts against the plain
-scorer on its own poses, kernel B against the plain selection and refits on
-kernel A's outputs, and the whole against the whole, on the first five
-sweep pairs, on 13 sweep candidates and (phase 6) on 13 tour candidates.
-Phase 5 counts the device launches of one ransac_se3 call (at most 4) and
-of one match_descriptors call (at most 2) with the profiler, and runs the
-stage loop and one tour once more on the tensor-code RANSAC and gates that
-the fused kernels replaced, for a before beside the after on the same card.
+Phase 3 holds every kernel against its plain version: the dense K1, the
+whole detection (kernel A against the plain best-per-cell step, kernel B
+against the plain merge and selection on kernel A's outputs, the whole
+against the whole, all exact, on sweep frames, on tour frames (phase 6), at
+320x240 and on integer images), K2 and K3's scorer alone and with a batch of
+13, the gated matcher against the tensor gates (exact), the fused RANSAC
+against the plain one, held apart (kernel A's poses against the plain fit,
+its counts against the plain scorer on its own poses, kernel B against the
+plain selection and refits on kernel A's outputs, the whole against the
+whole, on the first five sweep pairs, on 13 sweep candidates and (phase 6)
+on 13 tour candidates), the whole gicp_refine against the plain loop and
+gate on those five sweep pairs and (phase 6) on five tour pairs, the loop-
+alone K4 against the plain loop, and K5 (reached through
+solvers.icp.gicp_normal_equations) against its plain version and against one
+round of K4. The kernels that lie on no main path (dense K1, K3's scorer
+alone, the loop-alone K4, K5) are driven through their public entries and
+counted apart as `launches_off_path`. It also stamps one run of the
+loop-alone K4 with clock64() and prints where a round's cycles went.
+Phase 5 counts the device launches of one call with the profiler
+(detect_keypoints 2, gicp_refine 1, ransac_se3 at most 4, match_descriptors
+at most 2), and runs the stage loop and one tour once more on the paths the
+fused detection and the fused gicp_refine replaced (the tensor-code
+detection around the dense K1, the loop-alone K4 followed by the tensor-code
+gate), for a before beside the after on the same card.
 The line before the last is the card's name and power limit; the one
 before it a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -99,12 +111,17 @@ def paired_ms(kernel_fn, plain_fn):
 @contextlib.contextmanager
 def plain_versions_forbidden(kernels):
     """Make every plain kernel version raise while the main path runs."""
+    from rgbdslam_tpu_torch.ops import fast
+    from rgbdslam_tpu_torch.solvers import icp
     from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
 
     names = [(kernels, n) for n in (
         "detect_score_map_ref", "hamming_match_2nn_ref", "match_gates_ref", "match_gated_ref",
         "mahal_hypothesis_scores_ref", "gicp_refine_ref",
         "gicp_gn_normal_equations_ref")]
+    names += [(fast, n) for n in ("detect_keypoints_ref", "detect_cells_ref",
+                                  "detect_select_ref")]
+    names += [(icp, "_finish_gicp")]
     names += [(ransac_mod, n) for n in ("ransac_se3_ref", "hypotheses_ref",
                                         "hypothesis_fits_ref", "select_refine_ref")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
@@ -123,25 +140,41 @@ def plain_versions_forbidden(kernels):
             setattr(mod, n, fn)
 
 
+def gicp_refine_before(kernels):
+    """`gicp_refine` as it was composed before the fused kernel: the
+    loop-alone K4, then the gate and the fallback as tensor code."""
+    from rgbdslam_tpu_torch.solvers import icp
+
+    finish = icp._finish_gicp
+
+    def gicp_refine(p1, p2, valid, T_init, cfg, C1, C2):
+        T_fin, _cost, _cnt = kernels.gicp_refine_kernel(
+            T_init.contiguous(), p1.contiguous(), p2.contiguous(), C1.contiguous(),
+            C2.contiguous(), valid.contiguous(), cfg.max_iterations,
+            cfg.max_correspondence_dist)
+        return finish(T_fin, T_init, p1, p2, valid, cfg)
+
+    return gicp_refine
+
+
 @contextlib.contextmanager
-def tensor_code_paths(kernels):
-    """The RANSAC and the matcher's gates as the tensor code the fused
-    kernels replaced (`ransac_se3_ref`, scoring by the scorer kernel, and
-    the 2-NN kernel followed by elementwise gates), on every path of the
-    port: the before of a before/after on one card."""
-    from rgbdslam_tpu_torch.slam import pipeline, system, tracking
-    from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
+def before_paths(kernels):
+    """The detection and `gicp_refine` as they ran before their fused
+    kernels, on every path of the port: the tensor-code detection around the
+    dense K1 (one launch a level), and the loop-alone K4 followed by the
+    tensor-code gate. The before of a before/after on one card."""
+    from rgbdslam_tpu_torch.ops import fast
+    from rgbdslam_tpu_torch.slam import pipeline, tracking
 
-    def gated(desc1, desc2, valid1, valid2, ratio):
-        out = kernels.hamming_match_2nn(desc1, desc2, valid1, valid2)
-        return out[0], out[1], kernels.match_gates_ref(*out, valid1, ratio)
-
-    saved = [(m, "ransac_se3", m.ransac_se3) for m in (pipeline, system, tracking)]
-    saved.append((kernels, "match_gated", kernels.match_gated))
+    before_gicp = gicp_refine_before(kernels)
+    saved = [(m, "gicp_refine", m.gicp_refine) for m in (pipeline, tracking)]
+    saved += [(fast, "detect_keypoints", fast.detect_keypoints),
+              (kernels, "detect_score_map_ref", kernels.detect_score_map_ref)]
     try:
-        for m in (pipeline, system, tracking):
-            m.ransac_se3 = ransac_mod.ransac_se3_ref
-        kernels.match_gated = gated
+        for m in (pipeline, tracking):
+            m.gicp_refine = before_gicp
+        fast.detect_keypoints = fast.detect_keypoints_ref
+        kernels.detect_score_map_ref = kernels.detect_score_map
         yield
     finally:
         for mod, n, fn in saved:
@@ -220,17 +253,65 @@ def poses_close(aT, pT, T64, p1, atol=5e-5, factor=10.0):
     return (factor * own > atol)[..., 0, 0], float(ratio.max())
 
 
-def device_launches(fn) -> int:
+def device_launches(fn, reps: int = 4) -> int:
     """Kernels, copies and fills the device ran for one fn(), counted by
-    torch.profiler."""
+    torch.profiler over `reps` calls. A window this short sometimes comes
+    back without a single device event (the tracer's buffers were not
+    flushed); that is no reading, so it is taken again, at most three times."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()                                   # first-use set-up stays outside
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(evt.count for evt in prof.key_averages()
+                    if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if total:
+            check(total % reps == 0, f"{total} device launches over {reps} equal calls")
+            return total // reps
+    raise AssertionError("the profiler saw no device event in three windows")
+
+
+# how the profiler names the kernels of csrc/ (a template's name starts with
+# its return type)
+OWN_KERNEL_PREFIXES = ("(anonymous namespace)::", "void (anonymous namespace)::")
+
+
+def own_kernel(key: str) -> bool:
+    """True for a kernel of csrc/ (PyTorch keeps some of its own in an
+    anonymous namespace too, with at::native in their template arguments)."""
+    return key.startswith(OWN_KERNEL_PREFIXES) and "at::native" not in key
+
+
+def device_us_per_launch(fn, repeats: int = 10) -> dict:
+    """Device microseconds per launch of each of the port's own kernels
+    over `repeats` calls of fn(), from torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        fn()
+        for _ in range(repeats):
+            fn()
         torch.cuda.synchronize()
-    return sum(evt.count for evt in prof.key_averages()
-               if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    out = {}
+    for evt in prof.key_averages():
+        if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and own_kernel(evt.key)):
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            out[evt.key.split("(anonymous namespace)::")[1].split("(")[0]] = round(
+                dev_us / evt.count, 2)
+    return out
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def profile_busy(fn, what: str, smi: str) -> None:
@@ -261,8 +342,8 @@ def profile_busy(fn, what: str, smi: str) -> None:
         f"{sum(r[2] for r in rows)} kernel launches ({smi})")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[times]   {dev_us / 1000:9.3f} ms  {count:6d}x  {key[:90]}")
-    own = {key.split("::")[1].split("(")[0]: round(dev_us / count, 1)
-           for dev_us, key, count in rows if key.startswith("(anonymous namespace)::")}
+    own = {key.split("(anonymous namespace)::")[1].split("(")[0]: round(dev_us / count, 1)
+           for dev_us, key, count in rows if own_kernel(key)}
     log(f"[times] profiler, {what}: device microseconds per launch of the port's own "
         f"kernels {json.dumps(own)}")
 
@@ -272,7 +353,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
 
-    from rgbdslam_tpu_torch.config import LoopConfig, RansacConfig, SlamConfig
+    from rgbdslam_tpu_torch.config import (ExtractorConfig, LoopConfig, RansacConfig,
+                                           SlamConfig)
     from rgbdslam_tpu_torch.eval.ate import ate_rmse
     from rgbdslam_tpu_torch.frontend.matcher import (correspondence_weights,
                                                      gather_matched_points,
@@ -280,10 +362,10 @@ def main() -> int:
     from rgbdslam_tpu_torch.geometry import se3
     from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
     from rgbdslam_tpu_torch.slam.system import SlamSystem
-    from rgbdslam_tpu_torch.solvers.icp import gicp_normal_equations
-    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.solvers.icp import _finish_gicp, gicp_normal_equations
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC, Camera
     from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu_torch.ops import _build, image, kernels
+    from rgbdslam_tpu_torch.ops import _build, fast, image, kernels
     from rgbdslam_tpu_torch.solvers.icp import gicp_refine
     from rgbdslam_tpu_torch.solvers.kabsch import weighted_rigid_transform
     from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
@@ -321,15 +403,19 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
 
-    # K1: four pyramid levels of a rendered frame and of integer images
+    # K1, the dense kernel: four pyramid levels of a rendered frame and of
+    # integer images, through its public entry (it lies on no main path:
+    # these are its `launches_off_path`)
     thr = cfg.extractor.fast_threshold
     pyr = image.build_pyramid(frames[0][1], cfg.extractor.num_levels)
     ints = [torch.randint(0, 256, p.shape, generator=gen, device=dev).to(torch.float32)
             for p in pyr]
     err, mism_render = 0.0, 0
+    kernels.reset_launch_counts()
     for kind, levels in (("rendered", pyr), ("integer", ints)):
         for lvl, img in enumerate(levels):
-            km, kr = kernels.detect_score_map(img, thr)
+            with plain_versions_forbidden(kernels):
+                km, kr = fast.masked_score_map(img, thr)
             pm, pr = kernels.detect_score_map_ref(img, thr)
             torch.cuda.synchronize()
             torch.testing.assert_close(kr, pr, rtol=1e-5, atol=1e-3)
@@ -344,9 +430,63 @@ def main() -> int:
                 check(int(kk.sum()) > 0, f"K1 found no corner on integer level {lvl}")
             else:
                 mism_render += n_bad
-            log(f"[kernels] K1 {kind} level {lvl} {tuple(img.shape)}: corners "
+            log(f"[kernels] K1 dense {kind} level {lvl} {tuple(img.shape)}: corners "
                 f"{int(kk.sum())}, keep-mask mismatches {n_bad}")
+    off_path = {"detect_score_map": kernels.LAUNCHES["detect_score_map"]}
+    check(off_path["detect_score_map"] == 2 * len(pyr), "dense K1 launches")
     results["detect_score_map"] = dict(max_abs_err=err, keep_mismatch_rendered=mism_render)
+
+    def max_diff(outs_a, outs_b):
+        """Largest absolute difference over paired integer or bool outputs."""
+        return float(max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                         for a, b in zip(outs_a, outs_b)))
+
+    detect_err = {"n": 0, "score": 0.0, "unequal": 0}
+
+    def check_detect(tag, gray, ecfg):
+        """The whole detection on one image, held apart and all exact (the
+        same operation order, -fmad=false): kernel A's cell maxima and first
+        indices against the plain best-per-cell step, kernel B's keypoints
+        against the plain merge and selection on kernel A's outputs, the
+        whole against the whole plain version."""
+        levels = image.build_pyramid(gray, ecfg.num_levels)
+        args = (ecfg.num_features, ecfg.cell_size, ecfg.fast_threshold, ecfg.min_response,
+                ecfg.min_border)
+        kp, (cmax, carg) = kernels.detect_keypoints_fused(levels, *args)
+        pmax, parg = fast.detect_cells_ref(levels, ecfg.cell_size, ecfg.fast_threshold,
+                                           ecfg.min_border)
+        torch.cuda.synchronize()
+        check(cmax.shape == pmax.shape and torch.equal(cmax, pmax),
+              f"detection {tag}: kernel A's cell maxima differ from the plain step's")
+        check(torch.equal(carg, parg), f"detection {tag}: kernel A's cell arguments differ")
+        part = fast.detect_select_ref(cmax, carg, gray.shape[1] // ecfg.cell_size,
+                                      ecfg.num_features, ecfg.cell_size, ecfg.min_response)
+        whole = fast.detect_keypoints_ref(levels, *args)
+        for what, ref in (("kernel B", part), ("whole", whole)):
+            for f in ("uv", "level", "score", "valid"):
+                a, b = getattr(kp, f), getattr(ref, f)
+                check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+                      f"detection {tag}, {what}: {f} differs")
+        check(int(kp.valid.sum()) > 50, f"detection {tag}: {int(kp.valid.sum())} keypoints")
+        detect_err["n"] += 1
+        detect_err["score"] = max(detect_err["score"],
+                                  float((kp.score - whole.score).abs().max()))
+        detect_err["unequal"] += sum(int((getattr(kp, f) != getattr(whole, f)).sum())
+                                     for f in ("uv", "level", "valid"))
+        log(f"[kernels] detection {tag} {tuple(gray.shape)}, {len(cmax)} levels, "
+            f"{cmax.shape[1]} cells: kernel A's maxima and arguments, kernel B's and the "
+            f"whole's uv, level, score, valid all equal; {int(kp.valid.sum())} keypoints, "
+            f"levels used {sorted(set(kp.level[kp.valid].tolist()))}")
+
+    for i in (0, 23, 40):
+        check_detect(f"sweep frame {i}", frames[i][1], cfg.extractor)
+    check_detect("integer image", ints[0], cfg.extractor)
+    check_detect("four grey values", torch.floor(ints[0] / 64.0) * 64.0, cfg.extractor)
+    cam_small = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
+    ecfg_small = ExtractorConfig(num_levels=3, cell_size=8, fast_threshold=15.0)
+    ds_small = SyntheticDataset(n_frames=24, cam=cam_small, trajectory="sweep", device=dev)
+    for i in (0, 11):
+        check_detect(f"320x240 sweep frame {i}", ds_small.grab(i)[1], ecfg_small)
 
     # real matched pair of frames 0 and 1 for K2-K4
     f0 = odo.features(frames[0][1], frames[0][2])
@@ -358,7 +498,7 @@ def main() -> int:
     po = kernels.hamming_match_2nn_ref(f0.desc, f1.desc, v1, v2)
     for a, b, nm in zip(ko, po, ("best_idx", "best_dist", "second_dist", "col_best_row")):
         check(torch.equal(a.to(torch.int64), b.to(torch.int64)), f"K2 {nm} differs")
-    results["hamming_match_2nn"] = dict(max_abs_err=0.0)
+    results["hamming_match_2nn"] = dict(max_abs_err=max_diff(ko, po))
     log(f"[kernels] K2 1024x1024: all four outputs equal; "
         f"{int((ko[1] < kernels.BIG).sum())} rows with a valid pair")
 
@@ -377,9 +517,10 @@ def main() -> int:
               "invalid train row")
         log(f"[kernels] gated matcher {tag}: idx2, dist, valid equal; "
             f"{int(kg[2].sum())} matches survive the gates")
+        return max_diff(kg, pg)
 
-    check_gated("1024x1024", f0.desc, f1.desc, v1, v2)
-    results["match_gated"] = dict(max_abs_err=0.0)
+    results["match_gated"] = dict(
+        max_abs_err=check_gated("1024x1024", f0.desc, f1.desc, v1, v2))
 
     m = match_frames(f0, f1, cfg.matcher.nn_ratio)
     p1, p2, w, valid = gather_matched_points(f0, f1, m)
@@ -465,7 +606,40 @@ def main() -> int:
     # K4 on the first five frame pairs: their depth-patch covariances come
     # out slightly indefinite, where the Pallas kernel's Cholesky gave NaN
     icp = cfg.icp
-    k4_err = 0.0
+    k4_err = {"fused": 0.0, "loop": 0.0}
+
+    def check_gicp(tag, args, atol=1e-5):
+        """The whole gicp_refine in one launch against the plain loop and
+        gate: converged and the number of valid pairs exact, the output
+        pose and the loop's final pose rtol 1e-4 / atol 1e-5 (ten rounds
+        of f32 sums in another order, amplified by the problem's condition),
+        the last round's gated count within 1 (the plain loop gates |r| < d,
+        the kernel |r|^2 < d^2, as the Pallas kernel) and cost rtol 1e-3.
+        The loop-alone kernel is held to the same plain loop."""
+        T0, q1, q2, C1, C2, inl = args
+        (kT, kconv, knv), (kfin, kcost, kcnt) = kernels.gicp_refine_fused(
+            *args, icp.max_iterations, icp.max_correspondence_dist, icp.min_matches)
+        pfin, pcost, pcnt = kernels.gicp_refine_ref(*args, icp.max_iterations,
+                                                    icp.max_correspondence_dist)
+        pT, pconv, pnv = _finish_gicp(pfin, T0, q1, q2, inl, icp)
+        lfin, lcost, lcnt = kernels.gicp_refine_kernel(*args, icp.max_iterations,
+                                                       icp.max_correspondence_dist)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kT).all()), f"K4 non-finite on {tag}")
+        check(bool(kconv) == bool(pconv) and int(knv) == int(pnv),
+              f"K4 {tag}: converged {bool(kconv)} / {bool(pconv)}, valid {int(knv)} / {int(pnv)}")
+        check(kconv.dtype == torch.bool and knv.dtype == torch.int32, "K4 output types")
+        torch.testing.assert_close(kT, pT, rtol=1e-4, atol=atol)
+        for which, fin, cost, cnt in (("fused", kfin, kcost, kcnt), ("loop", lfin, lcost, lcnt)):
+            torch.testing.assert_close(fin, pfin, rtol=1e-4, atol=atol)
+            check(abs(float(cnt) - float(pcnt)) <= 1.0, f"K4 {which} count {cnt} vs {pcnt}")
+            torch.testing.assert_close(cost, pcost, rtol=1e-3, atol=1e-6)
+            k4_err[which] = max(k4_err[which], float((fin - pfin).abs().max()))
+        log(f"[kernels] K4 {tag} N={q1.shape[0]} x{icp.max_iterations}: whole gicp_refine "
+            f"T max abs diff {float((kT - pT).abs().max()):.3g} (loop alone "
+            f"{float((lfin - pfin).abs().max()):.3g}), converged {bool(kconv)}, "
+            f"{int(knv)} valid pairs, last round's count {float(kcnt)} vs {float(pcnt)}")
+
     gicp_pairs = []
     fa = f0
     for i in range(1, 6):
@@ -474,28 +648,49 @@ def main() -> int:
         q1, q2, qw, qv = gather_matched_points(fa, fb, mk)
         check_fused(f"sweep pair {i}", "ransac_se3_fused", q1, q2, qw, qv)
         res = ransac_se3(q1, q2, qw, qv, gen, rc)
-        C1, C2 = fa.surf_cov, fb.surf_cov[mk.idx2.long()].contiguous()
-        inl, T0 = res.inliers.contiguous(), res.T21.contiguous()
-        kT, kcost, kcnt = kernels.gicp_refine_kernel(T0, q1, q2, C1, C2, inl,
-                                                     icp.max_iterations,
-                                                     icp.max_correspondence_dist)
-        pT, pcost, pcnt = kernels.gicp_refine_ref(T0, q1, q2, C1, C2, inl,
-                                                  icp.max_iterations,
-                                                  icp.max_correspondence_dist)
-        check(bool(torch.isfinite(kT).all()), f"K4 non-finite on pair {i}")
-        torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
-        # the plain loop gates on |r| < d, the kernel on |r|^2 < d^2 (as the
-        # Pallas kernel): a pair on the boundary may count in one only
-        check(abs(float(kcnt) - float(pcnt)) <= 1.0, f"K4 count {kcnt} vs {pcnt}")
-        torch.testing.assert_close(kcost, pcost, rtol=1e-3, atol=1e-6)
-        k4_err = max(k4_err, float((kT - pT).abs().max()))
-        log(f"[kernels] K4 pair {i} N=1024 x{icp.max_iterations}: T max abs diff "
-            f"{float((kT - pT).abs().max()):.3g}, count {float(kcnt)} vs {float(pcnt)}, "
-            f"{int(inl.sum())} inliers in")
-        gicp_pairs.append((T0, q1, q2, C1, C2, inl))
+        args = (res.T21, q1, q2, fa.surf_cov, fb.surf_cov[mk.idx2.long()], res.inliers)
+        check_gicp(f"sweep pair {i}", args)
+        gicp_pairs.append(args)
         fa = fb
     k4_args = gicp_pairs[0]
-    results["gicp_refine_kernel"] = dict(max_abs_err=k4_err)
+    results["gicp_refine_fused"] = dict(max_abs_err=k4_err["fused"])
+    results["gicp_refine_kernel"] = dict(max_abs_err=k4_err["loop"])
+    # fewer valid pairs than min_matches, and a non-finite final pose: both
+    # fall back to T_init, in the kernel as in the plain gate
+    few = k4_args[5] & (torch.cumsum(k4_args[5].to(torch.int32), 0) <= icp.min_matches - 1)
+    p1_inf = k4_args[1].clone()
+    p1_inf[int(torch.nonzero(k4_args[5])[0])] = float("inf")
+    for tag, args in (("too few pairs", k4_args[:5] + (few,)),
+                      ("non-finite pose", (k4_args[0], p1_inf) + k4_args[2:])):
+        (kT, kconv, knv), (kfin, _, _) = kernels.gicp_refine_fused(
+            *args, icp.max_iterations, icp.max_correspondence_dist, icp.min_matches)
+        pfin = kernels.gicp_refine_ref(*args, icp.max_iterations,
+                                       icp.max_correspondence_dist)[0]
+        pT, pconv, pnv = _finish_gicp(pfin, args[0], args[1], args[2], args[5], icp)
+        check(not bool(kconv) and not bool(pconv) and int(knv) == int(pnv)
+              and torch.equal(kT, args[0]) and torch.equal(pT, args[0]),
+              f"K4 fallback, {tag}")
+        check(tag != "non-finite pose" or not bool(torch.isfinite(kfin).all()),
+              "K4: the poisoned problem stayed finite")
+        log(f"[kernels] K4 {tag}: falls back to T_init like the plain gate "
+            f"({int(knv)} valid pairs, final pose finite: {bool(torch.isfinite(kfin).all())})")
+
+    # where a round's cycles went in the loop-alone kernel (256 threads,
+    # shared-memory tree, indexed solve): one stamped run, thread 0's clock64()
+    clocks = torch.zeros((4,), dtype=torch.int64, device=dev)
+    kernels.gicp_refine_kernel(*k4_args, icp.max_iterations, icp.max_correspondence_dist,
+                               clocks=clocks)
+    torch.cuda.synchronize()
+    mhz = sm_clock_mhz()
+    c = clocks.tolist()
+    per = [x / icp.max_iterations for x in c[:3]]
+    log(f"[kernels] K4 cycles of the loop alone: per round accumulate {per[0]:.0f}, reduce "
+        f"{per[1]:.0f}, solve and compose {per[2]:.0f}; whole kernel {c[3]} cycles = "
+        f"{c[3] / mhz:.2f} us at the {mhz:.0f} MHz nvidia-smi reads after the run "
+        f"(rounds {sum(c[:3]) / mhz:.2f} us, the rest is barriers) ({smi})")
+    off_path["gicp_refine_kernel"] = kernels.LAUNCHES["gicp_refine_kernel"]
+    off_path["mahal_hypothesis_scores"] = kernels.LAUNCHES["mahal_hypothesis_scores"]
+    check(off_path["mahal_hypothesis_scores"] == 1, "K3's scorer alone: launches")
     # an all-invalid problem: every draw hits slot 0, the fits are the
     # identity, success is false
     none = ransac_se3(p1, p2, torch.zeros_like(w), torch.zeros_like(valid), gen, rc)
@@ -511,8 +706,8 @@ def main() -> int:
     with plain_versions_forbidden(kernels):
         k5_out = [gicp_normal_equations(*a, icp) for a in gicp_pairs]
     torch.cuda.synchronize()
-    k5_launches = kernels.LAUNCHES["gicp_gn_normal_equations"]
-    check(k5_launches == len(gicp_pairs), f"K5 launched {k5_launches} times")
+    off_path["gicp_gn_normal_equations"] = kernels.LAUNCHES["gicp_gn_normal_equations"]
+    check(off_path["gicp_gn_normal_equations"] == len(gicp_pairs), "K5 launches")
     k5_err = 0.0
     for i, (a, (kH, kb, kcost, kcnt)) in enumerate(zip(gicp_pairs, k5_out), 1):
         pH, pb, pcost, pcnt = kernels.gicp_gn_normal_equations_ref(
@@ -531,7 +726,8 @@ def main() -> int:
         xi = torch.linalg.solve(
             kH.double() + 1e-6 * torch.eye(6, device=dev, dtype=torch.float64), -kb.double())
         T_one = (se3.exp(xi) @ a[0].double()).float()
-        T_k4, c_k4, n_k4 = kernels.gicp_refine_kernel(*a, 1, icp.max_correspondence_dist)
+        T_k4, c_k4, n_k4 = kernels.gicp_refine_fused(*a, 1, icp.max_correspondence_dist,
+                                                     icp.min_matches)[1]
         d_k4 = float((T_k4 - T_one).abs().max())
         check(d_k4 <= 1e-5, f"K5 pair {i}: exp(solve(H, -b)) T0 differs from K4 by {d_k4}")
         check(float(n_k4) == float(kcnt) and float(c_k4) == float(kcost),
@@ -556,8 +752,8 @@ def main() -> int:
               f"batched K2 {nm} differs")
     log(f"[kernels] K2 batched {tuple(Db.shape)} x {tuple(f1.desc.shape)}: all four "
         f"outputs equal; {int((kob[1] < kernels.BIG).sum())} rows with a valid pair")
-    check_gated(f"batched {tuple(Db.shape)} x {tuple(f1.desc.shape)}", Db, f1.desc, Vb, v2)
-    results["match_gated_b13"] = dict(max_abs_err=0.0)
+    results["match_gated_b13"] = dict(max_abs_err=check_gated(
+        f"batched {tuple(Db.shape)} x {tuple(f1.desc.shape)}", Db, f1.desc, Vb, v2))
     mb = match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)
     jb = mb.idx2.long()
     vb = mb.valid
@@ -569,10 +765,12 @@ def main() -> int:
     T_hb = T_hb.contiguous()
     s1b, s2b = _sigma_diag(Xb[..., 2], rc), _sigma_diag(p2b[..., 2], rc)
     kcb, keb = kernels.mahal_hypothesis_scores(T_hb, Xb, p2b, s1b, s2b, vb, th)
+    off_path["mahal_hypothesis_scores_b13"] = kernels.BATCHED_LAUNCHES["mahal_hypothesis_scores"]
+    check(off_path["mahal_hypothesis_scores_b13"] == 1, "K3's scorer alone, batched: launches")
     pcb, peb = kernels.mahal_hypothesis_scores_ref(T_hb, Xb, p2b, s1b, s2b, vb, th)
     check(kcb.shape == (13, H) and torch.equal(kcb, pcb), "batched K3 inlier counts differ")
     torch.testing.assert_close(keb, peb, rtol=1e-5, atol=0.0)
-    results["hamming_match_2nn_b13"] = dict(max_abs_err=0.0)
+    results["hamming_match_2nn_b13"] = dict(max_abs_err=max_diff(kob, pob))
     results["mahal_hypothesis_scores_b13"] = dict(max_abs_err=float((keb - peb).abs().max()))
     log(f"[kernels] K3 batched {tuple(T_hb.shape)}: counts equal (max {int(kcb.max())}), "
         f"err-sum max abs diff {results['mahal_hypothesis_scores_b13']['max_abs_err']:.3g}")
@@ -626,12 +824,14 @@ def main() -> int:
     check(float(np.median(ates)) < 0.05,
           f"median ATE over seeds {seeds}: {float(np.median(ates))} m >= 0.05 m")
     pairs = n_frames - 1
-    expect = {"detect_score_map": cfg.extractor.num_levels * n_frames * len(seeds),
+    expect = {"detect_score_map": 0,
+              "detect_keypoints_fused": n_frames * len(seeds),
               "hamming_match_2nn": pairs * len(seeds),
               "match_gates": pairs * len(seeds),
               "mahal_hypothesis_scores": 0,
               "ransac_se3_fused": pairs * len(seeds),
-              "gicp_refine_kernel": pairs * len(seeds),
+              "gicp_refine_fused": pairs * len(seeds),
+              "gicp_refine_kernel": 0,
               "gicp_gn_normal_equations": 0}
     check(launches_sweep == expect, f"launch counts {launches_sweep} != {expect}")
 
@@ -667,6 +867,20 @@ def main() -> int:
     tp2 = tf[13].xyz[tm.idx2.long()].contiguous()
     check_fused("13 tour candidates", "ransac_se3_fused_b13", tX, tp2,
                 correspondence_weights(tX, tp2, tm.valid), tm.valid)
+    # the whole detection on tour frames, the whole gicp_refine on tour pairs
+    for i in (0, 60, 100):
+        check_detect(f"tour frame {i}", tour_frames[i][1], cfg.extractor)
+    for i in range(5):
+        mk = match_frames(tf[i], tf[i + 1], cfg.matcher.nn_ratio)
+        q1, q2, qw, qv = gather_matched_points(tf[i], tf[i + 1], mk)
+        res = ransac_se3(q1, q2, qw, qv, gen, rc)
+        check_gicp(f"tour pair {i + 1}", (res.T21, q1, q2, tf[i].surf_cov,
+                                          tf[i + 1].surf_cov[mk.idx2.long()], res.inliers))
+    results["gicp_refine_fused"] = dict(max_abs_err=k4_err["fused"])
+    results["gicp_refine_kernel"] = dict(max_abs_err=k4_err["loop"])
+    n_loop_tour = kernels.LAUNCHES["gicp_refine_kernel"]    # 0 after the sweep's run
+    check(n_loop_tour == 5, f"the loop-alone K4 on the tour pairs: {n_loop_tour} launches")
+    off_path["gicp_refine_kernel"] += n_loop_tour
 
     def run_tour(seed, per_frame=None, finish=True, n=n_tour):
         system = SlamSystem(SYNTHETIC, slam_cfg, seed=seed, device=dev)
@@ -728,17 +942,20 @@ def main() -> int:
     # extension match and one batched verification), R = relocalization
     # verifications
     expect_tour = {
-        "detect_score_map": slam_cfg.extractor.num_levels * n_tour * len(slam_seeds),
+        "detect_score_map": 0,
+        "detect_keypoints_fused": n_tour * len(slam_seeds),
         "hamming_match_2nn": E_all + 2 * KF_all + R_all,
         "match_gates": E_all + 2 * KF_all + R_all,
         "mahal_hypothesis_scores": 0,
         "ransac_se3_fused": E_all + KF_all + R_all,
-        "gicp_refine_kernel": E_all,
+        "gicp_refine_fused": E_all,
+        "gicp_refine_kernel": 0,
         "gicp_gn_normal_equations": 0}
     log(f"[slam] launches over the {len(slam_seeds)} runs {json.dumps(launches_tour)}; "
-        f"formula with E={E_all}, KF={KF_all}, R={R_all}: K1 = levels x frames x seeds, "
-        f"K2 = gates = E + 2 KF + R, fused RANSAC = E + KF + R, K3's scorer alone = 0, "
-        f"K4 = E, K5 = 0 -> {json.dumps(expect_tour)}; batched {json.dumps(batched_tour)}")
+        f"formula with E={E_all}, KF={KF_all}, R={R_all}: the fused detection = frames x "
+        f"seeds, K2 = gates = E + 2 KF + R, fused RANSAC = E + KF + R, the fused gicp_refine "
+        f"= E, the dense K1 = K3's scorer alone = the loop-alone K4 = K5 = 0 -> "
+        f"{json.dumps(expect_tour)}; batched {json.dumps(batched_tour)}")
     check(launches_tour == expect_tour, f"launch counts {launches_tour} != {expect_tour}")
     check(batched_tour == {"hamming_match_2nn": KF_all + R_all, "match_gates": KF_all + R_all,
                            "mahal_hypothesis_scores": 0,
@@ -808,7 +1025,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return 1000 * (time.perf_counter() - t0) / n_frames, a.elapsed_time(b) / n_frames
 
-    def stage_loop(ransac_fn=ransac_se3):
+    def stage_loop(gicp_fn=gicp_refine):
         """The pipeline's per-frame work (features, match, RANSAC, GICP) in
         a loop with no sync, marked at each stage boundary by a CUDA event
         and by the host clock. Returns (host ms per frame of the loop,
@@ -829,11 +1046,11 @@ def main() -> int:
             q1, q2, ww, vv = gather_matched_points(f_prev, fc, mm)
             h[2] = time.perf_counter()
             e[2].record()
-            rr = ransac_fn(q1, q2, ww, vv, odo.generator, cfg.ransac)
+            rr = ransac_se3(q1, q2, ww, vv, odo.generator, cfg.ransac)
             h[3] = time.perf_counter()
             e[3].record()
-            gicp_refine(q1, q2, rr.inliers, rr.T21, cfg.icp, C1=f_prev.surf_cov,
-                        C2=fc.surf_cov[mm.idx2.long()])
+            gicp_fn(q1, q2, rr.inliers, rr.T21, cfg.icp, C1=f_prev.surf_cov,
+                    C2=fc.surf_cov[mm.idx2.long()])
             h[4] = time.perf_counter()
             e[4].record()
             marks.append((e, h))
@@ -864,40 +1081,57 @@ def main() -> int:
             f"CUDA events {json.dumps(times[-1]['event'])}; host clock "
             f"{json.dumps(times[-1]['host'])} ({smi})")
 
-    # Before, on the same card: the stage loop and one tour on the tensor
-    # code the fused kernels replaced (the plain RANSAC with the scorer
-    # kernel inside, the 2-NN kernel followed by elementwise gates). These
-    # are also the only launches of K3's scorer alone, which lies on no main
-    # path any more: its public entry is ransac_se3_ref on CUDA tensors.
+    # Before, on the same card: the stage loop and one tour on the paths the
+    # fused detection and the fused gicp_refine replaced (the tensor-code
+    # detection around the dense K1, the loop-alone K4 and the tensor-code
+    # gate). Its detection runs a dozen ops more than the code it stands for
+    # (two stacks and the casts between the plain version's halves).
     kernels.reset_launch_counts()
-    with tensor_code_paths(kernels):
-        b_wall, b_ev, b_host = stage_loop(ransac_mod.ransac_se3_ref)
+    with before_paths(kernels):
+        b_wall, b_ev, b_host = stage_loop(gicp_refine_before(kernels))
         b_sys, b_ms, _ = run_tour(1, finish=False)
     torch.cuda.synchronize()
-    k3_launches = kernels.LAUNCHES["mahal_hypothesis_scores"]
-    k3_batched = kernels.BATCHED_LAUNCHES["mahal_hypothesis_scores"]
-    b_E, b_KF = b_sys.tracker.stats.estimates, b_sys.store.count
-    check(kernels.LAUNCHES["ransac_se3_fused"] == 0 and kernels.LAUNCHES["match_gates"] == 0,
+    b_E = b_sys.tracker.stats.estimates
+    check(kernels.LAUNCHES["detect_keypoints_fused"] == 0
+          and kernels.LAUNCHES["gicp_refine_fused"] == 0,
           "the before run reached a fused kernel")
-    check(k3_launches == (n_frames - 1) + b_E + b_KF + b_sys.reloc_verifications
-          and k3_batched == b_KF + b_sys.reloc_verifications,
-          f"K3's scorer: {k3_launches} launches ({k3_batched} batched) in the before run")
-    log(f"[times] before (tensor-code RANSAC and gates): stage loop {b_wall:.3f} ms/frame "
+    check(kernels.LAUNCHES["detect_score_map"]
+          == cfg.extractor.num_levels * (n_frames + n_tour)
+          and kernels.LAUNCHES["gicp_refine_kernel"] == (n_frames - 1) + b_E,
+          f"the before run's launches {kernels.LAUNCHES}")
+    log(f"[times] before (tensor-code detection around the dense K1, loop-alone K4 + "
+        f"tensor-code gate): stage loop {b_wall:.3f} ms/frame "
         f"host clock, medians over {len(b_ev['step'])} frames, CUDA events "
         f"{json.dumps({k: med(v) for k, v in b_ev.items()})}; host clock "
         f"{json.dumps({k: med(v) for k, v in b_host.items()})} ({smi})")
     b_kf = np.array(b_sys.kf_backend_ms)
-    log(f"[times] before (tensor-code RANSAC and gates): tour seed 1: {b_ms.mean():.3f} "
+    log(f"[times] before (the same): tour seed 1: {b_ms.mean():.3f} "
         f"ms/frame over {n_tour} frames (median {np.median(b_ms):.3f}); tracking step "
         f"{(b_ms.sum() - b_kf.sum()) / n_tour:.3f} ms/frame; keyframe backend "
         f"{b_kf.mean():.3f} ms/keyframe x {len(b_kf)}, loop-closure solves included "
-        f"({json.dumps([round(float(x), 1) for x in b_sys.loop_solve_ms])} ms); K3's scorer "
-        f"alone launched {k3_launches} times, {k3_batched} batched ({smi})")
+        f"({json.dumps([round(float(x), 1) for x in b_sys.loop_solve_ms])} ms) ({smi})")
 
-    # device launches of one call, by the profiler: at most 4 per
-    # ransac_se3 (the uniform draws, kernel A, kernel B), at most 2 per
-    # match_descriptors (the 2-NN, the gates), whatever the batch
+    # device launches of one call, by the profiler: 2 per detect_keypoints
+    # (kernels A and B), 1 per gicp_refine, at most 4 per ransac_se3 (the
+    # uniform draws, kernel A, kernel B), at most 2 per match_descriptors (the
+    # 2-NN, the gates), whatever the batch
+    ecfg = cfg.extractor
+    det_args = (ecfg.num_features, ecfg.cell_size, ecfg.fast_threshold, ecfg.min_response,
+                ecfg.min_border)
+    k4_call = dict(C1=k4_args[3], C2=k4_args[4])
+    with before_paths(kernels):
+        n_before = {
+            "detect_keypoints": device_launches(lambda: fast.detect_keypoints(pyr, *det_args)),
+            "gicp_refine": device_launches(lambda: gicp_refine_before(kernels)(
+                k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)),
+            "build_frame_features": device_launches(
+                lambda: odo.features(frames[0][1], frames[0][2]))}
     n_launch = {
+        "detect_keypoints": device_launches(lambda: fast.detect_keypoints(pyr, *det_args)),
+        "gicp_refine": device_launches(lambda: gicp_refine(
+            k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)),
+        "build_frame_features": device_launches(
+            lambda: odo.features(frames[0][1], frames[0][2])),
         "ransac_se3": device_launches(
             lambda: ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)),
         "ransac_se3 batch 13": device_launches(
@@ -906,13 +1140,15 @@ def main() -> int:
             lambda: match_descriptors(f0.desc, v1, f1.desc, v2, cfg.matcher.nn_ratio)),
         "match_descriptors batch 13": device_launches(
             lambda: match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)),
-        "ransac_se3_ref": device_launches(
-            lambda: ransac_mod.ransac_se3_ref(p1, p2, w, valid, odo.generator, cfg.ransac)),
     }
-    log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}")
+    log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}; "
+        f"before: {json.dumps(n_before)}")
+    check(n_launch["detect_keypoints"] == 2, "detect_keypoints: not 2 device launches")
+    check(n_launch["gicp_refine"] == 1, "gicp_refine: not 1 device launch")
     for k, v in n_launch.items():
-        limit = 4 if k.startswith("ransac_se3") else 2
-        check(k == "ransac_se3_ref" or 0 < v <= limit, f"{k}: {v} launches, limit {limit}")
+        if k.startswith(("ransac_se3", "match_descriptors")):
+            limit = 4 if k.startswith("ransac_se3") else 2
+            check(0 < v <= limit, f"{k}: {v} launches, limit {limit}")
 
     # the host never waits for the device inside a step, and once per batch
     # in the pipeline (its device-to-host copy of the batch's results)
@@ -937,6 +1173,22 @@ def main() -> int:
                  f"16 tour frames of SlamSystem ({prof_system.store.count} keyframes "
                  f"before)", smi)
 
+    # device microseconds per launch of the whole detection and the whole
+    # gicp_refine, beside the kernels they replace, by the profiler on
+    # isolated calls
+    def k4_whole():
+        gicp_refine(k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)
+
+    def k4_loop_alone():
+        kernels.gicp_refine_kernel(*k4_args, icp.max_iterations, icp.max_correspondence_dist)
+
+    dev_us = {}
+    for fn in (lambda: fast.detect_keypoints(pyr, *det_args), k4_whole, k4_loop_alone,
+               lambda: [fast.masked_score_map(lvl, thr) for lvl in pyr]):
+        dev_us.update(device_us_per_launch(fn))
+    log(f"[times] device microseconds per launch, isolated calls: {json.dumps(dev_us)} "
+        f"(detect_kernel: mean of the {len(pyr)} levels) ({smi})")
+
     def k1_kernel():
         for lvl in pyr:
             kernels.detect_score_map(lvl, thr)
@@ -954,11 +1206,27 @@ def main() -> int:
             lambda: kernels.mahal_hypothesis_scores(T_h, p1, p2, s1, s2, valid, th),
             lambda: kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)),
         "gicp_refine_kernel": paired_ms(
-            lambda: kernels.gicp_refine_kernel(*k4_args, icp.max_iterations,
-                                               icp.max_correspondence_dist),
+            k4_loop_alone,
             lambda: kernels.gicp_refine_ref(*k4_args, icp.max_iterations,
                                             icp.max_correspondence_dist)),
     }
+
+    def k4_plain():
+        fin = kernels.gicp_refine_ref(*k4_args, icp.max_iterations,
+                                      icp.max_correspondence_dist)[0]
+        _finish_gicp(fin, k4_args[0], k4_args[1], k4_args[2], k4_args[5], icp)
+
+    # the whole calls as the main paths make them, against their plain versions
+    timing["detect_keypoints_fused"] = paired_ms(
+        lambda: fast.detect_keypoints(pyr, *det_args),
+        lambda: fast.detect_keypoints_ref(pyr, *det_args))
+    timing["gicp_refine_fused"] = paired_ms(k4_whole, k4_plain)
+    with before_paths(kernels):
+        before_ms = {"detect_keypoints": cuda_ms(lambda: fast.detect_keypoints(pyr, *det_args)),
+                     "gicp_refine": cuda_ms(lambda: gicp_refine_before(kernels)(
+                         k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call))}
+    log(f"[times] before, back to back: detect_keypoints {before_ms['detect_keypoints']:.4f} "
+        f"ms, gicp_refine {before_ms['gicp_refine']:.4f} ms ({smi})")
     timing["gicp_gn_normal_equations"] = paired_ms(
         lambda: kernels.gicp_gn_normal_equations(*k4_args, icp.max_correspondence_dist),
         lambda: kernels.gicp_gn_normal_equations_ref(*k4_args, icp.max_correspondence_dist))
@@ -990,6 +1258,7 @@ def main() -> int:
     n_px = sum(int(lvl.numel()) for lvl in pyr)
     N, M = f0.desc.shape[0], f1.desc.shape[0]
     gicp_bytes = N * (3 + 3 + 9 + 9) * 4 + N + 64
+    n_det_cells = (pyr[0].shape[0] // ecfg.cell_size) * (pyr[0].shape[1] // ecfg.cell_size)
 
     def k2_bound(b):       # 8 words x (xor, popcount, add) per descriptor pair
         return bound(b * N * 33 + M * 33 + b * (3 * N + M) * 4 + b * M * 8, b * N * M * 8 * 3)
@@ -1024,7 +1293,13 @@ def main() -> int:
         "match_gated_b13": gated_bound(13),
         "ransac_se3_fused": ransac_bound(1),
         "ransac_se3_fused_b13": ransac_bound(13),
-        # ~300 float operations per correspondence and round
+        # the pyramid in, the keypoint slots out; the dense kernel's ~170/px, the
+        # merge and the rank's comparisons (n_cells^2)
+        "detect_keypoints_fused": bound(
+            n_px * 4 + ecfg.num_features * 17,
+            n_px * 170 + n_det_cells * (n_det_cells + 4 * len(pyr))),
+        # ~300 float operations per correspondence and round, ~20 for the gate
+        "gicp_refine_fused": bound(gicp_bytes + 64 + 5, N * (300 * icp.max_iterations + 20)),
         "gicp_refine_kernel": bound(gicp_bytes + 72, N * 300 * icp.max_iterations),
         "gicp_gn_normal_equations": bound(gicp_bytes + 116, N * 300),
     }
@@ -1033,31 +1308,36 @@ def main() -> int:
             f"{bounds[k][0]:.6f} ms by {bounds[k][1]}, library call none ({smi})")
     log("[times] every bound lies far under one launch's latency: K4, K5 and the fused "
         "RANSAC are held by their dependent block reductions (10, 1 and 2 + 4 x "
-        f"{rc.refine_iters}) and serial Horn fits, not by throughput")
+        f"{rc.refine_iters}) and serial solves and Horn fits, not by throughput")
 
     # launches per entry: (sweep, tour), each path driven with the counts
     # set to 0 just before it and read just after; an unbatched entry counts
     # its wrapper's unbatched launches, the _b13 entry its batched ones.
     # `off_path` holds the launches through a public entry that no main path
-    # reaches: K5's in phase 3, and those of K3's scorer alone in the
-    # before run (ransac_se3_ref on CUDA tensors). They are printed apart as
-    # `launches_off_path`; an entry named here must show none on a main
-    # path, every other entry must show some there.
+    # reaches, counted in phases 3 and 6: the dense K1
+    # (fast.masked_score_map), K3's scorer alone (mahal_hypothesis_scores),
+    # the loop-alone K4 (gicp_refine_kernel) and K5
+    # (icp.gicp_normal_equations). They are printed apart as
+    # `launches_off_path`; an entry named here must show none on a main path,
+    # every other entry must show some there.
     def path_launches(wrapper, b13):
         n_batched = batched_tour.get(wrapper, 0)       # K1, K4, K5 take no batch
         if b13:
             return 0, n_batched
         return launches_sweep[wrapper], launches_tour[wrapper] - n_batched
 
-    off_path = {"gicp_gn_normal_equations": k5_launches,
-             "mahal_hypothesis_scores": k3_launches - k3_batched,
-             "mahal_hypothesis_scores_b13": k3_batched}
+    check(detect_err["n"] == 10, f"the detection was held on {detect_err['n']} images")
+    log(f"[kernels] the whole detection against the plain version on {detect_err['n']} "
+        f"images: score max abs diff {detect_err['score']:.3g}, "
+        f"{detect_err['unequal']} unequal uv, level or valid entries")
+    results["detect_keypoints_fused"] = dict(max_abs_err=detect_err["score"])
     results["ransac_se3_fused"] = dict(max_abs_err=fused_err["ransac_se3_fused"])
     results["ransac_se3_fused_b13"] = dict(max_abs_err=fused_err["ransac_se3_fused_b13"])
     pallas = "rgbdslam_tpu/ops/pallas_kernels.py"
     # name: (source, TPU kernel, the wrapper whose count it reads)
     meta = {
         "detect_score_map": ("detect.cu", f"{pallas}:319", "detect_score_map"),
+        "detect_keypoints_fused": ("detect.cu", f"{pallas}:319", "detect_keypoints_fused"),
         "hamming_match_2nn": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
         "hamming_match_2nn_b13": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
         "match_gated": ("hamming.cu", f"{pallas}:86", "match_gates"),
@@ -1067,7 +1347,8 @@ def main() -> int:
                                         "mahal_hypothesis_scores"),
         "ransac_se3_fused": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
         "ransac_se3_fused_b13": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
-        "gicp_refine_kernel": ("gicp.cu", f"{pallas}:790", "gicp_refine_kernel"),
+        "gicp_refine_fused": ("gicp.cu", f"{pallas}:790", "gicp_refine_fused"),
+        "gicp_refine_kernel": ("gicp_loop.cu", f"{pallas}:790", "gicp_refine_kernel"),
         "gicp_gn_normal_equations": ("gicp.cu", f"{pallas}:828", "gicp_gn_normal_equations"),
     }
     line = {"kernels": []}

@@ -1,22 +1,64 @@
-// K1: fused FAST segment test + Shi-Tomasi score + 3x3 NMS for one pyramid
-// level.
+// K1: fused FAST segment test + Shi-Tomasi score + 3x3 NMS, and around it
+// the whole keypoint detection: best corner per grid cell over all pyramid
+// levels, the response gate and the top-N cells, in two launches.
 //
 // Replaces: rgbdslam_tpu/ops/pallas_kernels.py detect_score_map (319-397),
-// body _detect_core (190-266).
+// body _detect_core (190-266), and the code XLA fused around it in
+// rgbdslam_tpu/ops/fast.py detect_keypoints (186-236): border gate, best
+// per cell, merge over levels, top-k.
 //
-// What bounds it on an H100: a 640x480 level is 1.2 MB in and 2.5 MB out,
-// well under a microsecond of HBM traffic; the work is ~250 flops and ~40
-// shared-memory reads per pixel (gradients, three 9x9 box sums, the
-// 16-pixel ring, the 3x3 neighbourhood), so the kernel is bound by
-// shared-memory traffic and, at the small pyramid levels, by launch latency
-// and too few blocks to fill 132 SMs.
+// What bounds it on an H100: a 640x480 level is 1.2 MB in, well under a
+// microsecond of HBM traffic; the work is ~250 flops and ~40 shared-memory
+// reads per pixel (gradients, three 9x9 box sums, the 16-pixel ring, the 3x3
+// neighbourhood), so the tile computation is bound by shared-memory traffic.
+// What bounded the detection as a whole was its boundary: the dense kernel
+// wrote two maps a level (4.9 MB a frame) and ~40 small tensor ops a level
+// read them back (gate, tile copy, amax, argmax, coordinates, merge), then a
+// sort and five gathers: ~160 launches for what one tile already holds in
+// shared memory.
 //
-// Design: one 32x16 output tile per block. The input tile and a 6-pixel halo
-// (NMS 1 + box radius 4 + gradient 1) go into shared memory once, zero-filled
-// outside the image like the Pallas kernel; every intermediate (gradients,
-// row box sums, score, corner flags) stays in shared memory and only the two
-// output maps are written. One kernel serves every level: the whole-image /
-// row-tiled split of the Pallas version existed only for the TPU's VMEM.
+// Design. The tile computation is one device function, tile_scores, shared
+// by three kernels:
+//  * detect_kernel, the dense maps of one level (the TPU kernel's direct
+//    counterpart; the detection below does not use it);
+//  * detect_cells_kernel (kernel A), one launch over the tiles of every
+//    level: a flat block index is mapped to (level, tile) through a table of
+//    level pointers, sizes and first-block offsets passed by value. After
+//    tile_scores it applies the border gate in level-0 coordinates and, for
+//    each cell_l x cell_l cell of the tile (cell_l = cell_size >> level; the
+//    32x16 tile must be a whole number of cells), finds the maximum and its
+//    first index in the cell's row-major order (strict >, so an all -inf cell
+//    gives index 0, as argmax does). A cell lies in exactly one tile, so each
+//    (level, cell) entry is written by one block, without atomics. Pixels
+//    beyond grid_rows*cell_l x grid_cols*cell_l belong to no cell. No dense
+//    map is written. The masked map holds no NaN (a NaN score never passes
+//    the >= of the NMS), so neither do the cell maxima.
+//  * detect_select_kernel (kernel B), blocks of 16 cells: every block
+//    merges the cell maxima of all levels in level order with strict > (the
+//    lower level keeps ties; a cell with no corner keeps u = v = 0, level 0),
+//    applies score > min_response (else -inf) and keeps the gated scores and
+//    the winning levels in shared memory (5 bytes a cell); then a warp ranks
+//    one cell as a stable descending sort does (rank = cells with a greater
+//    score + cells with an equal score and a lower index; the lanes stride
+//    over the scores four a load, without a branch, and add their counts) and,
+//    if the rank is below k = min(num_features, n_cells), writes that
+//    keypoint slot; block 0 zeroes the padding above k. Ranks are distinct,
+//    so every slot has one writer.
+//    Counting is n_cells^2 comparisons (1.4 M at 640x480) of ~4 operations:
+//    ~25 us of one SM's time, so it is spread over 75 blocks; each
+//    pays the merge (three L2 round trips) again. One block of 1,024 threads
+//    took 69 us, 10-19 blocks that walked the scores one dependent
+//    shared-memory load at a time 12-15 us.
+//    NaN: a NaN maximum never wins the merge (NaN > x is false, in the plain
+//    version too), so the cell keeps what the other levels gave it and the
+//    ranking never sees a NaN.
+//
+// One tile shape serves every level: the whole-image / row-tiled split of
+// the Pallas version existed only for the TPU's VMEM.
+// The input tile and a 6-pixel halo (NMS 1 + box radius 4 + gradient 1) go
+// into shared memory once, zero-filled outside the image like the Pallas
+// kernel; every intermediate (gradients, row box sums, score, corner flags)
+// stays in shared memory.
 // Semantics kept: gradients are zero on the outer row and column, box sums
 // are zero-padded and separable (row pass, then column pass, adding the +s
 // then the -s neighbour), FAST-10 runs only on the 3-pixel interior with
@@ -25,7 +67,8 @@
 // The Pallas kernel's GFTT mode (use_fast_gate=False) is not ported: nothing
 // on the tracking step uses it.
 // Built with -fmad=false and written in the plain version's operation order,
-// so the maps round exactly like detect_score_map_ref.
+// so the maps round exactly like detect_score_map_ref and the keypoints
+// equal detect_keypoints_ref's bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,21 +90,27 @@ constexpr int BH = TH + 2;
 __constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
 __constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
 
-__global__ void __launch_bounds__(TW * TH)
-detect_kernel(const float* __restrict__ img, int h, int w, float thr,
-              float* __restrict__ out, float* __restrict__ raw) {
-  __shared__ float s_img[SH][SW];
-  __shared__ float s_dx[GH][GW];
-  __shared__ float s_dy[GH][GW];
-  __shared__ float s_hxx[GH][BW];
-  __shared__ float s_hyy[GH][BW];
-  __shared__ float s_hxy[GH][BW];
-  __shared__ float s_score[BH][BW];
-  __shared__ float s_cs[BH][BW];
-  __shared__ unsigned char s_corner[BH][BW];
+// Everything a tile keeps in shared memory.
+struct TileSmem {
+  float img[SH][SW];
+  float dx[GH][GW];
+  float dy[GH][GW];
+  float hxx[GH][BW];
+  float hyy[GH][BW];
+  float hxy[GH][BW];
+  float score[BH][BW];
+  float cs[BH][BW];
+  unsigned char corner[BH][BW];
+};
 
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
+// The (masked, raw) scores of this thread's pixel of the tile at (x0, y0) of
+// a level of h x w pixels: masked is the Shi-Tomasi score where the pixel is
+// a FAST corner winning its 3x3 neighbourhood and -inf elsewhere, raw the
+// dense score. For a thread outside the image masked is -inf and raw 0.
+// Called by all TW x TH threads of the block.
+__device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h, int w,
+                                            float thr, int x0, int y0, TileSmem& s,
+                                            float& masked, float& raw) {
   const int tid = threadIdx.y * TW + threadIdx.x;
   const int nthr = TW * TH;
   const float NEG_INF = -INFINITY;
@@ -70,7 +119,7 @@ detect_kernel(const float* __restrict__ img, int h, int w, float thr,
   for (int i = tid; i < SH * SW; i += nthr) {
     const int ly = i / SW, lx = i % SW;
     const int gy = y0 - HALO + ly, gx = x0 - HALO + lx;
-    s_img[ly][lx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? img[gy * w + gx] : 0.0f;
+    s.img[ly][lx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? img[gy * w + gx] : 0.0f;
   }
   __syncthreads();
 
@@ -78,10 +127,10 @@ detect_kernel(const float* __restrict__ img, int h, int w, float thr,
   for (int i = tid; i < GH * GW; i += nthr) {
     const int ly = i / GW, lx = i % GW;
     const int gy = y0 - 5 + ly, gx = x0 - 5 + lx;
-    const float right = s_img[ly + 1][lx + 2], left = s_img[ly + 1][lx];
-    const float down = s_img[ly + 2][lx + 1], up = s_img[ly][lx + 1];
-    s_dx[ly][lx] = (gx >= 1 && gx < w - 1) ? right - left : 0.0f;
-    s_dy[ly][lx] = (gy >= 1 && gy < h - 1) ? down - up : 0.0f;
+    const float right = s.img[ly + 1][lx + 2], left = s.img[ly + 1][lx];
+    const float down = s.img[ly + 2][lx + 1], up = s.img[ly][lx + 1];
+    s.dx[ly][lx] = (gx >= 1 && gx < w - 1) ? right - left : 0.0f;
+    s.dy[ly][lx] = (gy >= 1 && gy < h - 1) ? down - up : 0.0f;
   }
   __syncthreads();
 
@@ -89,19 +138,19 @@ detect_kernel(const float* __restrict__ img, int h, int w, float thr,
   for (int i = tid; i < GH * BW; i += nthr) {
     const int ly = i / BW, bx = i % BW;
     const int c = bx + R;
-    float axx = s_dx[ly][c] * s_dx[ly][c];
-    float ayy = s_dy[ly][c] * s_dy[ly][c];
-    float axy = s_dx[ly][c] * s_dy[ly][c];
-    for (int s = 1; s <= R; ++s) {
-      const float dxp = s_dx[ly][c + s], dyp = s_dy[ly][c + s];
-      const float dxm = s_dx[ly][c - s], dym = s_dy[ly][c - s];
+    float axx = s.dx[ly][c] * s.dx[ly][c];
+    float ayy = s.dy[ly][c] * s.dy[ly][c];
+    float axy = s.dx[ly][c] * s.dy[ly][c];
+    for (int k = 1; k <= R; ++k) {
+      const float dxp = s.dx[ly][c + k], dyp = s.dy[ly][c + k];
+      const float dxm = s.dx[ly][c - k], dym = s.dy[ly][c - k];
       axx = axx + dxp * dxp + dxm * dxm;
       ayy = ayy + dyp * dyp + dym * dym;
       axy = axy + dxp * dyp + dxm * dym;
     }
-    s_hxx[ly][bx] = axx;
-    s_hyy[ly][bx] = ayy;
-    s_hxy[ly][bx] = axy;
+    s.hxx[ly][bx] = axx;
+    s.hyy[ly][bx] = ayy;
+    s.hxy[ly][bx] = axy;
   }
   __syncthreads();
 
@@ -111,11 +160,11 @@ detect_kernel(const float* __restrict__ img, int h, int w, float thr,
   for (int i = tid; i < BH * BW; i += nthr) {
     const int by = i / BW, bx = i % BW;
     const int r0 = by + R;
-    float sxx = s_hxx[r0][bx], syy = s_hyy[r0][bx], sxy = s_hxy[r0][bx];
-    for (int s = 1; s <= R; ++s) {
-      sxx = sxx + s_hxx[r0 + s][bx] + s_hxx[r0 - s][bx];
-      syy = syy + s_hyy[r0 + s][bx] + s_hyy[r0 - s][bx];
-      sxy = sxy + s_hxy[r0 + s][bx] + s_hxy[r0 - s][bx];
+    float sxx = s.hxx[r0][bx], syy = s.hyy[r0][bx], sxy = s.hxy[r0][bx];
+    for (int k = 1; k <= R; ++k) {
+      sxx = sxx + s.hxx[r0 + k][bx] + s.hxx[r0 - k][bx];
+      syy = syy + s.hyy[r0 + k][bx] + s.hyy[r0 - k][bx];
+      sxy = sxy + s.hxy[r0 + k][bx] + s.hxy[r0 - k][bx];
     }
     const float dxx = sxx * inv, dyy = syy * inv, dxy = sxy * inv;
     const float tr = dxx + dyy;
@@ -127,43 +176,236 @@ detect_kernel(const float* __restrict__ img, int h, int w, float thr,
     const int gy = y0 - 1 + by, gx = x0 - 1 + bx;
     bool corner = false;
     if (gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3) {
-      const float center = s_img[by + 5][bx + 5];
+      const float center = s.img[by + 5][bx + 5];
       const float hi = center + thr, lo = center - thr;
       unsigned bmask = 0u, dmask = 0u;
       for (int k = 0; k < 16; ++k) {
-        const float rk = s_img[by + 5 + kRingDy[k]][bx + 5 + kRingDx[k]];
+        const float rk = s.img[by + 5 + kRingDy[k]][bx + 5 + kRingDx[k]];
         if (rk > hi) bmask |= 1u << k;
         if (rk < lo) dmask |= 1u << k;
       }
       const unsigned bext = bmask | (bmask << 16);   // wrap-around arcs
       const unsigned dext = dmask | (dmask << 16);
-      for (int s = 0; s < 16; ++s) {
-        corner = corner || (((bext >> s) & window) == window)
-                        || (((dext >> s) & window) == window);
+      for (int k = 0; k < 16; ++k) {
+        corner = corner || (((bext >> k) & window) == window)
+                        || (((dext >> k) & window) == window);
       }
     }
-    s_score[by][bx] = score;
-    s_cs[by][bx] = corner ? score : NEG_INF;
-    s_corner[by][bx] = corner ? 1 : 0;
+    s.score[by][bx] = score;
+    s.cs[by][bx] = corner ? score : NEG_INF;
+    s.corner[by][bx] = corner ? 1 : 0;
   }
   __syncthreads();
 
-  // 5. 3x3 NMS (>= every neighbour) and the two outputs
+  // 5. 3x3 NMS (>= every neighbour)
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int gx = x0 + tx, gy = y0 + ty;
-  if (gx < w && gy < h) {
-    const float c = s_cs[ty + 1][tx + 1];
+  masked = NEG_INF;
+  raw = 0.0f;
+  if (x0 + tx < w && y0 + ty < h) {
+    const float c = s.cs[ty + 1][tx + 1];
     float nbmax = c;
     for (int dy = 0; dy < 3; ++dy)
       for (int dx = 0; dx < 3; ++dx) {
-        const float v = s_cs[ty + dy][tx + dx];
+        const float v = s.cs[ty + dy][tx + dx];
         nbmax = v > nbmax ? v : nbmax;
       }
-    const bool keep = s_corner[ty + 1][tx + 1] && c >= nbmax;
-    const float score = s_score[ty + 1][tx + 1];
-    out[gy * w + gx] = keep ? score : NEG_INF;
-    raw[gy * w + gx] = score;
+    const bool keep = s.corner[ty + 1][tx + 1] && c >= nbmax;
+    raw = s.score[ty + 1][tx + 1];
+    masked = keep ? raw : NEG_INF;
   }
+}
+
+// The dense (masked, raw) maps of one level.
+__global__ void __launch_bounds__(TW * TH)
+detect_kernel(const float* __restrict__ img, int h, int w, float thr,
+              float* __restrict__ out, float* __restrict__ raw) {
+  __shared__ TileSmem s;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  float m, r;
+  tile_scores(img, h, w, thr, x0, y0, s, m, r);
+  const int gx = x0 + threadIdx.x, gy = y0 + threadIdx.y;
+  if (gx < w && gy < h) {
+    out[gy * w + gx] = m;
+    raw[gy * w + gx] = r;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel A: best corner per grid cell, every level in one launch
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLevels = 8;
+
+// Level l covers blocks first_block[l] .. first_block[l + 1] - 1, tiles_x[l]
+// tiles a row.
+struct LevelTable {
+  const float* img[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int tiles_x[kMaxLevels];
+  int first_block[kMaxLevels + 1];
+  int n_levels;
+};
+
+__global__ void __launch_bounds__(TW * TH)
+detect_cells_kernel(LevelTable tab, float thr, int cell_size, int grid_rows, int grid_cols,
+                    int min_border, float* __restrict__ cell_max,
+                    int* __restrict__ cell_arg) {
+  __shared__ TileSmem s;
+  __shared__ float s_out[TH][TW];     // gated masked scores of the tile
+  __shared__ float s_rmax[TH][TW];    // [row][cell column]: best of the cell's row
+  __shared__ int s_rarg[TH][TW];
+
+  int lvl = 0;
+  while (lvl + 1 < tab.n_levels && (int)blockIdx.x >= tab.first_block[lvl + 1]) ++lvl;
+  const int tile = blockIdx.x - tab.first_block[lvl];
+  const int x0 = (tile % tab.tiles_x[lvl]) * TW;
+  const int y0 = (tile / tab.tiles_x[lvl]) * TH;
+  const int w0 = tab.w[0], h0 = tab.h[0];
+  const int cell_l = cell_size >> lvl;
+
+  float m, r;
+  tile_scores(tab.img[lvl], tab.h[lvl], tab.w[lvl], thr, x0, y0, s, m, r);
+
+  // border gate in level-0 coordinates
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int X = (x0 + tx) << lvl, Y = (y0 + ty) << lvl;
+  const bool inb = X >= min_border && X < w0 - min_border
+                && Y >= min_border && Y < h0 - min_border;
+  s_out[ty][tx] = inb ? m : -INFINITY;
+  __syncthreads();
+
+  // best of each cell's rows, then of each cell: strict >, scanning in
+  // row-major order, keeps the first maximum
+  const int tid = ty * TW + tx;
+  const int segs = TW / cell_l;
+  if (tid < TH * segs) {
+    const int row = tid / segs, seg = tid % segs;
+    const int base = seg * cell_l;
+    float best = s_out[row][base];
+    int arg = 0;
+    for (int k = 1; k < cell_l; ++k) {
+      const float v = s_out[row][base + k];
+      if (v > best) {
+        best = v;
+        arg = k;
+      }
+    }
+    s_rmax[row][seg] = best;
+    s_rarg[row][seg] = arg;
+  }
+  __syncthreads();
+  if (tid < (TH / cell_l) * segs) {
+    const int cyl = tid / segs, cxl = tid % segs;
+    const int row0 = cyl * cell_l;
+    float best = s_rmax[row0][cxl];
+    int arg = s_rarg[row0][cxl];
+    for (int j = 1; j < cell_l; ++j) {
+      const float v = s_rmax[row0 + j][cxl];
+      if (v > best) {
+        best = v;
+        arg = j * cell_l + s_rarg[row0 + j][cxl];
+      }
+    }
+    const int cy = y0 / cell_l + cyl, cx = x0 / cell_l + cxl;
+    if (cy < grid_rows && cx < grid_cols) {
+      const int idx = lvl * grid_rows * grid_cols + cy * grid_cols + cx;
+      cell_max[idx] = best;
+      cell_arg[idx] = arg;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel B: merge the levels, gate, rank, write the keypoints
+// ---------------------------------------------------------------------------
+
+constexpr int kSelThreads = 512;
+constexpr int kSelCells = kSelThreads / 32;           // cells a block ranks: a warp each
+constexpr int kNoCorner = 255;
+
+__global__ void __launch_bounds__(kSelThreads)
+detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__ cell_arg,
+                     int n_levels, int n_cells, int grid_cols, int cell_size,
+                     float min_response, int num_features, float* __restrict__ uv,
+                     int* __restrict__ level_out, float* __restrict__ score_out,
+                     unsigned char* __restrict__ valid_out) {
+  // gated merged score per cell, padded with -inf to a multiple of 32 cells,
+  // then the winning level per cell
+  extern __shared__ float4 s_mem[];
+  float* s_sel = reinterpret_cast<float*>(s_mem);
+  const int n_pad = (n_cells + 31) & ~31;
+  unsigned char* s_lvl = reinterpret_cast<unsigned char*>(s_sel + n_pad);
+  const int tid = threadIdx.x;
+  const int k = num_features < n_cells ? num_features : n_cells;
+
+  // every block merges and gates all cells (a few thousand L2 reads, a cell's
+  // levels loaded together), then ranks its own 16
+  for (int i = tid; i < n_pad; i += kSelThreads) {
+    float m[kMaxLevels];
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l)
+      m[l] = (l < n_levels && i < n_cells) ? cell_max[l * n_cells + i] : -INFINITY;
+    float best = -INFINITY;
+    int level = kNoCorner;
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l)
+      if (m[l] > best) {          // strict: the lower level keeps ties, NaN never wins
+        best = m[l];
+        level = l;
+      }
+    s_sel[i] = best > min_response ? best : -INFINITY;
+    if (i < n_cells) s_lvl[i] = (unsigned char)level;
+  }
+  if (blockIdx.x == 0)
+    for (int r = k + tid; r < num_features; r += kSelThreads) {   // padding slots
+      uv[2 * r] = 0.0f;
+      uv[2 * r + 1] = 0.0f;
+      level_out[r] = 0;
+      score_out[r] = 0.0f;
+      valid_out[r] = 0;
+    }
+  __syncthreads();
+
+  // rank among all cells: a greater score, or an equal one at a lower index;
+  // a warp ranks one cell, its lanes striding over the (padded) scores four a
+  // load (the -inf padding lies above every index and counts for nobody)
+  const int i = blockIdx.x * kSelCells + (tid >> 5);
+  const int lane = tid & 31;
+  if (i >= n_cells) return;                  // whole warps leave
+  const float si = s_sel[i];
+  const float4* scores = reinterpret_cast<const float4*>(s_sel);
+  int rank = 0;
+#pragma unroll 2
+  for (int q = lane; q < n_pad / 4; q += 32) {
+    const float4 v = scores[q];
+    const int j = 4 * q;
+    rank += (int)(v.x > si) + ((int)(v.x == si) & (int)(j < i));
+    rank += (int)(v.y > si) + ((int)(v.y == si) & (int)(j + 1 < i));
+    rank += (int)(v.z > si) + ((int)(v.z == si) & (int)(j + 2 < i));
+    rank += (int)(v.w > si) + ((int)(v.w == si) & (int)(j + 3 < i));
+  }
+  rank = __reduce_add_sync(0xffffffffu, rank);
+  if (lane != 0 || rank >= k) return;
+
+  // the winner of cell i, in level-0 pixel coordinates; a cell with no
+  // corner keeps u = v = 0 and level 0
+  int level = s_lvl[i];
+  int u = 0, v = 0;
+  if (level == kNoCorner) {
+    level = 0;
+  } else {
+    const int cell_l = cell_size >> level;
+    const int arg = cell_arg[level * n_cells + i];
+    u = ((i % grid_cols) * cell_l + arg % cell_l) << level;
+    v = ((i / grid_cols) * cell_l + arg / cell_l) << level;
+  }
+  const bool ok = si > min_response;         // -inf where the cell failed the gate
+  uv[2 * rank] = (float)u;
+  uv[2 * rank + 1] = (float)v;
+  level_out[rank] = level;
+  score_out[rank] = ok ? si : 0.0f;
+  valid_out[rank] = ok ? 1 : 0;
 }
 
 }  // namespace
@@ -175,5 +417,59 @@ extern "C" int rgbd_detect_score_map(const void* img, int h, int w, float thr,
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
   detect_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)img, h, w, thr, (float*)out, (float*)raw);
+  return (int)cudaGetLastError();
+}
+
+// The whole detection on one stream: kernel A over the tiles that cover the
+// cells of each level, then kernel B. imgs, hs, ws: host arrays of n_levels
+// entries, level l of hs[l] x ws[l] pixels holding at least grid_rows x
+// grid_cols cells of (cell_size >> l)^2 pixels, each a divisor of the tile.
+// cell_max, cell_arg: (n_levels, grid_rows * grid_cols); uv (num_features, 2),
+// level, score, valid (num_features,).
+extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, const int* ws,
+                                     int n_levels, int cell_size, int grid_rows,
+                                     int grid_cols, float thr, int min_border,
+                                     float min_response, int num_features,
+                                     void* cell_max, void* cell_arg, void* uv, void* level,
+                                     void* score, void* valid, void* stream) {
+  const int n_cells = grid_rows * grid_cols;
+  if (n_levels < 1 || n_levels > kMaxLevels || n_cells < 1 || num_features < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  LevelTable tab;
+  tab.n_levels = n_levels;
+  int blocks = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    const int cell_l = cell_size >> l;
+    if (cell_l < 1 || TW % cell_l != 0 || TH % cell_l != 0 ||
+        hs[l] < grid_rows * cell_l || ws[l] < grid_cols * cell_l)
+      return (int)cudaErrorInvalidValue;
+    tab.img[l] = (const float*)imgs[l];
+    tab.h[l] = hs[l];
+    tab.w[l] = ws[l];
+    tab.tiles_x[l] = (grid_cols * cell_l + TW - 1) / TW;
+    tab.first_block[l] = blocks;
+    blocks += tab.tiles_x[l] * ((grid_rows * cell_l + TH - 1) / TH);
+  }
+  for (int l = n_levels; l <= kMaxLevels; ++l) tab.first_block[l] = blocks;
+  for (int l = n_levels; l < kMaxLevels; ++l) {
+    tab.img[l] = nullptr;
+    tab.h[l] = tab.w[l] = tab.tiles_x[l] = 0;
+  }
+  detect_cells_kernel<<<blocks, dim3(TW, TH), 0, st>>>(
+      tab, thr, cell_size, grid_rows, grid_cols, min_border, (float*)cell_max,
+      (int*)cell_arg);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  const int bytes = ((n_cells + 31) & ~31) * (int)sizeof(float) + n_cells;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        detect_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  detect_select_kernel<<<(n_cells + kSelCells - 1) / kSelCells, kSelThreads, bytes, st>>>(
+      (const float*)cell_max, (const int*)cell_arg, n_levels, n_cells, grid_cols, cell_size,
+      min_response, num_features, (float*)uv, (int*)level, (float*)score,
+      (unsigned char*)valid);
   return (int)cudaGetLastError();
 }

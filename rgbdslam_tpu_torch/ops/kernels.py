@@ -5,19 +5,26 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
 |--------------------------|---------------------------------------|----------------------------|
 | detect.cu   (K1)         | detect_score_map, 319-397             | detect_score_map_ref       |
+| detect.cu   (K1, whole detection) | the same, with the rest of detect_keypoints | ops.fast.detect_keypoints_ref |
 | hamming.cu  (K2)         | hamming_match_2nn, 86-150             | hamming_match_2nn_ref      |
 | hamming.cu  (K2's gates) | the gates XLA fused behind it         | match_gates_ref            |
 | mahal.cu    (K3)         | mahal_hypothesis_scores, 479-526      | mahal_hypothesis_scores_ref|
 | mahal.cu    (K3, whole RANSAC) | the same, with the rest of ransac_se3 | solvers.ransac_se3.ransac_se3_ref |
-| gicp.cu     (K4)         | gicp_refine_kernel, 790-825           | gicp_refine_ref            |
+| gicp.cu     (K4, whole gicp_refine) | gicp_refine_kernel, 790-825, with gicp_refine's gate | gicp_refine_ref + solvers.icp._finish_gicp |
+| gicp_loop.cu (K4, the loop alone) | gicp_refine_kernel, 790-825 | gicp_refine_ref            |
 | gicp.cu     (K5)         | gicp_gn_normal_equations, 828-862     | gicp_gn_normal_equations_ref|
 
-The TPU kernels K2 and K3 sat inside programs XLA fused around them; eager
-PyTorch launches every op, so on this card `match_gated` (2-NN and gates,
-two launches) and `ransac_se3_fused` (the whole RANSAC, two launches) are
-what the main paths call. `hamming_match_2nn` stays as the first of
-`match_gated`'s two launches, `mahal_hypothesis_scores` as the scorer of
-`ransac_se3_ref` on CUDA tensors.
+The TPU kernels sat inside programs XLA fused around them; eager PyTorch
+launches every op, so on this card `detect_keypoints_fused` (the whole
+detection, two launches), `match_gated` (2-NN and gates, two launches),
+`ransac_se3_fused` (the whole RANSAC, two launches) and `gicp_refine_fused`
+(loop, gate and fallback, one launch) are what the main paths call.
+`hamming_match_2nn` stays as the first of `match_gated`'s two launches. The
+direct counterparts of the TPU kernels K1 and K3 (`detect_score_map`,
+`mahal_hypothesis_scores`) and K5 are reached through their public entries
+(`fast.masked_score_map`, `mahal_hypothesis_scores`,
+`icp.gicp_normal_equations`) and lie on no main path; `gicp_refine_kernel`
+(the loop alone) is kept for a before/after on one card.
 
 K2 and K3 take an optional leading batch dimension (the same launches
 whatever the batch): the keyframe backend verifies all its candidate
@@ -27,15 +34,16 @@ A wrapper (`detect_score_map`, ...) takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates its outputs, launches on the
 current stream without synchronising, raises if the launch failed, and adds
 one to its entry in `LAUNCHES`. The public functions of the pipeline
-(`fast.masked_score_map`, `matcher.match_descriptors`, `ransac_se3`,
+(`fast.detect_keypoints`, `matcher.match_descriptors`, `ransac_se3`,
 `icp.gicp_refine`) pick the wrapper for CUDA tensors and the plain version
-for CPU tensors (`on_cuda`); nothing falls back from one to the other.
+for CPU tensors (`on_cuda`); nothing falls back from one to the other, and
+no plain version launches a kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -46,10 +54,12 @@ BIG = hamming.BIG_DIST
 # launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {
     "detect_score_map": 0,
+    "detect_keypoints_fused": 0,
     "hamming_match_2nn": 0,
     "match_gates": 0,
     "mahal_hypothesis_scores": 0,
     "ransac_se3_fused": 0,
+    "gicp_refine_fused": 0,
     "gicp_refine_kernel": 0,
     "gicp_gn_normal_equations": 0,
 }
@@ -136,6 +146,70 @@ def detect_score_map_ref(img: torch.Tensor, fast_threshold: float
     corner_score = torch.where(corners, score, float("-inf"))
     keep = corners & fast.nms3x3(corner_score)
     return torch.where(keep, score, float("-inf")), score
+
+
+#: pyramid levels the level table of csrc/detect.cu holds (kMaxLevels)
+_DETECT_MAX_LEVELS = 8
+#: cells whose scores and levels (5 bytes each) fit the shared memory a block
+#: may use on sm_90
+_DETECT_MAX_CELLS = 46000
+
+
+def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
+                           fast_threshold: float, min_response: float, min_border: int):
+    """The whole keypoint detection in two launches of csrc/detect.cu (see
+    its header): kernel A finds the best corner of every grid cell on every
+    pyramid level, kernel B merges the levels, gates by `min_response`, ranks
+    the cells and writes the `num_features` keypoint slots.
+
+    pyramid: the levels `build_pyramid` returns, (H >> l, W >> l) f32 CUDA
+    each; levels whose cell (cell_size >> l) has no pixel are not read, as in
+    the plain version.
+
+    Returns (`fast.Keypoints`, (cell_max (L, n_cells) f32, cell_arg (L,
+    n_cells) int32)), what `fast.detect_select_ref` and `fast.detect_cells_ref`
+    return."""
+    if int(cell_size) != cell_size or int(min_border) != min_border or cell_size < 1:
+        raise ValueError("detect_keypoints_fused takes a whole cell_size >= 1 and a "
+                         "whole min_border")
+    if num_features < 1 or not pyramid:
+        raise ValueError("detect_keypoints_fused needs at least one level and one slot")
+    h0, w0 = pyramid[0].shape
+    grid_rows, grid_cols = h0 // cell_size, w0 // cell_size
+    n_cells = grid_rows * grid_cols
+    levels = pyramid[:fast.used_levels(len(pyramid), cell_size)]
+    L = len(levels)
+    if L > _DETECT_MAX_LEVELS:
+        raise ValueError(f"detect_keypoints_fused takes at most {_DETECT_MAX_LEVELS} "
+                         f"pyramid levels, got {L}")
+    if not 1 <= n_cells <= _DETECT_MAX_CELLS:
+        raise ValueError(f"detect_keypoints_fused ranks 1 to {_DETECT_MAX_CELLS} cells in "
+                         f"shared memory, got {n_cells}")
+    for lvl, img in enumerate(levels):
+        _check(img, f"pyramid[{lvl}]", torch.float32, (None, None))
+        cell_l = cell_size >> lvl
+        if 32 % cell_l or 16 % cell_l:
+            raise ValueError(f"level {lvl}: the 32x16 tile is not a whole number of "
+                             f"{cell_l}x{cell_l} cells")
+        if img.shape[0] < grid_rows * cell_l or img.shape[1] < grid_cols * cell_l:
+            raise ValueError(f"level {lvl}: {tuple(img.shape)} pixels do not hold "
+                             f"{grid_rows}x{grid_cols} cells of {cell_l}x{cell_l}")
+    dev = levels[0].device
+    cell_max = torch.empty((L, n_cells), dtype=torch.float32, device=dev)
+    cell_arg = torch.empty((L, n_cells), dtype=torch.int32, device=dev)
+    uv = torch.empty((num_features, 2), dtype=torch.float32, device=dev)
+    level = torch.empty((num_features,), dtype=torch.int32, device=dev)
+    score = torch.empty((num_features,), dtype=torch.float32, device=dev)
+    valid = torch.empty((num_features,), dtype=torch.bool, device=dev)
+    imgs = (ctypes.c_void_p * L)(*[img.data_ptr() for img in levels])
+    hs = (ctypes.c_int * L)(*[img.shape[0] for img in levels])
+    ws = (ctypes.c_int * L)(*[img.shape[1] for img in levels])
+    _launch("rgbd_detect_keypoints", dev, imgs, hs, ws, L, int(cell_size), grid_rows,
+            grid_cols, float(fast_threshold), int(min_border), float(min_response),
+            int(num_features), _ptr(cell_max), _ptr(cell_arg),
+            _ptr(uv), _ptr(level), _ptr(score), _ptr(valid))
+    LAUNCHES["detect_keypoints_fused"] += 1
+    return fast.Keypoints(uv=uv, level=level, score=score, valid=valid), (cell_max, cell_arg)
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +437,7 @@ def ransac_se3_fused(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K4: the whole plane-to-plane GICP Gauss-Newton loop
+# K4: the whole plane-to-plane GICP refinement
 # ---------------------------------------------------------------------------
 
 
@@ -378,30 +452,72 @@ def _check_gicp_inputs(T, p1, p2, C1, C2, valid) -> int:
     return N
 
 
+#: correspondences `gicp_refine_fused` holds in shared memory (76 bytes each)
+_GICP_MAX_POINTS = 3000
+
+
+def gicp_refine_fused(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                      C1: torch.Tensor, C2: torch.Tensor, valid: torch.Tensor,
+                      iters: int, max_dist: float, min_matches: int):
+    """The whole `gicp_refine` in one launch of csrc/gicp.cu: `iters` rounds
+    of (normal equations -> damped 6x6 solve -> left SE(3) exp-compose) on
+    inputs held in shared memory, then the convergence gate (at least
+    `min_matches` valid pairs, as many within `max_dist` at the final pose, a
+    finite pose) and the fallback to T_init. The solve pivots like the plain
+    version's LU; the Pallas kernel's Cholesky gave NaN on the indefinite H
+    that real frames produce (see the note in gicp.cu).
+
+    Returns ((T_out (4, 4), converged () bool, n_valid () int32), (T_fin
+    (4, 4), cost (), count ())): what `_finish_gicp` returns, and the final
+    pose with the gated plane-to-plane cost and correspondence count of the
+    last round's build, as `gicp_refine_ref` returns them. All are views of
+    one output buffer."""
+    N = _check_gicp_inputs(T_init, p1, p2, C1, C2, valid)
+    if not 1 <= N <= _GICP_MAX_POINTS:
+        raise ValueError(f"gicp_refine_fused holds 1 to {_GICP_MAX_POINTS} correspondences "
+                         f"in shared memory, got {N}")
+    out = torch.empty((36,), dtype=torch.float32, device=T_init.device)
+    _launch("rgbd_gicp_refine_full", T_init.device, _ptr(T_init), _ptr(p1), _ptr(p2),
+            _ptr(C1), _ptr(C2), _ptr(valid), N, int(iters), float(max_dist),
+            float(max_dist) * float(max_dist), int(min_matches), _ptr(out))
+    LAUNCHES["gicp_refine_fused"] += 1
+    n_valid = out[34:35].view(torch.int32)[0]
+    converged = out[35:36].view(torch.bool)[0]      # the low byte of a 0 / 1 word
+    return ((out[:16].view(4, 4), converged, n_valid),
+            (out[16:32].view(4, 4), out[32], out[33]))
+
+
 def gicp_refine_kernel(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                        C1: torch.Tensor, C2: torch.Tensor, valid: torch.Tensor,
-                       iters: int, max_dist: float):
-    """`iters` rounds of (normal equations -> damped 6x6 solve -> left
-    SE(3) exp-compose) in one launch of csrc/gicp.cu. The solve pivots like
-    the plain version's LU; the Pallas kernel's Cholesky gave NaN on the
-    indefinite H that real frames produce (see the note in gicp.cu).
+                       iters: int, max_dist: float,
+                       clocks: Optional[torch.Tensor] = None):
+    """The Gauss-Newton loop alone, cut as the TPU kernel was cut, in one
+    launch of csrc/gicp_loop.cu; the gate and the fallback are then
+    `solvers.icp._finish_gicp`. No main path calls it: it is the other side
+    of a before/after beside `gicp_refine_fused`. `clocks`, an int64 CUDA
+    tensor of 4, receives thread 0's cycles (accumulate, reduce, solve and
+    compose summed over the rounds, the whole kernel).
 
     Returns (T (4, 4), cost (), count ()) where cost/count are the gated
     plane-to-plane cost and correspondence count of the last round's build.
     """
     N = _check_gicp_inputs(T_init, p1, p2, C1, C2, valid)
+    if clocks is not None:
+        _check(clocks, "clocks", torch.int64, (4,))
     out = torch.empty((18,), dtype=torch.float32, device=T_init.device)
     _launch("rgbd_gicp_refine", T_init.device, _ptr(T_init), _ptr(p1), _ptr(p2),
             _ptr(C1), _ptr(C2), _ptr(valid), N, int(iters),
-            float(max_dist) * float(max_dist), _ptr(out))
+            float(max_dist) * float(max_dist), _ptr(out),
+            None if clocks is None else _ptr(clocks))
     LAUNCHES["gicp_refine_kernel"] += 1
     return out[:16].view(4, 4), out[16], out[17]
 
 
 def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):
-    """Plain version of K4: the Gauss-Newton loop of
+    """Plain version of K4's loop: the Gauss-Newton rounds of
     rgbdslam_tpu/solvers/icp.py:198-221 (reassociate=False). Returns
-    (T, cost, count) of the last round, like the kernel."""
+    (T, cost, count) of the last round, like the kernels;
+    `solvers.icp._finish_gicp` is the plain version of the gate behind it."""
     from rgbdslam_tpu_torch.solvers.icp import _gn_step
     from rgbdslam_tpu_torch.solvers.ransac_se3 import _inv3x3
 
@@ -428,7 +544,7 @@ def gicp_gn_normal_equations(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor
     (H (6, 6), b (6,), cost (), count ()) of min sum r^T W r with
     r = R p1 + t - p2, W = (R C1 R^T + C2)^-1, J = [I | -hat(R p1 + t)],
     over valid pairs with |r| < max_dist. No damping, no solve: it is one
-    round of `gicp_refine_kernel` up to the block reduction. The kernel
+    round of `gicp_refine_fused` up to the block reduction. The kernel
     writes the 21 upper-triangular entries of H; the symmetric H is
     assembled here."""
     _check_gicp_inputs(T, p1, p2, C1, C2, valid)

@@ -152,20 +152,6 @@ def _score(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     return inl, cnt, _rmse(cnt, err_sum)
 
 
-def _hypothesis_scores(T_h, p1, p2, valid, cfg: RansacConfig):
-    """(count (..., H) int32, sum of m^2 over inliers (..., H)) of every
-    hypothesis: the scorer kernel for CUDA tensors, its plain version for
-    CPU tensors."""
-    s1 = _sigma_diag(p1[..., 2], cfg)
-    s2 = _sigma_diag(p2[..., 2], cfg)
-    th = cfg.max_mahalanobis * cfg.max_mahalanobis
-    if kernels.on_cuda(T_h, p1):
-        return kernels.mahal_hypothesis_scores(
-            T_h.contiguous(), p1.contiguous(), p2.contiguous(), s1, s2,
-            valid.contiguous(), th)
-    return kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)
-
-
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[..., idx[...], :] per batch entry: x (..., N) or (..., N, 3) with
     idx (..., H, S) int64 -> (..., H, S) or (..., H, S, 3)."""
@@ -233,7 +219,9 @@ def hypotheses_ref(p1, p2, w, valid, cfg: RansacConfig, u=None, draws=None):
     scores. Returns (T_h (..., H, 4, 4), count (..., H) int32, sum of m^2
     over inliers (..., H))."""
     T_h = hypothesis_fits_ref(p1, p2, w, valid, cfg.num_hypotheses, u=u, draws=draws)
-    cnt_h, err_h = _hypothesis_scores(T_h, p1, p2, valid, cfg)
+    cnt_h, err_h = kernels.mahal_hypothesis_scores_ref(
+        T_h, p1, p2, _sigma_diag(p1[..., 2], cfg), _sigma_diag(p2[..., 2], cfg), valid,
+        cfg.max_mahalanobis * cfg.max_mahalanobis)
     return T_h, cnt_h, err_h
 
 
@@ -281,8 +269,8 @@ def ransac_se3_ref(
     draws: Optional[torch.Tensor] = None,
 ) -> RansacResult:
     """Plain version of `ransac_se3` (same arguments, same result): tensor
-    code on whatever device the points lie on, a few thousand small ops. On
-    CUDA tensors its scorer is the `mahal_hypothesis_scores` kernel."""
+    code on whatever device the points lie on, a few thousand small ops,
+    scored by the plain scorer (it launches no kernel)."""
     _check_cfg(cfg)
     u = _uniforms(p1, cfg, generator, draws)
     T_h, cnt_h, err_h = hypotheses_ref(p1, p2, w, valid, cfg, u=u, draws=draws)

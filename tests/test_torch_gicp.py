@@ -1,5 +1,6 @@
-"""GICP (K4's plain version, gicp_refine) and depth-patch covariances of
-rgbdslam_tpu_torch against rgbdslam_tpu on the same numpy inputs.
+"""GICP (K4's plain version, gicp_refine, a model of the fused kernel) and
+depth-patch covariances of rgbdslam_tpu_torch against rgbdslam_tpu on the
+same numpy inputs.
 
 Poses are held to the JAX kernel test's tolerance (rtol 1e-4, atol 1e-5,
 tests/test_pallas_ransac.py:149-150): ten Gauss-Newton rounds of f32
@@ -104,6 +105,7 @@ def test_gicp_refine_matches_jax_and_falls_back():
         kernels.reset_launch_counts()
         Tt, ct, nt = ticp.gicp_refine(*_t(p1, p2, v, T0), IcpConfig(), *_t(C1, C2))
         assert kernels.LAUNCHES["gicp_refine_kernel"] == 0   # CPU: plain loop
+        assert kernels.LAUNCHES["gicp_refine_fused"] == 0
         assert bool(ct) == bool(cj)
         assert int(nt) == int(nj)
         np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-4, atol=1e-5)
@@ -183,6 +185,7 @@ def test_gicp_refine_matches_xla_on_indefinite_rendered_covariances(rendered_pai
     kernels.reset_launch_counts()
     Tt, ct, nt = ticp.gicp_refine(*_t(p1, p2, inl, T0), IcpConfig(), *_t(C1, C2))
     assert kernels.LAUNCHES["gicp_refine_kernel"] == 0       # CPU: plain loop
+    assert kernels.LAUNCHES["gicp_refine_fused"] == 0
     assert bool(cx) and bool(ct)
     assert int(nt) == int(nx)
     assert np.isfinite(Tt.numpy()).all()
@@ -226,3 +229,146 @@ def test_gicp_gn_build_is_one_round_of_the_loop():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gicp_gn_normal_equations(*args, 0.07)
     assert kernels.LAUNCHES["gicp_gn_normal_equations"] == 0
+
+
+# ---------------------------------------------------------------------------
+# a model of the fused kernel (csrc/gicp.cu): its sums in its order, its gate
+# ---------------------------------------------------------------------------
+
+K_THREADS, K_SUMS = 512, 29
+
+
+def _tri6(i, j):
+    return i * 6 - i * (i - 1) // 2 + (j - i)
+
+
+def _model_point_sums(R, t, p1, p2, C1, C2, valid, max_dist2):
+    """(N, 29) contributions of every correspondence, in the kernel's
+    arithmetic: S = R C1 R^T + C2 from the upper triangles, W by adjugate,
+    the gate |r|^2 < max_dist^2, the Jacobian's constant entries left out."""
+    q = p1 @ R.T + t
+    r = q - p2
+    dist2 = (r * r).sum(-1)
+    sym1 = torch.triu(C1) + torch.triu(C1, 1).transpose(1, 2)   # the upper triangle, mirrored
+    sym2 = torch.triu(C2) + torch.triu(C2, 1).transpose(1, 2)
+    S = torch.einsum("ik,jl,nkl->nij", R, R, sym1) + sym2
+    a, b, c = S[:, 0, 0], S[:, 0, 1], S[:, 0, 2]
+    d, e, f = S[:, 1, 1], S[:, 1, 2], S[:, 2, 2]
+    A11, A12, A13 = d * f - e * e, c * e - b * f, b * e - c * d
+    A22, A23, A33 = a * f - c * c, b * c - a * e, a * d - b * b
+    det = a * A11 + b * A12 + c * A13
+    inv = 1.0 / torch.where(det.abs() < 1e-30, torch.full_like(det, 1e-30), det)
+    W = torch.stack([torch.stack([A11, A12, A13], -1), torch.stack([A12, A22, A23], -1),
+                     torch.stack([A13, A23, A33], -1)], -2) * inv[:, None, None]
+    gate = (valid & (dist2 < max_dist2)).to(torch.float32)
+    zero = torch.zeros_like(q[:, 0])
+    hat_cols = [torch.stack([zero, -q[:, 2], q[:, 1]], -1),
+                torch.stack([q[:, 2], zero, -q[:, 0]], -1),
+                torch.stack([-q[:, 1], q[:, 0], zero], -1)]
+    cols = [torch.eye(3)[k].expand(q.shape[0], 3) for k in range(3)] + hat_cols
+    Wc = [torch.einsum("nij,nj->ni", W, cj) for cj in cols]
+    out = torch.zeros((q.shape[0], K_SUMS))
+    for i in range(6):
+        for j in range(i, 6):
+            out[:, _tri6(i, j)] = (cols[i] * Wc[j]).sum(-1) * gate
+        out[:, 21 + i] = (Wc[i] * r).sum(-1) * gate
+    out[:, 27] = (r * torch.einsum("nij,nj->ni", W, r)).sum(-1) * gate
+    out[:, 28] = gate
+    return out
+
+
+def _model_block_sum(contrib):
+    """The block's sum in the kernel's order: thread t adds points t, t + 512,
+    ... in turn; a warp adds lanes i and i + 16, then + 8, ... + 1; the 16
+    warps' partials are added in warp order."""
+    n = contrib.shape[0]
+    rounds = -(-n // K_THREADS)
+    padded = torch.zeros((rounds * K_THREADS, K_SUMS))
+    padded[:n] = contrib
+    acc = torch.zeros((K_THREADS, K_SUMS))
+    for k in range(rounds):
+        acc = acc + padded[k * K_THREADS:(k + 1) * K_THREADS]
+    x = acc.reshape(K_THREADS // 32, 32, K_SUMS)
+    for half in (16, 8, 4, 2, 1):
+        x = x[:, :half] + x[:, half:2 * half]
+    total = x[0, 0]
+    for w in range(1, K_THREADS // 32):
+        total = total + x[w, 0]
+    return total
+
+
+def _model_gicp_refine_fused(T_init, p1, p2, C1, C2, valid, iters, max_dist, min_matches):
+    """((T_out, converged, n_valid), T_fin): the loop on the model's sums,
+    the pivoted solve, the exp-compose, then the kernel's gate: both counts
+    >= min_matches at the final pose (|r| < max_dist by the square root) and
+    a finite pose, else T_init."""
+    from rgbdslam_tpu_torch.geometry import se3 as tse3
+
+    T = T_init.clone()
+    for _ in range(iters):
+        sums = _model_block_sum(_model_point_sums(T[:3, :3], T[:3, 3], p1, p2, C1, C2, valid,
+                                                  np.float32(max_dist * max_dist)))
+        H = torch.zeros((6, 6))
+        for i in range(6):
+            for j in range(i, 6):
+                H[i, j] = H[j, i] = sums[_tri6(i, j)]
+        H = H + 1e-6 * torch.eye(6)
+        xi = -torch.linalg.solve_ex(H, sums[21:27, None])[0][:, 0]
+        T = tse3.exp(xi) @ T
+    q = p1 @ T[:3, :3].T + T[:3, 3]
+    n_valid = int(valid.sum())
+    n_gated = int((valid & (torch.sqrt(((q - p2) ** 2).sum(-1)) < max_dist)).sum())
+    converged = (n_valid >= min_matches and n_gated >= min_matches
+                 and bool(torch.isfinite(T[:3]).all()))
+    return (T if converged else T_init, converged, n_valid), T
+
+
+@pytest.mark.parametrize("case", ["plain", "1024 points", "too few valid pairs",
+                                  "non-finite final pose", "pairs out of reach"])
+def test_fused_gicp_model_matches_plain_and_jax(case):
+    """The fused kernel's algorithm (sums in its thread, warp and block
+    order, solve, compose, gate, fallback) against the plain loop + gate and
+    the JAX gicp_refine: converged and n_valid exact, poses rtol 1e-4 / atol
+    1e-5 (f32 sums in three different orders over ten rounds)."""
+    T0, p1, p2, C1, C2, valid, _ = _problem(12, 1024 if case == "1024 points" else 300)
+    cfg_kw = dict(max_iterations=10, max_correspondence_dist=0.15, min_matches=20)
+    if case == "too few valid pairs":
+        valid[np.flatnonzero(valid)[19:]] = False
+    elif case == "non-finite final pose":
+        p1[np.flatnonzero(valid)[0]] = np.inf
+    elif case == "pairs out of reach":
+        p2 = p2 + np.float32(1.0)
+    args = _t(T0, p1, p2, C1, C2, valid)
+    (mT, mconv, mnv), mfin = _model_gicp_refine_fused(*args, 10, 0.15, 20)
+    pfin = kernels.gicp_refine_ref(*args, 10, 0.15)[0]
+    pT, pconv, pnv = ticp._finish_gicp(pfin, args[0], args[1], args[2], args[5],
+                                       IcpConfig(**cfg_kw))
+    Tj, cj, nj = jicp.gicp_refine(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid),
+                                  jnp.asarray(T0), None, JIcpConfig(**cfg_kw),
+                                  C1=jnp.asarray(C1), C2=jnp.asarray(C2))
+    assert mconv == bool(pconv) == bool(cj)
+    assert mnv == int(pnv) == int(nj)
+    assert mconv == (case in ("plain", "1024 points"))
+    if case == "non-finite final pose":
+        assert not np.isfinite(mfin.numpy()).all() and not np.isfinite(pfin.numpy()).all()
+    else:
+        np.testing.assert_allclose(mfin.numpy(), pfin.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(mT.numpy(), pT.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(mT.numpy(), np.asarray(Tj), rtol=1e-4, atol=1e-5)
+    if not mconv:
+        np.testing.assert_array_equal(mT.numpy(), T0)          # the fallback keeps T_init
+        np.testing.assert_array_equal(pT.numpy(), T0)
+
+
+def test_fused_gicp_wrapper_checks():
+    """The fused wrapper takes CUDA tensors only, and at most the 3,000
+    correspondences its kernel holds in shared memory."""
+    T0, p1, p2, C1, C2, valid, _ = _problem(13, 64)
+    args = _t(T0, p1, p2, C1, C2, valid)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gicp_refine_fused(*args, 10, 0.07, 20)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gicp_refine_kernel(*args, 10, 0.07)
+    assert kernels.LAUNCHES["gicp_refine_fused"] == 0
+    assert kernels._GICP_MAX_POINTS * 76 + 76 + 2032 <= 232448   # planes + static shared

@@ -76,7 +76,16 @@ def test_mahal_kernel_matches_plain(dev, kernels):
     assert int(kc.sum()) == 0 and float(ke.sum()) == 0.0
 
 
-def test_gicp_kernel_matches_plain(dev, kernels):
+def _k4_loop(kernels, which, args, iters, md):
+    """(T, cost, count) of the Gauss-Newton loop by the fused kernel (its
+    second result) or by the loop-alone kernel."""
+    if which == "fused":
+        return kernels.gicp_refine_fused(*args, iters, md, 20)[1]
+    return kernels.gicp_refine_kernel(*args, iters, md)
+
+
+@pytest.mark.parametrize("which", ["fused", "loop"])
+def test_gicp_kernel_matches_plain(dev, kernels, which):
     from rgbdslam_tpu_torch.geometry import se3
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -90,13 +99,14 @@ def test_gicp_kernel_matches_plain(dev, kernels):
     C2 = C1.flip(0).contiguous()
     valid = torch.rand(N, generator=g, device=dev) > 0.2
     T0 = (se3.exp(0.02 * torch.randn(6, generator=g, device=dev)) @ T).contiguous()
-    kT, kc, kn = kernels.gicp_refine_kernel(T0, p1, p2, C1, C2, valid, 10, 0.07)
+    kT, kc, kn = _k4_loop(kernels, which, (T0, p1, p2, C1, C2, valid), 10, 0.07)
     pT, pc, pn = kernels.gicp_refine_ref(T0, p1, p2, C1, C2, valid, 10, 0.07)
     torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
     assert abs(float(kn) - float(pn)) <= 1.0
 
 
-def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels):
+@pytest.mark.parametrize("which", ["fused", "loop"])
+def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels, which):
     """Main-path inputs of the 640x480 sweep. Their depth-patch covariances
     come out slightly indefinite (one-pass moments cancel in f32), on which
     the Pallas kernel's Cholesky returned NaN; the kernel must stay finite
@@ -118,7 +128,7 @@ def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels):
         r = ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)
         C2 = f1.surf_cov[m.idx2.long()].contiguous()
         inl, T0 = r.inliers.contiguous(), r.T21.contiguous()
-        kT, _, kn = kernels.gicp_refine_kernel(T0, p1, p2, f0.surf_cov, C2, inl, 10, 0.07)
+        kT, _, kn = _k4_loop(kernels, which, (T0, p1, p2, f0.surf_cov, C2, inl), 10, 0.07)
         pT, _, pn = kernels.gicp_refine_ref(T0, p1, p2, f0.surf_cov, C2, inl, 10, 0.07)
         assert torch.isfinite(kT).all()
         torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
@@ -151,9 +161,11 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
     kernels.reset_launch_counts()
     ts, poses, st = PipelinedOdometry(cam, cfg, batch=8, device=dev).run(
         ds.grab(i) for i in range(len(ds)))
-    assert kernels.LAUNCHES == {"detect_score_map": 3 * 24, "hamming_match_2nn": 23,
+    assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": 24,
+                                "hamming_match_2nn": 23,
                                 "match_gates": 23, "mahal_hypothesis_scores": 0,
-                                "ransac_se3_fused": 23, "gicp_refine_kernel": 23,
+                                "ransac_se3_fused": 23, "gicp_refine_fused": 23,
+                                "gicp_refine_kernel": 0,
                                 "gicp_gn_normal_equations": 0}
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.05
     assert st["failures"] == 0 and np.isfinite(poses).all()
@@ -192,12 +204,14 @@ def test_gicp_gn_kernel_matches_plain(dev, kernels, n):
 
 def test_gicp_gn_kernel_consistent_with_loop_kernel(dev, kernels):
     """One round of K4 is K5's build, the damped solve and the exp-compose:
-    exp(solve(H + 1e-6 I, -b)) @ T0 in float64 equals K4 at iters=1 (1e-5)."""
+    exp(solve(H + 1e-6 I, -b)) @ T0 in float64 equals K4 at iters=1 (1e-5);
+    the two share the per-point function and the block reduction, so cost
+    and count are the same bits."""
     from rgbdslam_tpu_torch.geometry import se3
 
     args = _gicp_problem(dev, 11)
     H, b, cost, cnt = kernels.gicp_gn_normal_equations(*args, 0.07)
-    T1, c1, n1 = kernels.gicp_refine_kernel(*args, 1, 0.07)
+    T1, c1, n1 = kernels.gicp_refine_fused(*args, 1, 0.07, 20)[1]
     xi = torch.linalg.solve(H.double() + 1e-6 * torch.eye(6, device=dev, dtype=torch.float64),
                             -b.double())
     T_ref = (se3.exp(xi) @ args[0].double()).float()
@@ -309,9 +323,11 @@ def test_slam_system_on_card_uses_only_kernels(dev, kernels):
         system.track(*ds.grab(i))
     system.finish()
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
-    assert kernels.LAUNCHES == {"detect_score_map": 3 * 60, "hamming_match_2nn": E + 2 * KF + R,
+    assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": 60,
+                                "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
-                                "ransac_se3_fused": E + KF + R, "gicp_refine_kernel": E,
+                                "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
+                                "gicp_refine_kernel": 0,
                                 "gicp_gn_normal_equations": 0}
     assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R, "match_gates": KF + R,
                                         "mahal_hypothesis_scores": 0,
@@ -523,3 +539,214 @@ def test_ransac_fused_reproduces_its_run(dev, kernels):
                        RansacConfig()) for _ in range(2)]
     for f in ("T21", "inliers", "num_inliers", "rmse", "success"):
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+
+
+# ---------------------------------------------------------------------------
+# the whole detection (kernels A and B of detect.cu) and the whole gicp_refine
+# ---------------------------------------------------------------------------
+
+_DETECT_CASES = [
+    # (h, w), levels, cell_size, fast threshold, min_border
+    ((480, 640), 4, 16, 20.0, 16),
+    ((240, 320), 3, 8, 15.0, 16),
+    ((251, 333), 3, 8, 15.0, 9),      # odd: levels are not whole tiles or cells
+]
+
+
+def _same_keypoints(a, b):
+    for f in ("uv", "level", "score", "valid"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("kind", ["integer", "coarse", "rendered"])
+@pytest.mark.parametrize("shape,levels,cell,thr,border", _DETECT_CASES)
+def test_detect_fused_matches_plain(dev, kernels, kind, shape, levels, cell, thr, border):
+    """Kernel A against the first half of the plain detection, kernel B
+    against the second half on kernel A's outputs, the whole against the
+    whole: all exact (same operation order, -fmad=false). `coarse` images
+    take few grey values, so equal scores inside a cell and across cells
+    are common and the first-index and lower-cell-first rules decide."""
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    h, w = shape
+    g = torch.Generator(device=dev).manual_seed(h + levels)
+    if kind == "rendered":
+        cam = Camera(0.9 * w, 0.9 * w, (w - 1) / 2, (h - 1) / 2, width=w, height=h)
+        img = SyntheticDataset(n_frames=24, cam=cam, trajectory="sweep", device=dev).grab(3)[1]
+    else:
+        step = 1 if kind == "integer" else 64
+        img = (torch.randint(0, 256 // step, shape, generator=g, device=dev) * step
+               ).to(torch.float32)
+    pyr = image.build_pyramid(img, levels)
+    kw = dict(num_features=1024, cell_size=cell, fast_threshold=thr, min_response=20.0,
+              min_border=border)
+    kernels.reset_launch_counts()
+    kp, (cmax, carg) = kernels.detect_keypoints_fused(pyr, **kw)
+    assert kernels.LAUNCHES["detect_keypoints_fused"] == 1
+    assert kernels.LAUNCHES["detect_score_map"] == 0
+    pmax, parg = fast.detect_cells_ref(pyr, cell, thr, border)
+    assert torch.equal(cmax, pmax) and torch.equal(carg, parg)
+    grid_cols = w // cell
+    _same_keypoints(kp, fast.detect_select_ref(cmax, carg, grid_cols, 1024, cell, 20.0))
+    _same_keypoints(kp, fast.detect_keypoints_ref(pyr, **kw))
+    _same_keypoints(kp, fast.detect_keypoints(pyr, **kw))
+    assert int(kp.valid.sum()) > 20
+    if kind == "coarse":
+        best = cmax.max(0).values
+        assert int((best[:, None] == best[None, :]).sum()) > best.numel()   # ties exist
+
+
+def test_detect_fused_pads_beyond_cells(dev, kernels):
+    """A budget above the number of cells: the slots beyond the cells are
+    padded (invalid, zero), equal scores rank by cell index, in kernel B as
+    in the plain selection on kernel A's outputs and in the whole."""
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    img = (torch.randint(0, 4, (96, 128), generator=g, device=dev) * 64).to(torch.float32)
+    pyr = image.build_pyramid(img, 3)
+    cell, grid_cols, n_cells = 8, 16, 12 * 16
+    for n_feat in (64, 500):
+        kp, (cmax, carg) = kernels.detect_keypoints_fused(pyr, n_feat, cell, 15.0, 20.0, 8)
+        _same_keypoints(kp, fast.detect_select_ref(cmax, carg, grid_cols, n_feat, cell, 20.0))
+        _same_keypoints(kp, fast.detect_keypoints_ref(pyr, n_feat, cell, 15.0, 20.0, 8))
+        assert kp.valid.shape == (n_feat,) and int(kp.valid.sum()) > 20
+    assert not bool(kp.valid[n_cells:].any()) and float(kp.uv[n_cells:].abs().sum()) == 0.0
+    assert float(kp.score[n_cells:].abs().sum()) == 0.0 and int(kp.level[n_cells:].sum()) == 0
+
+
+def test_detect_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    def forbid(*a, **k):
+        raise AssertionError("plain version ran for CUDA tensors")
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    img = torch.randint(0, 256, (240, 320), generator=g, device=dev).to(torch.float32)
+    pyr = image.build_pyramid(img, 3)
+    kw = dict(num_features=512, cell_size=8, fast_threshold=15.0, min_response=20.0,
+              min_border=16)
+    ref = fast.detect_keypoints_ref(pyr, **kw)
+    for name in ("detect_keypoints_ref", "detect_cells_ref", "detect_select_ref"):
+        monkeypatch.setattr(fast, name, forbid)
+    monkeypatch.setattr(kernels, "detect_score_map_ref", forbid)
+    runs = [fast.detect_keypoints(pyr, **kw) for _ in range(2)]
+    _same_keypoints(runs[0], runs[1])                   # the same bits again
+    _same_keypoints(runs[0], ref)
+    # an all-dark frame: no corner, every slot invalid and zero
+    dark = fast.detect_keypoints(image.build_pyramid(torch.zeros_like(img), 3), **kw)
+    assert not bool(dark.valid.any()) and float(dark.uv.abs().sum()) == 0.0
+    assert float(dark.score.abs().sum()) == 0.0 and int(dark.level.sum()) == 0
+    # shapes the kernels do not take raise
+    with pytest.raises(ValueError, match="whole number"):
+        fast.detect_keypoints(pyr, **{**kw, "cell_size": 10})
+    with pytest.raises(ValueError, match="whole number"):
+        fast.detect_keypoints(pyr, **{**kw, "cell_size": 32})
+    with pytest.raises(ValueError):
+        fast.detect_keypoints([pyr[0], pyr[1].cpu()], **kw)
+    # more levels than cells have pixels: the plain version's break
+    deep = image.build_pyramid(img, 5)
+    _same_keypoints(fast.detect_keypoints(deep, **kw),
+                    kernels.detect_keypoints_fused(deep[:4], **kw)[0])
+
+
+def _finish_plain(kernels, args, iters, md, min_matches):
+    from rgbdslam_tpu_torch.config import IcpConfig
+    from rgbdslam_tpu_torch.solvers.icp import _finish_gicp
+
+    T0, p1, p2, C1, C2, valid = args
+    T_fin, cost, cnt = kernels.gicp_refine_ref(*args, iters, md)
+    cfg = IcpConfig(max_iterations=iters, max_correspondence_dist=md, min_matches=min_matches)
+    return _finish_gicp(T_fin, T0, p1, p2, valid, cfg), T_fin
+
+
+@pytest.mark.parametrize("n,min_matches", [(1024, 20), (3000, 20), (1000, 20), (8, 20),
+                                           (64, 60)])
+def test_gicp_refine_fused_matches_plain(dev, kernels, n, min_matches):
+    """The whole gicp_refine in one launch against the plain loop and gate
+    on SPD covariances: converged and n_valid exact, the pose within the
+    loop's tolerance; too few valid pairs fall back to T_init exactly."""
+    args = _gicp_problem(dev, 30 + n, n)
+    kernels.reset_launch_counts()
+    (kT, kconv, knv), (kfin, _, _) = kernels.gicp_refine_fused(*args, 10, 0.07, min_matches)
+    assert kernels.LAUNCHES["gicp_refine_fused"] == 1
+    (pT, pconv, pnv), pfin = _finish_plain(kernels, args, 10, 0.07, min_matches)
+    assert kconv.dtype == torch.bool and knv.dtype == torch.int32 and kT.shape == (4, 4)
+    assert bool(kconv) == bool(pconv) and int(knv) == int(pnv) == int(args[5].sum())
+    assert bool(kconv) == (int(knv) >= min_matches)
+    torch.testing.assert_close(kfin, pfin, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
+    if not bool(kconv):
+        assert torch.equal(kT, args[0])
+    again = kernels.gicp_refine_fused(*args, 10, 0.07, min_matches)
+    assert torch.equal(again[0][0], kT) and torch.equal(again[1][0], kfin)   # same bits
+
+
+def test_gicp_refine_fused_gate_and_limits(dev, kernels, monkeypatch):
+    """A non-finite final pose falls back to T_init; pairs that end farther
+    apart than max_dist do not count; more points than shared memory holds
+    raise; the public entry never reaches a plain version."""
+    from rgbdslam_tpu_torch.config import IcpConfig
+    from rgbdslam_tpu_torch.solvers import icp
+
+    T0, p1, p2, C1, C2, valid = _gicp_problem(dev, 41)
+    bad = p1.clone()
+    bad[int(torch.nonzero(valid)[0])] = float("inf")
+    (kT, kconv, knv), (kfin, _, _) = kernels.gicp_refine_fused(T0, bad, p2, C1, C2, valid,
+                                                               10, 0.07, 20)
+    (pT, pconv, pnv), pfin = _finish_plain(kernels, (T0, bad, p2, C1, C2, valid), 10, 0.07, 20)
+    assert not bool(torch.isfinite(kfin).all()) and not bool(torch.isfinite(pfin).all())
+    assert not bool(kconv) and not bool(pconv) and int(knv) == int(pnv)
+    assert torch.equal(kT, T0) and torch.equal(pT, T0)
+    # the partners moved away: the loop's gate empties, the final count fails
+    far = p2 + 1.0
+    (kT, kconv, knv), _ = kernels.gicp_refine_fused(T0, p1, far, C1, C2, valid, 10, 0.07, 20)
+    (pT, pconv, pnv), _ = _finish_plain(kernels, (T0, p1, far, C1, C2, valid), 10, 0.07, 20)
+    assert not bool(kconv) and not bool(pconv) and int(knv) == int(pnv) > 20
+    assert torch.equal(kT, T0)
+    with pytest.raises(ValueError, match="3000"):
+        kernels.gicp_refine_fused(*_gicp_problem(dev, 42, 3001), 10, 0.07, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gicp_refine_fused(T0.T, p1, p2, C1, C2, valid, 10, 0.07, 20)
+
+    def forbid(*a, **k):
+        raise AssertionError("plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(kernels, "gicp_refine_ref", forbid)
+    monkeypatch.setattr(icp, "_finish_gicp", forbid)
+    kernels.reset_launch_counts()
+    T, conv, nv = icp.gicp_refine(p1, p2, valid, T0, IcpConfig(), C1=C1, C2=C2)
+    assert kernels.LAUNCHES["gicp_refine_fused"] == 1
+    assert kernels.LAUNCHES["gicp_refine_kernel"] == 0
+    assert bool(conv) and int(nv) == int(valid.sum()) and bool(torch.isfinite(T).all())
+    with pytest.raises(ValueError):
+        icp.gicp_refine(p1.cpu(), p2, valid, T0, IcpConfig(), C1=C1, C2=C2)
+
+
+def test_gicp_refine_fused_on_rendered_frame_pairs(dev, kernels):
+    """Main-path inputs (indefinite depth-patch covariances): the whole
+    gicp_refine against the plain loop and gate, converged and n_valid
+    exact."""
+    from rgbdslam_tpu_torch.config import SlamConfig
+    from rgbdslam_tpu_torch.frontend.matcher import gather_matched_points, match_frames
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+
+    cfg = SlamConfig()
+    ds = SyntheticDataset(n_frames=48, cam=SYNTHETIC, trajectory="sweep", device=dev)
+    odo = PipelinedOdometry(SYNTHETIC, cfg, device=dev)
+    feats = [odo.features(*ds.grab(i)[1:]) for i in range(6)]
+    for f0, f1 in zip(feats[:-1], feats[1:]):
+        m = match_frames(f0, f1)
+        p1, p2, w, valid = gather_matched_points(f0, f1, m)
+        r = ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)
+        args = (r.T21, p1, p2, f0.surf_cov, f1.surf_cov[m.idx2.long()], r.inliers)
+        (kT, kconv, knv), _ = kernels.gicp_refine_fused(*args, 10, 0.07, 20)
+        (pT, pconv, pnv), _ = _finish_plain(kernels, args, 10, 0.07, 20)
+        assert bool(kconv) and bool(pconv) and int(knv) == int(pnv)
+        torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)

@@ -27,31 +27,37 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                few tracking
                failures, launch counts equal to what the run's bookkeeping
                predicts, host synchronisations per frame equal to the
-               budget, and where the tour's time goes.
+               budget, and where the tour's time goes;
+  7. modes   — the same tour through the ring (track_pipelined, seeds 0-2,
+               the serial gates) and through double-buffered batches
+               (track_batch_dispatch / track_batch_complete, B=8 for seeds
+               0-2, B=32 for seed 0: median ATE < 0.05 m, keyframe counts
+               within 20 % + 1 of what the scan's gate picks on the serial
+               run's poses, the revisit closed; B=8
+               run sequentially equal to the double-buffered run), launch
+               counts by the formulas, host synchronisations by the budgets
+               (none inside a batch dispatch), the batched ADAPTIVE scenario
+               on the card, and the ring, batch and serial times.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
 against the whole, all exact, on sweep frames, on tour frames (phase 6), at
-320x240 and on integer images), K2 and K3's scorer alone and with a batch of
+320x240 and on integer images, and with the threshold as a device tensor
+against the float), K2 and K3's scorer alone and with a batch of
 13, the gated matcher against the tensor gates (exact), the fused RANSAC
 against the plain one, held apart (kernel A's poses against the plain fit,
 its counts against the plain scorer on its own poses, kernel B against the
 plain selection and refits on kernel A's outputs, the whole against the
 whole, on the first five sweep pairs, on 13 sweep candidates and (phase 6)
 on 13 tour candidates), the whole gicp_refine against the plain loop and
-gate on those five sweep pairs and (phase 6) on five tour pairs, the loop-
-alone K4 against the plain loop, and K5 (reached through
-solvers.icp.gicp_normal_equations) against its plain version and against one
-round of K4. The kernels that lie on no main path (dense K1, K3's scorer
-alone, the loop-alone K4, K5) are driven through their public entries and
-counted apart as `launches_off_path`. It also stamps one run of the
-loop-alone K4 with clock64() and prints where a round's cycles went.
+gate on those five sweep pairs and (phase 6) on five tour pairs, and K5
+(reached through solvers.icp.gicp_normal_equations) against its plain
+version and against one round of K4. The kernels that lie on no main path
+(dense K1, K3's scorer alone, K5) are driven through their public entries
+and counted apart as `launches_off_path`.
 Phase 5 counts the device launches of one call with the profiler
 (detect_keypoints 2, gicp_refine 1, ransac_se3 at most 4, match_descriptors
-at most 2), and runs the stage loop and one tour once more on the paths the
-fused detection and the fused gicp_refine replaced (the tensor-code
-detection around the dense K1, the loop-alone K4 followed by the tensor-code
-gate), for a before beside the after on the same card.
+at most 2).
 The line before the last is the card's name and power limit; the one
 before it a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -134,47 +140,6 @@ def plain_versions_forbidden(kernels):
     try:
         for mod, n in names:
             setattr(mod, n, forbid(n))
-        yield
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
-
-
-def gicp_refine_before(kernels):
-    """`gicp_refine` as it was composed before the fused kernel: the
-    loop-alone K4, then the gate and the fallback as tensor code."""
-    from rgbdslam_tpu_torch.solvers import icp
-
-    finish = icp._finish_gicp
-
-    def gicp_refine(p1, p2, valid, T_init, cfg, C1, C2):
-        T_fin, _cost, _cnt = kernels.gicp_refine_kernel(
-            T_init.contiguous(), p1.contiguous(), p2.contiguous(), C1.contiguous(),
-            C2.contiguous(), valid.contiguous(), cfg.max_iterations,
-            cfg.max_correspondence_dist)
-        return finish(T_fin, T_init, p1, p2, valid, cfg)
-
-    return gicp_refine
-
-
-@contextlib.contextmanager
-def before_paths(kernels):
-    """The detection and `gicp_refine` as they ran before their fused
-    kernels, on every path of the port: the tensor-code detection around the
-    dense K1 (one launch a level), and the loop-alone K4 followed by the
-    tensor-code gate. The before of a before/after on one card."""
-    from rgbdslam_tpu_torch.ops import fast
-    from rgbdslam_tpu_torch.slam import pipeline, tracking
-
-    before_gicp = gicp_refine_before(kernels)
-    saved = [(m, "gicp_refine", m.gicp_refine) for m in (pipeline, tracking)]
-    saved += [(fast, "detect_keypoints", fast.detect_keypoints),
-              (kernels, "detect_score_map_ref", kernels.detect_score_map_ref)]
-    try:
-        for m in (pipeline, tracking):
-            m.gicp_refine = before_gicp
-        fast.detect_keypoints = fast.detect_keypoints_ref
-        kernels.detect_score_map_ref = kernels.detect_score_map
         yield
     finally:
         for mod, n, fn in saved:
@@ -307,13 +272,6 @@ def device_us_per_launch(fn, repeats: int = 10) -> dict:
     return out
 
 
-def sm_clock_mhz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return float(out.strip().splitlines()[0])
-
-
 def profile_busy(fn, what: str, smi: str) -> None:
     """Log the device's busy share of fn()'s wall time and the ten kernels
     with the most device time, from torch.profiler."""
@@ -371,6 +329,7 @@ def main() -> int:
     from rgbdslam_tpu_torch.solvers import ransac_se3 as ransac_mod
     from rgbdslam_tpu_torch.solvers.ransac_se3 import _sigma_diag, _take, ransac_se3
     from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
+    from rgbdslam_tpu_torch.slam.tracking import Tracker, TrackerState
 
     dev = torch.device(DEVICE)
     # ---------------------------------------------------------------- 1
@@ -468,6 +427,18 @@ def main() -> int:
                 check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
                       f"detection {tag}, {what}: {f} differs")
         check(int(kp.valid.sum()) > 50, f"detection {tag}: {int(kp.valid.sum())} keypoints")
+        # kernel A reads the threshold from device memory: as a 0-dim tensor
+        # (the batched scan's carry) it gives the float's keypoints, also at
+        # the threshold one ADAPTIVE step lower
+        for t in (ecfg.fast_threshold, 0.7 * ecfg.fast_threshold):
+            t_dev = torch.full((), t, dtype=torch.float32, device=dev)
+            a = kernels.detect_keypoints_fused(levels, ecfg.num_features, ecfg.cell_size, t,
+                                               ecfg.min_response, ecfg.min_border)[0]
+            b = kernels.detect_keypoints_fused(levels, ecfg.num_features, ecfg.cell_size, t_dev,
+                                               ecfg.min_response, ecfg.min_border)[0]
+            for f in ("uv", "level", "score", "valid"):
+                check(torch.equal(getattr(a, f), getattr(b, f)),
+                      f"detection {tag}: {f} at a device threshold {t} differs from the float's")
         detect_err["n"] += 1
         detect_err["score"] = max(detect_err["score"],
                                   float((kp.score - whole.score).abs().max()))
@@ -475,7 +446,8 @@ def main() -> int:
                                      for f in ("uv", "level", "valid"))
         log(f"[kernels] detection {tag} {tuple(gray.shape)}, {len(cmax)} levels, "
             f"{cmax.shape[1]} cells: kernel A's maxima and arguments, kernel B's and the "
-            f"whole's uv, level, score, valid all equal; {int(kp.valid.sum())} keypoints, "
+            f"whole's uv, level, score, valid all equal, and equal with the threshold as a "
+            f"device tensor (t and 0.7 t); {int(kp.valid.sum())} keypoints, "
             f"levels used {sorted(set(kp.level[kp.valid].tolist()))}")
 
     for i in (0, 23, 40):
@@ -606,7 +578,7 @@ def main() -> int:
     # K4 on the first five frame pairs: their depth-patch covariances come
     # out slightly indefinite, where the Pallas kernel's Cholesky gave NaN
     icp = cfg.icp
-    k4_err = {"fused": 0.0, "loop": 0.0}
+    k4_err = {"fused": 0.0}
 
     def check_gicp(tag, args, atol=1e-5):
         """The whole gicp_refine in one launch against the plain loop and
@@ -614,30 +586,25 @@ def main() -> int:
         pose and the loop's final pose rtol 1e-4 / atol 1e-5 (ten rounds
         of f32 sums in another order, amplified by the problem's condition),
         the last round's gated count within 1 (the plain loop gates |r| < d,
-        the kernel |r|^2 < d^2, as the Pallas kernel) and cost rtol 1e-3.
-        The loop-alone kernel is held to the same plain loop."""
+        the kernel |r|^2 < d^2, as the Pallas kernel) and cost rtol 1e-3."""
         T0, q1, q2, C1, C2, inl = args
         (kT, kconv, knv), (kfin, kcost, kcnt) = kernels.gicp_refine_fused(
             *args, icp.max_iterations, icp.max_correspondence_dist, icp.min_matches)
         pfin, pcost, pcnt = kernels.gicp_refine_ref(*args, icp.max_iterations,
                                                     icp.max_correspondence_dist)
         pT, pconv, pnv = _finish_gicp(pfin, T0, q1, q2, inl, icp)
-        lfin, lcost, lcnt = kernels.gicp_refine_kernel(*args, icp.max_iterations,
-                                                       icp.max_correspondence_dist)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kT).all()), f"K4 non-finite on {tag}")
         check(bool(kconv) == bool(pconv) and int(knv) == int(pnv),
               f"K4 {tag}: converged {bool(kconv)} / {bool(pconv)}, valid {int(knv)} / {int(pnv)}")
         check(kconv.dtype == torch.bool and knv.dtype == torch.int32, "K4 output types")
         torch.testing.assert_close(kT, pT, rtol=1e-4, atol=atol)
-        for which, fin, cost, cnt in (("fused", kfin, kcost, kcnt), ("loop", lfin, lcost, lcnt)):
-            torch.testing.assert_close(fin, pfin, rtol=1e-4, atol=atol)
-            check(abs(float(cnt) - float(pcnt)) <= 1.0, f"K4 {which} count {cnt} vs {pcnt}")
-            torch.testing.assert_close(cost, pcost, rtol=1e-3, atol=1e-6)
-            k4_err[which] = max(k4_err[which], float((fin - pfin).abs().max()))
+        torch.testing.assert_close(kfin, pfin, rtol=1e-4, atol=atol)
+        check(abs(float(kcnt) - float(pcnt)) <= 1.0, f"K4 count {kcnt} vs {pcnt}")
+        torch.testing.assert_close(kcost, pcost, rtol=1e-3, atol=1e-6)
+        k4_err["fused"] = max(k4_err["fused"], float((kfin - pfin).abs().max()))
         log(f"[kernels] K4 {tag} N={q1.shape[0]} x{icp.max_iterations}: whole gicp_refine "
-            f"T max abs diff {float((kT - pT).abs().max()):.3g} (loop alone "
-            f"{float((lfin - pfin).abs().max()):.3g}), converged {bool(kconv)}, "
+            f"T max abs diff {float((kT - pT).abs().max()):.3g}, converged {bool(kconv)}, "
             f"{int(knv)} valid pairs, last round's count {float(kcnt)} vs {float(pcnt)}")
 
     gicp_pairs = []
@@ -654,7 +621,6 @@ def main() -> int:
         fa = fb
     k4_args = gicp_pairs[0]
     results["gicp_refine_fused"] = dict(max_abs_err=k4_err["fused"])
-    results["gicp_refine_kernel"] = dict(max_abs_err=k4_err["loop"])
     # fewer valid pairs than min_matches, and a non-finite final pose: both
     # fall back to T_init, in the kernel as in the plain gate
     few = k4_args[5] & (torch.cumsum(k4_args[5].to(torch.int32), 0) <= icp.min_matches - 1)
@@ -675,20 +641,6 @@ def main() -> int:
         log(f"[kernels] K4 {tag}: falls back to T_init like the plain gate "
             f"({int(knv)} valid pairs, final pose finite: {bool(torch.isfinite(kfin).all())})")
 
-    # where a round's cycles went in the loop-alone kernel (256 threads,
-    # shared-memory tree, indexed solve): one stamped run, thread 0's clock64()
-    clocks = torch.zeros((4,), dtype=torch.int64, device=dev)
-    kernels.gicp_refine_kernel(*k4_args, icp.max_iterations, icp.max_correspondence_dist,
-                               clocks=clocks)
-    torch.cuda.synchronize()
-    mhz = sm_clock_mhz()
-    c = clocks.tolist()
-    per = [x / icp.max_iterations for x in c[:3]]
-    log(f"[kernels] K4 cycles of the loop alone: per round accumulate {per[0]:.0f}, reduce "
-        f"{per[1]:.0f}, solve and compose {per[2]:.0f}; whole kernel {c[3]} cycles = "
-        f"{c[3] / mhz:.2f} us at the {mhz:.0f} MHz nvidia-smi reads after the run "
-        f"(rounds {sum(c[:3]) / mhz:.2f} us, the rest is barriers) ({smi})")
-    off_path["gicp_refine_kernel"] = kernels.LAUNCHES["gicp_refine_kernel"]
     off_path["mahal_hypothesis_scores"] = kernels.LAUNCHES["mahal_hypothesis_scores"]
     check(off_path["mahal_hypothesis_scores"] == 1, "K3's scorer alone: launches")
     # an all-invalid problem: every draw hits slot 0, the fits are the
@@ -831,7 +783,6 @@ def main() -> int:
               "mahal_hypothesis_scores": 0,
               "ransac_se3_fused": pairs * len(seeds),
               "gicp_refine_fused": pairs * len(seeds),
-              "gicp_refine_kernel": 0,
               "gicp_gn_normal_equations": 0}
     check(launches_sweep == expect, f"launch counts {launches_sweep} != {expect}")
 
@@ -877,10 +828,6 @@ def main() -> int:
         check_gicp(f"tour pair {i + 1}", (res.T21, q1, q2, tf[i].surf_cov,
                                           tf[i + 1].surf_cov[mk.idx2.long()], res.inliers))
     results["gicp_refine_fused"] = dict(max_abs_err=k4_err["fused"])
-    results["gicp_refine_kernel"] = dict(max_abs_err=k4_err["loop"])
-    n_loop_tour = kernels.LAUNCHES["gicp_refine_kernel"]    # 0 after the sweep's run
-    check(n_loop_tour == 5, f"the loop-alone K4 on the tour pairs: {n_loop_tour} launches")
-    off_path["gicp_refine_kernel"] += n_loop_tour
 
     def run_tour(seed, per_frame=None, finish=True, n=n_tour):
         system = SlamSystem(SYNTHETIC, slam_cfg, seed=seed, device=dev)
@@ -949,12 +896,11 @@ def main() -> int:
         "mahal_hypothesis_scores": 0,
         "ransac_se3_fused": E_all + KF_all + R_all,
         "gicp_refine_fused": E_all,
-        "gicp_refine_kernel": 0,
         "gicp_gn_normal_equations": 0}
     log(f"[slam] launches over the {len(slam_seeds)} runs {json.dumps(launches_tour)}; "
         f"formula with E={E_all}, KF={KF_all}, R={R_all}: the fused detection = frames x "
         f"seeds, K2 = gates = E + 2 KF + R, fused RANSAC = E + KF + R, the fused gicp_refine "
-        f"= E, the dense K1 = K3's scorer alone = the loop-alone K4 = K5 = 0 -> "
+        f"= E, the dense K1 = K3's scorer alone = K5 = 0 -> "
         f"{json.dumps(expect_tour)}; batched {json.dumps(batched_tour)}")
     check(launches_tour == expect_tour, f"launch counts {launches_tour} != {expect_tour}")
     check(batched_tour == {"hamming_match_2nn": KF_all + R_all, "match_gates": KF_all + R_all,
@@ -1008,6 +954,305 @@ def main() -> int:
     for kind, rec in kinds.items():
         log(f"[times] host-device synchronisations per {kind}: {sorted(rec['syncs'])} "
             f"(budget {sorted(rec['budget'])}) over {rec['frames']} frames")
+
+    # ---------------------------------------------------------------- 7
+    # The ring and the batched modes on the same tour, configuration and
+    # vocabulary. Each path is driven with the launch counts set to 0 just
+    # before it and read just after, the plain versions forbidden.
+    def counts(system):
+        """(estimates, keyframes, loop closures, relocalization verifications)."""
+        st = system.tracker.stats
+        return (st.estimates, system.store.count, system.loops_closed,
+                system.reloc_verifications)
+
+    def since(system, before):
+        return tuple(a - b for a, b in zip(counts(system), before))
+
+    def feed_ring(system, ts, gray, depth):
+        system.track_pipelined(ts, gray, depth)
+
+    def run_ring(seed, per_frame=feed_ring, finish=True):
+        """(system, ms per track_pipelined call, flush ms, finish ms)."""
+        system, ms, _ = run_tour(seed, per_frame=per_frame, finish=False)
+        t_f = time.perf_counter()
+        system.track_pipelined_flush()               # ends in a device read
+        flush_ms = 1000 * (time.perf_counter() - t_f)
+        t_f = time.perf_counter()
+        if finish:
+            system.finish()
+        return system, ms, flush_ms, 1000 * (time.perf_counter() - t_f)
+
+    def run_batch(seed, B, double=True, counted=None):
+        """(system, wall ms of the tour, finish ms): batches of B, batch i+1
+        dispatched before batch i is completed when `double`. With
+        `counted`, every dispatch and completion is run under the sync
+        debug mode and held to its budget."""
+        system = SlamSystem(SYNTHETIC, slam_cfg, seed=seed, device=dev)
+        system.load_vocabulary(voc)
+
+        def dispatch(batch):
+            if counted is None:
+                return system.track_batch_dispatch(*batch)
+            n, msg, h = sync_calls(lambda: system.track_batch_dispatch(*batch))
+            counted["dispatch"].append(n)
+            check(n == 0, f"a batch dispatch synchronised {n} times: {msg!r}")
+            return h
+
+        def complete(h):
+            if counted is None:
+                return system.track_batch_complete(h)
+            before = counts(system)
+            n, msg, _ = sync_calls(lambda: system.track_batch_complete(h))
+            _, dK, dL, dR = since(system, before)
+            budget = 1 + int(dK > 0) + dL + 2 * dR
+            counted["complete"].append((n, budget))
+            check(n == budget, f"a batch completion synchronised {n} times, budget {budget} "
+                  f"(keyframes {dK}, loops {dL}, relocalizations {dR}); first: {msg!r}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = None
+        for i in range(0, n_tour, B):
+            h = dispatch(tuple(zip(*tour_frames[i:i + B])))
+            if not double:
+                complete(h)
+                continue
+            if pending is not None:
+                complete(pending)
+            pending = h
+        if pending is not None:
+            complete(pending)                        # ends in a device read
+        wall_ms = 1000 * (time.perf_counter() - t0)
+        t_f = time.perf_counter()
+        system.finish()
+        return system, wall_ms, 1000 * (time.perf_counter() - t_f)
+
+    serial = {sd: system for sd, (system, _, _) in zip(slam_seeds, tours)}
+    serial_poses = {sd: system.camera_trajectory()[1] for sd, system in serial.items()}
+
+    def tour_gates(tag, system):
+        """ATE, keyframes, loops and the revisit of the start for one run;
+        the graph consistent, every frame on the trajectory."""
+        ts_c, poses_c = system.camera_trajectory()
+        rmse, info = ate_rmse(ts_c, poses_c, tour.timestamps, tour.poses_twc)
+        K, st = system.store.count, system.tracker.stats
+        revisit = system.graph.edges_spanning(10, K - 10)
+        check(poses_c.shape == (n_tour, 4, 4) and np.isfinite(poses_c).all(),
+              f"{tag}: bad poses")
+        check(system.graph.n_vertices == K, f"{tag}: {system.graph.n_vertices} vertices "
+              f"for {K} keyframes")
+        check(len(system.kf_backend_ms) == K, f"{tag}: {len(system.kf_backend_ms)} backend "
+              f"times for {K} keyframes")
+        check(len(revisit) >= 1, f"{tag} closed the revisit by no edge")
+        check(st.failures <= 0.15 * n_tour, f"{tag}: {st.failures} tracking failures")
+        return rmse, poses_c, revisit
+
+    # the ring: the serial gates
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with plain_versions_forbidden(kernels):
+        rings = [run_ring(sd) for sd in slam_seeds]
+    torch.cuda.synchronize()
+    launches_ring = dict(kernels.LAUNCHES)
+    batched_ring = dict(kernels.BATCHED_LAUNCHES)
+    ring_ates, E_all, KF_all, R_all = [], 0, 0, 0
+    for sd, (system, ms, flush_ms, finish_ms) in zip(slam_seeds, rings):
+        rmse, poses_c, revisit = tour_gates(f"ring seed {sd}", system)
+        ring_ates.append(rmse)
+        st = system.tracker.stats
+        gap = float(np.linalg.norm(poses_c[:, :3, 3] - serial_poses[sd][:, :3, 3], axis=-1).max())
+        log(f"[modes] ring seed {sd}, {n_tour} frames: ATE {rmse:.5f} m, keyframes "
+            f"{system.store.count}, loops closed {system.loops_closed}, graph "
+            f"{system.graph.n_vertices} / {system.graph.n_edges} edges, failures {st.failures}, "
+            f"estimates {st.estimates}, revisit {revisit}, largest position gap to the serial "
+            f"run {gap:.5f} m")
+        E_all += st.estimates
+        KF_all += system.store.count
+        R_all += system.reloc_verifications
+    n_loop_seeds = sum(system.loops_closed >= 1 for system, *_ in rings)
+    check(n_loop_seeds >= 2, f"ring: only {n_loop_seeds} of {len(slam_seeds)} seeds closed a "
+          "BoW loop")
+    check(float(np.median(ring_ates)) < 0.05,
+          f"ring: median tour ATE {float(np.median(ring_ates))} m >= 0.05 m")
+    expect_ring = dict(expect_tour, **{
+        "detect_keypoints_fused": n_tour * len(slam_seeds),
+        "hamming_match_2nn": E_all + 2 * KF_all + R_all,
+        "match_gates": E_all + 2 * KF_all + R_all,
+        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all})
+    log(f"[modes] ring: ATE median {float(np.median(ring_ates)):.5f} m; launches "
+        f"{json.dumps(launches_ring)}; the serial formula with E={E_all}, KF={KF_all}, "
+        f"R={R_all} -> {json.dumps(expect_ring)}; batched {json.dumps(batched_ring)}")
+    check(launches_ring == expect_ring, f"ring launch counts {launches_ring} != {expect_ring}")
+    check(batched_ring == {"hamming_match_2nn": KF_all + R_all, "match_gates": KF_all + R_all,
+                           "mahal_hypothesis_scores": 0, "ransac_se3_fused": KF_all + R_all},
+          f"ring batched launches {batched_ring}")
+
+    def device_rule_keyframes(system):
+        """The keyframes the batched scan's gate would pick on a run's
+        tracked poses: motion since the last keyframe D = Tcw_cur Twc_kf,
+        beyond min_translation or min_rotation. The serial (and ring) host
+        gate measures inverse(Tcw_cur) Tcw_kf instead, as the JAX package's
+        does: its translation adds the rotation since the keyframe times the
+        keyframe's distance from the world origin, so on this tour (up to
+        4.2 m out) it picks ~117 keyframes where the motion itself picks
+        ~84, in both packages. A batch is held to this count."""
+        kf_cfg = slam_cfg.keyframe
+        traj = system.tracker.trajectory
+        last, n = traj[0].Tcw, 1
+        for fr in traj[1:]:
+            D = fr.Tcw @ se3.inverse_np(last)
+            rn = np.arccos(np.clip(0.5 * (np.trace(D[:3, :3]) - 1.0), -1.0, 1.0))
+            if np.linalg.norm(D[:3, 3]) > kf_cfg.min_translation or rn > kf_cfg.min_rotation:
+                n, last = n + 1, fr.Tcw
+        return n
+
+    # double-buffered batches: B=8 for seeds 0-2, B=32 for seed 0, and B=8
+    # for seed 0 once more completed batch by batch
+    batch_runs = [(8, sd) for sd in slam_seeds] + [(32, 0)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with plain_versions_forbidden(kernels):
+        batches = [run_batch(sd, B) for B, sd in batch_runs]
+        seq_system, _, _ = run_batch(0, 8, double=False)
+    torch.cuda.synchronize()
+    launches_batch = dict(kernels.LAUNCHES)
+    batched_batch = dict(kernels.BATCHED_LAUNCHES)
+    batch_ates, E_all, KF_all, R_all = [], 0, 0, 0
+    for (B, sd), (system, wall_ms, finish_ms) in zip(batch_runs, batches):
+        rmse, poses_c, revisit = tour_gates(f"batch {B} seed {sd}", system)
+        batch_ates.append(rmse)
+        K, K_serial = system.store.count, serial[sd].store.count
+        K_rule = device_rule_keyframes(serial[sd])
+        check(abs(K - K_rule) <= 0.2 * K_rule + 1,
+              f"batch {B} seed {sd}: {K} keyframes, the scan's gate on the serial run's poses "
+              f"{K_rule}")
+        st = system.tracker.stats
+        gap = float(np.linalg.norm(poses_c[:, :3, 3] - serial_poses[sd][:, :3, 3], axis=-1).max())
+        log(f"[modes] batch {B} seed {sd}, {n_tour} frames: ATE {rmse:.5f} m, keyframes {K} "
+            f"(the scan's gate on the serial run's poses {K_rule}, the serial gate {K_serial}), "
+            f"loops closed {system.loops_closed}, graph "
+            f"{system.graph.n_vertices} / {system.graph.n_edges} edges, failures {st.failures}, "
+            f"relocalizations {st.relocalizations}, revisit {revisit}, largest position gap to "
+            f"the serial run {gap:.5f} m")
+        check(st.estimates == n_tour - 1, f"batch {B} seed {sd}: {st.estimates} estimates")
+        E_all += st.estimates
+        KF_all += K
+        R_all += system.reloc_verifications
+    check(float(np.median(batch_ates)) < 0.05,
+          f"batch: median tour ATE {float(np.median(batch_ates))} m >= 0.05 m")
+    p_db, p_seq = batches[0][0].camera_trajectory()[1], seq_system.camera_trajectory()[1]
+    d_seq = float(np.abs(p_db - p_seq).max())
+    log(f"[modes] batch 8 seed 0 completed batch by batch against double-buffered: poses max "
+        f"abs diff {d_seq:.3g}, keyframes {seq_system.store.count} / "
+        f"{batches[0][0].store.count}")
+    check(d_seq <= 1e-4 and seq_system.store.count == batches[0][0].store.count,
+          f"sequential and double-buffered batches differ by {d_seq}")
+    E_all += seq_system.tracker.stats.estimates
+    KF_all += seq_system.store.count
+    R_all += seq_system.reloc_verifications
+    n_runs = len(batch_runs) + 1
+    expect_batch = dict(expect_tour, **{
+        "detect_keypoints_fused": n_tour * n_runs,
+        "hamming_match_2nn": E_all + 2 * KF_all + R_all,
+        "match_gates": E_all + 2 * KF_all + R_all,
+        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all})
+    log(f"[modes] batch: ATE median {float(np.median(batch_ates)):.5f} m over "
+        f"{len(batch_runs)} runs; launches {json.dumps(launches_batch)}; formula with "
+        f"E={E_all} (frames - 1 per run, no retry), KF={KF_all}, R={R_all} -> "
+        f"{json.dumps(expect_batch)}; batched {json.dumps(batched_batch)}")
+    check(E_all == (n_tour - 1) * n_runs, f"batch: {E_all} estimates")
+    check(launches_batch == expect_batch,
+          f"batch launch counts {launches_batch} != {expect_batch}")
+    check(batched_batch == {"hamming_match_2nn": KF_all + R_all, "match_gates": KF_all + R_all,
+                            "mahal_hypothesis_scores": 0, "ransac_se3_fused": KF_all + R_all},
+          f"batch batched launches {batched_batch}")
+
+    # Host synchronisations by torch's sync debug mode, one more run of each
+    # mode (seed 1, which closes a loop). Ring budget: the first frame is the
+    # serial initialisation (keyframe 0's blob); then one read per frame (its
+    # row, with the blob of the keyframe the previous completion
+    # dispatched) once a frame is in the ring, one per retry, loop closure,
+    # two per relocalization; the flush reads the last row and the last
+    # keyframe's blob. Batch budget: none in a dispatch; a completion reads
+    # its rows (with keyframe 0's blob in the first), the blobs of the
+    # keyframes it dispatched, one per loop closure, two per relocalization.
+    ring_syncs = {}
+
+    def ring_counted(system, ts, gray, depth):
+        tr = system.tracker
+        init, had_row = tr.state is TrackerState.NOT_INITIALIZED, tr._pipe is not None
+        before = counts(system)
+        n, msg, _ = sync_calls(lambda: system.track_pipelined(ts, gray, depth))
+        dE, dK, dL, dR = since(system, before)
+        budget = dK if init else int(had_row) + (dE - 1) + dL + 2 * dR
+        kind = ("first frame" if init else "no row yet" if not had_row else
+                "relocalization" if dR else "loop closure" if dL else
+                "retry" if dE > 1 else "frame")
+        ring_syncs.setdefault(kind, []).append(n)
+        check(n == budget, f"ring {kind} at t={ts:.3f}: {n} synchronisations, budget "
+              f"{budget}; first: {msg!r}")
+
+    with plain_versions_forbidden(kernels):
+        ring_sys, _, _, _ = run_ring(1, per_frame=ring_counted, finish=False)
+    log(f"[modes] ring synchronisations per call by kind: "
+        f"{json.dumps({k: [min(v), max(v), len(v)] for k, v in ring_syncs.items()})} "
+        f"([least, most, calls])")
+    # the flush of a fresh ring run: its last row and the last keyframe's blob
+    with plain_versions_forbidden(kernels):
+        flush_sys, _, _ = run_tour(1, per_frame=feed_ring, finish=False, n=24)
+    before = counts(flush_sys)
+    n_flush, msg, _ = sync_calls(flush_sys.track_pipelined_flush)
+    dE, dK, dL, dR = since(flush_sys, before)
+    check(n_flush == 1 + dK + dE + dL + 2 * dR, f"ring flush: {n_flush} synchronisations "
+          f"(keyframes {dK}); first: {msg!r}")
+    batch_syncs = {"dispatch": [], "complete": []}
+    with plain_versions_forbidden(kernels):
+        run_batch(1, 8, counted=batch_syncs)
+    log(f"[modes] ring flush: {n_flush} synchronisations; batch 8 seed 1: dispatches "
+        f"{sorted(set(batch_syncs['dispatch']))} synchronisations each over "
+        f"{len(batch_syncs['dispatch'])}, completions (count, budget) "
+        f"{json.dumps(sorted(set(batch_syncs['complete'])))}")
+
+    # batched ADAPTIVE on the card (tests/test_extractor_cli.py's scenario):
+    # 9 frames from threshold 60, the threshold evolving on the device and
+    # read by kernel A from there; the dispatch never waits for the device
+    acfg = SlamConfig(extractor=ExtractorConfig(num_features=128, num_levels=2, cell_size=8,
+                                                fast_threshold=60.0, adapt_target_min=60,
+                                                adapt_target_max=120),
+                      adaptive=True)
+    orbit_small = SyntheticDataset(n_frames=48, cam=cam_small, trajectory="orbit", device=dev)
+    a_frames = tuple(zip(*[orbit_small.grab(i) for i in range(9)]))
+    a_tr = Tracker(cam_small, acfg, seed=0, device=dev)
+    with plain_versions_forbidden(kernels):
+        n_adisp, msg, a_h = sync_calls(lambda: a_tr.track_batch_dispatch(*a_frames))
+        a_tr.track_batch_complete(a_h)
+    a_thr = a_tr._extractor.threshold
+    log(f"[modes] batched ADAPTIVE, 9 frames 320x240 from threshold 60: threshold {a_thr:.4f} "
+        f"(th_min {a_tr._extractor.th_min}), {n_adisp} synchronisations in the dispatch")
+    check(n_adisp == 0, f"the ADAPTIVE batch dispatch synchronised {n_adisp} times: {msg!r}")
+    check(a_thr < 60.0 * 0.7 + 1e-6 and a_thr >= a_tr._extractor.th_min - 1e-6,
+          f"batched ADAPTIVE threshold {a_thr}")
+
+    # times of the four modes in this call, host clock (every run ends in a
+    # device read): the tracking step is the wall less the keyframe backend
+    # (its dispatch and completion halves; in the ring and batched modes the
+    # blob reads are shared with the rows and counted in the step)
+    def mode_times(tag, system, wall_ms, finish_ms):
+        kf_ms = np.array(system.kf_backend_ms)
+        loop_ms = np.array(system.loop_solve_ms)
+        log(f"[times] {tag}: {wall_ms / n_tour:.3f} ms/frame over {n_tour} frames; tracking "
+            f"step {(wall_ms - kf_ms.sum()) / n_tour:.3f} ms/frame; keyframe backend "
+            f"{kf_ms.mean():.3f} ms/keyframe x {len(kf_ms)} "
+            f"({(kf_ms.sum() - loop_ms.sum()) / n_tour:.3f} ms/frame without the solves); "
+            f"loop-closure solves {json.dumps([round(float(x), 1) for x in loop_ms])} ms; "
+            f"final optimization {finish_ms:.1f} ms ({smi})")
+
+    for sd, (system, ms, finish_ms) in zip(slam_seeds, tours):
+        mode_times(f"serial seed {sd}", system, ms.sum(), finish_ms)
+    for sd, (system, ms, flush_ms, finish_ms) in zip(slam_seeds, rings):
+        mode_times(f"ring seed {sd}", system, ms.sum() + flush_ms, finish_ms)
+    for (B, sd), (system, wall_ms, finish_ms) in zip(batch_runs, batches):
+        mode_times(f"batch {B} seed {sd}", system, wall_ms, finish_ms)
 
     # ---------------------------------------------------------------- 5
     odo = odos[0]
@@ -1081,36 +1326,6 @@ def main() -> int:
             f"CUDA events {json.dumps(times[-1]['event'])}; host clock "
             f"{json.dumps(times[-1]['host'])} ({smi})")
 
-    # Before, on the same card: the stage loop and one tour on the paths the
-    # fused detection and the fused gicp_refine replaced (the tensor-code
-    # detection around the dense K1, the loop-alone K4 and the tensor-code
-    # gate). Its detection runs a dozen ops more than the code it stands for
-    # (two stacks and the casts between the plain version's halves).
-    kernels.reset_launch_counts()
-    with before_paths(kernels):
-        b_wall, b_ev, b_host = stage_loop(gicp_refine_before(kernels))
-        b_sys, b_ms, _ = run_tour(1, finish=False)
-    torch.cuda.synchronize()
-    b_E = b_sys.tracker.stats.estimates
-    check(kernels.LAUNCHES["detect_keypoints_fused"] == 0
-          and kernels.LAUNCHES["gicp_refine_fused"] == 0,
-          "the before run reached a fused kernel")
-    check(kernels.LAUNCHES["detect_score_map"]
-          == cfg.extractor.num_levels * (n_frames + n_tour)
-          and kernels.LAUNCHES["gicp_refine_kernel"] == (n_frames - 1) + b_E,
-          f"the before run's launches {kernels.LAUNCHES}")
-    log(f"[times] before (tensor-code detection around the dense K1, loop-alone K4 + "
-        f"tensor-code gate): stage loop {b_wall:.3f} ms/frame "
-        f"host clock, medians over {len(b_ev['step'])} frames, CUDA events "
-        f"{json.dumps({k: med(v) for k, v in b_ev.items()})}; host clock "
-        f"{json.dumps({k: med(v) for k, v in b_host.items()})} ({smi})")
-    b_kf = np.array(b_sys.kf_backend_ms)
-    log(f"[times] before (the same): tour seed 1: {b_ms.mean():.3f} "
-        f"ms/frame over {n_tour} frames (median {np.median(b_ms):.3f}); tracking step "
-        f"{(b_ms.sum() - b_kf.sum()) / n_tour:.3f} ms/frame; keyframe backend "
-        f"{b_kf.mean():.3f} ms/keyframe x {len(b_kf)}, loop-closure solves included "
-        f"({json.dumps([round(float(x), 1) for x in b_sys.loop_solve_ms])} ms) ({smi})")
-
     # device launches of one call, by the profiler: 2 per detect_keypoints
     # (kernels A and B), 1 per gicp_refine, at most 4 per ransac_se3 (the
     # uniform draws, kernel A, kernel B), at most 2 per match_descriptors (the
@@ -1119,13 +1334,6 @@ def main() -> int:
     det_args = (ecfg.num_features, ecfg.cell_size, ecfg.fast_threshold, ecfg.min_response,
                 ecfg.min_border)
     k4_call = dict(C1=k4_args[3], C2=k4_args[4])
-    with before_paths(kernels):
-        n_before = {
-            "detect_keypoints": device_launches(lambda: fast.detect_keypoints(pyr, *det_args)),
-            "gicp_refine": device_launches(lambda: gicp_refine_before(kernels)(
-                k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)),
-            "build_frame_features": device_launches(
-                lambda: odo.features(frames[0][1], frames[0][2]))}
     n_launch = {
         "detect_keypoints": device_launches(lambda: fast.detect_keypoints(pyr, *det_args)),
         "gicp_refine": device_launches(lambda: gicp_refine(
@@ -1141,8 +1349,7 @@ def main() -> int:
         "match_descriptors batch 13": device_launches(
             lambda: match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)),
     }
-    log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}; "
-        f"before: {json.dumps(n_before)}")
+    log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}")
     check(n_launch["detect_keypoints"] == 2, "detect_keypoints: not 2 device launches")
     check(n_launch["gicp_refine"] == 1, "gicp_refine: not 1 device launch")
     for k, v in n_launch.items():
@@ -1172,18 +1379,27 @@ def main() -> int:
     profile_busy(lambda: [prof_system.track(*f) for f in tour_frames[32:48]],
                  f"16 tour frames of SlamSystem ({prof_system.store.count} keyframes "
                  f"before)", smi)
+    # the same frames through the ring and through two batches of 8
+    prof_ring, _, _ = run_tour(1, per_frame=feed_ring, finish=False, n=32)
+    profile_busy(lambda: [prof_ring.track_pipelined(*f) for f in tour_frames[32:48]],
+                 f"16 tour frames of the ring ({prof_ring.store.count} keyframes before)",
+                 smi)
+    prof_batch = SlamSystem(SYNTHETIC, slam_cfg, seed=1, device=dev)
+    prof_batch.load_vocabulary(voc)
+    for i in range(0, 32, 8):
+        prof_batch.track_batch(*zip(*tour_frames[i:i + 8]))
+    profile_busy(lambda: [prof_batch.track_batch(*zip(*tour_frames[i:i + 8]))
+                          for i in (32, 40)],
+                 f"16 tour frames in batches of 8 ({prof_batch.store.count} keyframes "
+                 f"before)", smi)
 
-    # device microseconds per launch of the whole detection and the whole
-    # gicp_refine, beside the kernels they replace, by the profiler on
-    # isolated calls
+    # device microseconds per launch of the whole detection, the whole
+    # gicp_refine and the dense K1, by the profiler on isolated calls
     def k4_whole():
         gicp_refine(k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)
 
-    def k4_loop_alone():
-        kernels.gicp_refine_kernel(*k4_args, icp.max_iterations, icp.max_correspondence_dist)
-
     dev_us = {}
-    for fn in (lambda: fast.detect_keypoints(pyr, *det_args), k4_whole, k4_loop_alone,
+    for fn in (lambda: fast.detect_keypoints(pyr, *det_args), k4_whole,
                lambda: [fast.masked_score_map(lvl, thr) for lvl in pyr]):
         dev_us.update(device_us_per_launch(fn))
     log(f"[times] device microseconds per launch, isolated calls: {json.dumps(dev_us)} "
@@ -1205,10 +1421,6 @@ def main() -> int:
         "mahal_hypothesis_scores": paired_ms(
             lambda: kernels.mahal_hypothesis_scores(T_h, p1, p2, s1, s2, valid, th),
             lambda: kernels.mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th)),
-        "gicp_refine_kernel": paired_ms(
-            k4_loop_alone,
-            lambda: kernels.gicp_refine_ref(*k4_args, icp.max_iterations,
-                                            icp.max_correspondence_dist)),
     }
 
     def k4_plain():
@@ -1221,12 +1433,6 @@ def main() -> int:
         lambda: fast.detect_keypoints(pyr, *det_args),
         lambda: fast.detect_keypoints_ref(pyr, *det_args))
     timing["gicp_refine_fused"] = paired_ms(k4_whole, k4_plain)
-    with before_paths(kernels):
-        before_ms = {"detect_keypoints": cuda_ms(lambda: fast.detect_keypoints(pyr, *det_args)),
-                     "gicp_refine": cuda_ms(lambda: gicp_refine_before(kernels)(
-                         k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call))}
-    log(f"[times] before, back to back: detect_keypoints {before_ms['detect_keypoints']:.4f} "
-        f"ms, gicp_refine {before_ms['gicp_refine']:.4f} ms ({smi})")
     timing["gicp_gn_normal_equations"] = paired_ms(
         lambda: kernels.gicp_gn_normal_equations(*k4_args, icp.max_correspondence_dist),
         lambda: kernels.gicp_gn_normal_equations_ref(*k4_args, icp.max_correspondence_dist))
@@ -1300,7 +1506,6 @@ def main() -> int:
             n_px * 170 + n_det_cells * (n_det_cells + 4 * len(pyr))),
         # ~300 float operations per correspondence and round, ~20 for the gate
         "gicp_refine_fused": bound(gicp_bytes + 64 + 5, N * (300 * icp.max_iterations + 20)),
-        "gicp_refine_kernel": bound(gicp_bytes + 72, N * 300 * icp.max_iterations),
         "gicp_gn_normal_equations": bound(gicp_bytes + 116, N * 300),
     }
     for k, (kms, pms) in timing.items():
@@ -1310,21 +1515,25 @@ def main() -> int:
         "RANSAC are held by their dependent block reductions (10, 1 and 2 + 4 x "
         f"{rc.refine_iters}) and serial solves and Horn fits, not by throughput")
 
-    # launches per entry: (sweep, tour), each path driven with the counts
-    # set to 0 just before it and read just after; an unbatched entry counts
-    # its wrapper's unbatched launches, the _b13 entry its batched ones.
-    # `off_path` holds the launches through a public entry that no main path
-    # reaches, counted in phases 3 and 6: the dense K1
-    # (fast.masked_score_map), K3's scorer alone (mahal_hypothesis_scores),
-    # the loop-alone K4 (gicp_refine_kernel) and K5
+    # launches per entry and main path (the sweep's pipeline, the tour
+    # through the serial, ring and batched modes), each path driven with the
+    # counts set to 0 just before it and read just after; an unbatched entry
+    # counts its wrapper's unbatched launches, the _b13 entry its batched
+    # ones. `off_path` holds the launches through a public entry that no main
+    # path reaches, counted in phase 3: the dense K1 (fast.masked_score_map),
+    # K3's scorer alone (mahal_hypothesis_scores) and K5
     # (icp.gicp_normal_equations). They are printed apart as
     # `launches_off_path`; an entry named here must show none on a main path,
     # every other entry must show some there.
+    paths = {"sweep": (launches_sweep, {}), "tour": (launches_tour, batched_tour),
+             "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch)}
+
     def path_launches(wrapper, b13):
-        n_batched = batched_tour.get(wrapper, 0)       # K1, K4, K5 take no batch
-        if b13:
-            return 0, n_batched
-        return launches_sweep[wrapper], launches_tour[wrapper] - n_batched
+        out = {}
+        for path, (counts, batched) in paths.items():
+            n_batched = batched.get(wrapper, 0)      # K1, K4, K5 take no batch
+            out[path] = n_batched if b13 else counts[wrapper] - n_batched
+        return out
 
     check(detect_err["n"] == 10, f"the detection was held on {detect_err['n']} images")
     log(f"[kernels] the whole detection against the plain version on {detect_err['n']} "
@@ -1336,35 +1545,34 @@ def main() -> int:
     pallas = "rgbdslam_tpu/ops/pallas_kernels.py"
     # name: (source, TPU kernel, the wrapper whose count it reads)
     meta = {
-        "detect_score_map": ("detect.cu", f"{pallas}:319", "detect_score_map"),
-        "detect_keypoints_fused": ("detect.cu", f"{pallas}:319", "detect_keypoints_fused"),
-        "hamming_match_2nn": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
-        "hamming_match_2nn_b13": ("hamming.cu", f"{pallas}:86", "hamming_match_2nn"),
-        "match_gated": ("hamming.cu", f"{pallas}:86", "match_gates"),
-        "match_gated_b13": ("hamming.cu", f"{pallas}:86", "match_gates"),
-        "mahal_hypothesis_scores": ("mahal.cu", f"{pallas}:479", "mahal_hypothesis_scores"),
-        "mahal_hypothesis_scores_b13": ("mahal.cu", f"{pallas}:479",
+        "detect_score_map": ("detect.cu", f"{pallas}:320", "detect_score_map"),
+        "detect_keypoints_fused": ("detect.cu", f"{pallas}:320", "detect_keypoints_fused"),
+        "hamming_match_2nn": ("hamming.cu", f"{pallas}:87", "hamming_match_2nn"),
+        "hamming_match_2nn_b13": ("hamming.cu", f"{pallas}:87", "hamming_match_2nn"),
+        "match_gated": ("hamming.cu", f"{pallas}:87", "match_gates"),
+        "match_gated_b13": ("hamming.cu", f"{pallas}:87", "match_gates"),
+        "mahal_hypothesis_scores": ("mahal.cu", f"{pallas}:480", "mahal_hypothesis_scores"),
+        "mahal_hypothesis_scores_b13": ("mahal.cu", f"{pallas}:480",
                                         "mahal_hypothesis_scores"),
-        "ransac_se3_fused": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
-        "ransac_se3_fused_b13": ("mahal.cu", f"{pallas}:479", "ransac_se3_fused"),
-        "gicp_refine_fused": ("gicp.cu", f"{pallas}:790", "gicp_refine_fused"),
-        "gicp_refine_kernel": ("gicp_loop.cu", f"{pallas}:790", "gicp_refine_kernel"),
-        "gicp_gn_normal_equations": ("gicp.cu", f"{pallas}:828", "gicp_gn_normal_equations"),
+        "ransac_se3_fused": ("mahal.cu", f"{pallas}:480", "ransac_se3_fused"),
+        "ransac_se3_fused_b13": ("mahal.cu", f"{pallas}:480", "ransac_se3_fused"),
+        "gicp_refine_fused": ("gicp.cu", f"{pallas}:791", "gicp_refine_fused"),
+        "gicp_gn_normal_equations": ("gicp.cu", f"{pallas}:829", "gicp_gn_normal_equations"),
     }
     line = {"kernels": []}
     for k, (src, replaces, wrapper) in meta.items():
-        n_sweep, n_tour_k = path_launches(wrapper, k.endswith("_b13"))
+        per_path = path_launches(wrapper, k.endswith("_b13"))
         line["kernels"].append(
             {"name": k, "route": "cuda", "source": f"rgbdslam_tpu_torch/csrc/{src}",
              "replaces": replaces,
-             "launches": n_sweep + n_tour_k + off_path.get(k, 0),
-             "launches_sweep": n_sweep, "launches_tour": n_tour_k,
+             "launches": sum(per_path.values()) + off_path.get(k, 0),
+             **{f"launches_{path}": n for path, n in per_path.items()},
              "launches_off_path": off_path.get(k, 0),
              "max_abs_err": results[k]["max_abs_err"],
              "ms": timing[k][0], "plain_ms": timing[k][1],
              "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None})
     for entry in line["kernels"]:
-        on_path = entry["launches_sweep"] + entry["launches_tour"]
+        on_path = sum(entry[f"launches_{path}"] for path in paths)
         if entry["name"] in off_path:
             check(on_path == 0 and entry["launches_off_path"] > 0,
                   f"{entry['name']}: {on_path} launches on a main path, "

@@ -12,12 +12,14 @@ On the CPU at a small size (slow at 640x480):
       --loop-interval 12 --device cpu --width 320 --height 240 \\
       --cell-size 8 --fast-threshold 15
 
-`--odometry-only` runs the bare tracker; `--pipelined B` the odometry-only
-pipeline, B frames per host round trip. Writes CameraTrajectory.txt and
-(except with --pipelined) KeyFrameTrajectory.txt in TUM format and prints
-one JSON line with the counts and, against the synthetic ground truth, the
-ATE. Other modes of the JAX CLI (--batch, --ring, BA, dense ICP, disk
-datasets, exports) raise "not yet ported".
+`--batch B` (B > 1) tracks B frames per host read, `--ring` through the
+depth-2 ring (one read per frame); without either, frame by frame.
+`--odometry-only` runs the bare tracker in any of these modes; `--pipelined
+B` the odometry-only pipeline, B frames per host round trip. Writes
+CameraTrajectory.txt and (except with --pipelined) KeyFrameTrajectory.txt in
+TUM format and prints one JSON line with the counts and, against the
+synthetic ground truth, the ATE. Other modes of the JAX CLI (BA, dense ICP,
+disk datasets, exports) raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -38,8 +40,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--odometry-only", action="store_true",
                    help="tracking only (no backend); --pipelined implies it")
     p.add_argument("--batch", type=int, default=1, metavar="B",
-                   help="batched full SLAM (not yet ported)")
-    p.add_argument("--ring", action="store_true", help="dispatch/fetch ring (not yet ported)")
+                   help="batched tracking: B frames per host read, the keyframe gate "
+                        "on the device")
+    p.add_argument("--ring", action="store_true",
+                   help="tracking through the depth-2 ring: one host read per frame, "
+                        "a keyframe's backend completing one frame late")
     p.add_argument("--pipelined", type=int, default=0, metavar="B",
                    help="odometry-only pipeline: B frames per host round trip")
     p.add_argument("--detector", default="svo_fast")
@@ -79,8 +84,6 @@ def _camera(args):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.batch > 1 or args.ring:
-        raise NotImplementedError("not yet ported: --batch / --ring full-SLAM modes")
     waiting = [f for f in ("dense_icp", "noise_robust", "local_ba", "global_ba",
                            "distributed", "save_map", "export_ply", "export_octomap",
                            "export_html", "plot", "native_loader", "live_export")
@@ -138,9 +141,22 @@ def main(argv=None) -> int:
                     print(f"vocabulary: {vocab}", file=sys.stderr)
             if vocab and vocab.lower() != "none":
                 system.load_vocabulary(vocab)
-        track = system.track if system is not None else tracker.track
-        for ts, gray, depth in frames:
-            track(ts, gray, depth)
+        if args.batch > 1:
+            chunk = []
+            for item in frames:
+                chunk.append(item)
+                if len(chunk) == args.batch:
+                    tracker.track_batch(*zip(*chunk))
+                    chunk = []
+            if chunk:
+                tracker.track_batch(*zip(*chunk))
+        elif args.ring:
+            for ts, gray, depth in frames:
+                tracker.track_pipelined(ts, gray, depth)
+            tracker.track_pipelined_flush()
+        else:
+            for ts, gray, depth in frames:
+                tracker.track(ts, gray, depth)
         if system is not None:
             system.finish()
         ts_c, poses_c = tracker.camera_trajectory()

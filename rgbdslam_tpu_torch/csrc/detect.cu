@@ -2,7 +2,7 @@
 // the whole keypoint detection: best corner per grid cell over all pyramid
 // levels, the response gate and the top-N cells, in two launches.
 //
-// Replaces: rgbdslam_tpu/ops/pallas_kernels.py detect_score_map (319-397),
+// Replaces: rgbdslam_tpu/ops/pallas_kernels.py detect_score_map (320-397),
 // body _detect_core (190-266), and the code XLA fused around it in
 // rgbdslam_tpu/ops/fast.py detect_keypoints (186-236): border gate, best
 // per cell, merge over levels, top-k.
@@ -23,7 +23,10 @@
 //    counterpart; the detection below does not use it);
 //  * detect_cells_kernel (kernel A), one launch over the tiles of every
 //    level: a flat block index is mapped to (level, tile) through a table of
-//    level pointers, sizes and first-block offsets passed by value. After
+//    level pointers, sizes and first-block offsets passed by value. The FAST
+//    threshold is a device scalar, read once per block (the TPU kernel's
+//    thr_ref): a threshold that the batched tracker evolves on the device
+//    costs no host read. After
 //    tile_scores it applies the border gate in level-0 coordinates and, for
 //    each cell_l x cell_l cell of the tile (cell_l = cell_size >> level; the
 //    32x16 tile must be a whole number of cells), finds the maximum and its
@@ -248,13 +251,18 @@ struct LevelTable {
 };
 
 __global__ void __launch_bounds__(TW * TH)
-detect_cells_kernel(LevelTable tab, float thr, int cell_size, int grid_rows, int grid_cols,
-                    int min_border, float* __restrict__ cell_max,
-                    int* __restrict__ cell_arg) {
+detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int cell_size,
+                    int grid_rows, int grid_cols, int min_border,
+                    float* __restrict__ cell_max, int* __restrict__ cell_arg) {
   __shared__ TileSmem s;
   __shared__ float s_out[TH][TW];     // gated masked scores of the tile
   __shared__ float s_rmax[TH][TW];    // [row][cell column]: best of the cell's row
   __shared__ int s_rarg[TH][TW];
+  __shared__ float s_thr;
+
+  if (threadIdx.x == 0 && threadIdx.y == 0) s_thr = *thr_ptr;
+  __syncthreads();
+  const float thr = s_thr;
 
   int lvl = 0;
   while (lvl + 1 < tab.n_levels && (int)blockIdx.x >= tab.first_block[lvl + 1]) ++lvl;
@@ -421,14 +429,15 @@ extern "C" int rgbd_detect_score_map(const void* img, int h, int w, float thr,
 }
 
 // The whole detection on one stream: kernel A over the tiles that cover the
-// cells of each level, then kernel B. imgs, hs, ws: host arrays of n_levels
+// cells of each level, then kernel B. thr: the FAST threshold, one float in
+// device memory. imgs, hs, ws: host arrays of n_levels
 // entries, level l of hs[l] x ws[l] pixels holding at least grid_rows x
 // grid_cols cells of (cell_size >> l)^2 pixels, each a divisor of the tile.
 // cell_max, cell_arg: (n_levels, grid_rows * grid_cols); uv (num_features, 2),
 // level, score, valid (num_features,).
 extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, const int* ws,
                                      int n_levels, int cell_size, int grid_rows,
-                                     int grid_cols, float thr, int min_border,
+                                     int grid_cols, const void* thr, int min_border,
                                      float min_response, int num_features,
                                      void* cell_max, void* cell_arg, void* uv, void* level,
                                      void* score, void* valid, void* stream) {
@@ -457,7 +466,7 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
     tab.h[l] = tab.w[l] = tab.tiles_x[l] = 0;
   }
   detect_cells_kernel<<<blocks, dim3(TW, TH), 0, st>>>(
-      tab, thr, cell_size, grid_rows, grid_cols, min_border, (float*)cell_max,
+      tab, (const float*)thr, cell_size, grid_rows, grid_cols, min_border, (float*)cell_max,
       (int*)cell_arg);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;

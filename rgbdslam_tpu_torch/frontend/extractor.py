@@ -56,12 +56,12 @@ class Extractor:
         self.th_max = cfg.adapt_th_max if th_max is None else th_max
         self.threshold = float(cfg.fast_threshold)
 
-    def build(self, gray: torch.Tensor, depth: torch.Tensor, threshold: float
-              ) -> FrameFeatures:
-        """Feature build at a given FAST threshold, on the tensors' device."""
+    def build(self, gray: torch.Tensor, depth: torch.Tensor, threshold) -> FrameFeatures:
+        """Feature build at a given FAST threshold (a float, or a 0-dim f32
+        tensor on the tensors' device), on the tensors' device."""
         return build_frame_features(self.cam, gray, depth, self.cfg,
                                     descriptor=self.VARIANTS[self.detector][2],
-                                    fast_threshold=float(threshold))
+                                    fast_threshold=threshold)
 
     def adapt(self, num_valid: int) -> None:
         """DetectorAdjuster::tooFew/tooMany (x0.7 / x1.3, clamped) threshold
@@ -72,6 +72,19 @@ class Extractor:
             self.threshold = max(self.threshold * 0.7, self.th_min)
         elif num_valid > self.target_max:
             self.threshold = min(self.threshold * 1.3, self.th_max)
+
+    def adapt_on_device(self, threshold: torch.Tensor, num_valid: torch.Tensor
+                        ) -> torch.Tensor:
+        """`adapt` as tensor code, for the batched tracker's scan: the next
+        threshold (0-dim f32) from a detection's keypoint count (0-dim f32),
+        both on the device and never read back. The rule runs in f32, as the
+        JAX scan runs it. Only the FAST gate takes a threshold."""
+        if not (self.adaptive and self.VARIANTS[self.detector][1]):
+            return threshold
+        lower = torch.clamp_min(threshold * 0.7, self.th_min)
+        higher = torch.clamp_max(threshold * 1.3, self.th_max)
+        return torch.where(num_valid < self.target_min, lower,
+                           torch.where(num_valid > self.target_max, higher, threshold))
 
     def __call__(self, gray: torch.Tensor, depth: torch.Tensor) -> FrameFeatures:
         f = self.build(gray, depth, self.threshold)

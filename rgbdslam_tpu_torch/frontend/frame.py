@@ -54,10 +54,11 @@ class FrameFeatures:
 def build_frame_features(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
                          cfg: ExtractorConfig = ExtractorConfig(),
                          descriptor: str = "brief",
-                         fast_threshold: float | None = None) -> FrameFeatures:
+                         fast_threshold=None) -> FrameFeatures:
     """gray [H, W] f32 (0..255), depth [H, W] f32 meters -> FrameFeatures,
     on the tensors' device. `fast_threshold` overrides cfg.fast_threshold
-    (the ADAPTIVE extractor's feedback)."""
+    (the ADAPTIVE extractor's feedback): a float, or a 0-dim f32 tensor on
+    the frames' device, which is never read back to the host."""
     if cfg.scale_factor != 2.0:
         raise NotImplementedError("the x1.2 ORB scale space is not yet ported "
                                   "(scale_factor must be 2.0)")

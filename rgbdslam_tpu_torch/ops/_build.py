@@ -43,9 +43,9 @@ SIGNATURES = {
     # img, h, w, thr, out, raw, stream
     "rgbd_detect_score_map": (_P, _I, _I, _F, _P, _P, _P),
     # imgs, hs, ws (host arrays), n_levels, cell_size, grid_rows, grid_cols,
-    # thr, min_border, min_response, num_features, cell_max, cell_arg, uv,
-    # level, score, valid, stream
-    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I,
+    # thr (device pointer), min_border, min_response, num_features, cell_max,
+    # cell_arg, uv, level, score, valid, stream
+    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _F, _I,
                               _P, _P, _P, _P, _P, _P, _P),
     # d1, d2, v1, v2, n, m, batch, batched1, batched2, best_idx, best_dist,
     # second_dist, col_best_row, stream
@@ -65,8 +65,6 @@ SIGNATURES = {
     # T, p1, p2, C1, C2, valid, n, iters, max_dist, max_dist2, min_matches,
     # out, stream
     "rgbd_gicp_refine_full": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P),
-    # T, p1, p2, C1, C2, valid, n, iters, max_dist2, out, clocks, stream
-    "rgbd_gicp_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     # T, p1, p2, C1, C2, valid, n, max_dist2, out, stream
     "rgbd_gicp_gn": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P),
 }

@@ -32,10 +32,11 @@ FAST_RING = np.array(
 )
 
 
-def fast_corner_mask(img: torch.Tensor, threshold: float, arc: int = 10) -> torch.Tensor:
+def fast_corner_mask(img: torch.Tensor, threshold, arc: int = 10) -> torch.Tensor:
     """Dense FAST segment test: True where >= `arc` contiguous ring pixels
     are all brighter than center+t or all darker than center-t, on the
-    3-pixel interior (the ring reads wrap around outside it)."""
+    3-pixel interior (the ring reads wrap around outside it). `threshold`:
+    a float or a 0-dim f32 tensor on the image's device (the same bits)."""
     h, w = img.shape
     ring = torch.stack([torch.roll(img, shifts=(-int(dy), -int(dx)), dims=(0, 1))
                         for dx, dy in FAST_RING])             # (16, H, W)
@@ -110,7 +111,7 @@ def used_levels(num_levels: int, cell_size: int) -> int:
     return n
 
 
-def detect_cells_ref(pyramid: List[torch.Tensor], cell_size: int, fast_threshold: float,
+def detect_cells_ref(pyramid: List[torch.Tensor], cell_size: int, fast_threshold,
                      min_border: int):
     """First half of the plain detection: per level the masked score map
     (K1's plain version), the border gate in level-0 coordinates and the best
@@ -198,7 +199,7 @@ def detect_select_ref(cell_max: torch.Tensor, cell_arg: torch.Tensor, grid_cols:
 
 
 def detect_keypoints_ref(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
-                         fast_threshold: float, min_response: float,
+                         fast_threshold, min_response: float,
                          min_border: int) -> Keypoints:
     """Plain version of `detect_keypoints`: tensor code on whatever device
     the pyramid lies on, in the two halves that the two kernels of
@@ -212,7 +213,7 @@ def detect_keypoints(
     pyramid: List[torch.Tensor],
     num_features: int,
     cell_size: int,
-    fast_threshold: float,
+    fast_threshold,
     min_response: float,
     min_border: int,
 ) -> Keypoints:
@@ -221,7 +222,9 @@ def detect_keypoints(
     `cell_size` cell across all levels, final response gate `min_response`,
     top `num_features` cells by score (ties: lower cell index first, as
     jax.lax.top_k). Two launches of csrc/detect.cu for a CUDA pyramid
-    (`kernels.detect_keypoints_fused`), the plain version for a CPU one."""
+    (`kernels.detect_keypoints_fused`), the plain version for a CPU one.
+    `fast_threshold` is a float or a 0-dim f32 tensor on the pyramid's
+    device; neither is read back to the host."""
     from rgbdslam_tpu_torch.ops import kernels
 
     if kernels.on_cuda(*pyramid):

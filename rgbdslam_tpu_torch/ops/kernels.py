@@ -4,15 +4,14 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
 |--------------------------|---------------------------------------|----------------------------|
-| detect.cu   (K1)         | detect_score_map, 319-397             | detect_score_map_ref       |
+| detect.cu   (K1)         | detect_score_map, 320-397             | detect_score_map_ref       |
 | detect.cu   (K1, whole detection) | the same, with the rest of detect_keypoints | ops.fast.detect_keypoints_ref |
-| hamming.cu  (K2)         | hamming_match_2nn, 86-150             | hamming_match_2nn_ref      |
+| hamming.cu  (K2)         | hamming_match_2nn, 87-150             | hamming_match_2nn_ref      |
 | hamming.cu  (K2's gates) | the gates XLA fused behind it         | match_gates_ref            |
-| mahal.cu    (K3)         | mahal_hypothesis_scores, 479-526      | mahal_hypothesis_scores_ref|
+| mahal.cu    (K3)         | mahal_hypothesis_scores, 480-526      | mahal_hypothesis_scores_ref|
 | mahal.cu    (K3, whole RANSAC) | the same, with the rest of ransac_se3 | solvers.ransac_se3.ransac_se3_ref |
-| gicp.cu     (K4, whole gicp_refine) | gicp_refine_kernel, 790-825, with gicp_refine's gate | gicp_refine_ref + solvers.icp._finish_gicp |
-| gicp_loop.cu (K4, the loop alone) | gicp_refine_kernel, 790-825 | gicp_refine_ref            |
-| gicp.cu     (K5)         | gicp_gn_normal_equations, 828-862     | gicp_gn_normal_equations_ref|
+| gicp.cu     (K4, whole gicp_refine) | gicp_refine_kernel, 791-825, with gicp_refine's gate | gicp_refine_ref + solvers.icp._finish_gicp |
+| gicp.cu     (K5)         | gicp_gn_normal_equations, 829-862     | gicp_gn_normal_equations_ref|
 
 The TPU kernels sat inside programs XLA fused around them; eager PyTorch
 launches every op, so on this card `detect_keypoints_fused` (the whole
@@ -23,8 +22,7 @@ detection, two launches), `match_gated` (2-NN and gates, two launches),
 direct counterparts of the TPU kernels K1 and K3 (`detect_score_map`,
 `mahal_hypothesis_scores`) and K5 are reached through their public entries
 (`fast.masked_score_map`, `mahal_hypothesis_scores`,
-`icp.gicp_normal_equations`) and lie on no main path; `gicp_refine_kernel`
-(the loop alone) is kept for a before/after on one card.
+`icp.gicp_normal_equations`) and lie on no main path.
 
 K2 and K3 take an optional leading batch dimension (the same launches
 whatever the batch): the keyframe backend verifies all its candidate
@@ -43,6 +41,7 @@ no plain version launches a kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -60,7 +59,6 @@ LAUNCHES = {
     "mahal_hypothesis_scores": 0,
     "ransac_se3_fused": 0,
     "gicp_refine_fused": 0,
-    "gicp_refine_kernel": 0,
     "gicp_gn_normal_equations": 0,
 }
 
@@ -155,8 +153,16 @@ _DETECT_MAX_LEVELS = 8
 _DETECT_MAX_CELLS = 46000
 
 
+@functools.lru_cache(maxsize=256)
+def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """`value` as a 0-dim f32 tensor on `device`, written there by a fill
+    kernel (no host wait) once per value: the FAST thresholds a run uses are
+    few, and a constant never rewritten is safe on any stream."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
-                           fast_threshold: float, min_response: float, min_border: int):
+                           fast_threshold, min_response: float, min_border: int):
     """The whole keypoint detection in two launches of csrc/detect.cu (see
     its header): kernel A finds the best corner of every grid cell on every
     pyramid level, kernel B merges the levels, gates by `min_response`, ranks
@@ -164,7 +170,9 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
 
     pyramid: the levels `build_pyramid` returns, (H >> l, W >> l) f32 CUDA
     each; levels whose cell (cell_size >> l) has no pixel are not read, as in
-    the plain version.
+    the plain version. fast_threshold: a float, or a 0-dim f32 tensor on the
+    pyramid's device (the batched tracker's device-evolved threshold); kernel
+    A reads it from device memory either way.
 
     Returns (`fast.Keypoints`, (cell_max (L, n_cells) f32, cell_arg (L,
     n_cells) int32)), what `fast.detect_select_ref` and `fast.detect_cells_ref`
@@ -195,6 +203,13 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
             raise ValueError(f"level {lvl}: {tuple(img.shape)} pixels do not hold "
                              f"{grid_rows}x{grid_cols} cells of {cell_l}x{cell_l}")
     dev = levels[0].device
+    if isinstance(fast_threshold, torch.Tensor):
+        _check(fast_threshold, "fast_threshold", torch.float32, ())
+        if fast_threshold.device != dev:
+            raise ValueError(f"fast_threshold on {fast_threshold.device}, pyramid on {dev}")
+        thr = fast_threshold
+    else:
+        thr = _device_scalar(float(fast_threshold), dev)
     cell_max = torch.empty((L, n_cells), dtype=torch.float32, device=dev)
     cell_arg = torch.empty((L, n_cells), dtype=torch.int32, device=dev)
     uv = torch.empty((num_features, 2), dtype=torch.float32, device=dev)
@@ -205,7 +220,7 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     hs = (ctypes.c_int * L)(*[img.shape[0] for img in levels])
     ws = (ctypes.c_int * L)(*[img.shape[1] for img in levels])
     _launch("rgbd_detect_keypoints", dev, imgs, hs, ws, L, int(cell_size), grid_rows,
-            grid_cols, float(fast_threshold), int(min_border), float(min_response),
+            grid_cols, _ptr(thr), int(min_border), float(min_response),
             int(num_features), _ptr(cell_max), _ptr(cell_arg),
             _ptr(uv), _ptr(level), _ptr(score), _ptr(valid))
     LAUNCHES["detect_keypoints_fused"] += 1
@@ -485,32 +500,6 @@ def gicp_refine_fused(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     converged = out[35:36].view(torch.bool)[0]      # the low byte of a 0 / 1 word
     return ((out[:16].view(4, 4), converged, n_valid),
             (out[16:32].view(4, 4), out[32], out[33]))
-
-
-def gicp_refine_kernel(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
-                       C1: torch.Tensor, C2: torch.Tensor, valid: torch.Tensor,
-                       iters: int, max_dist: float,
-                       clocks: Optional[torch.Tensor] = None):
-    """The Gauss-Newton loop alone, cut as the TPU kernel was cut, in one
-    launch of csrc/gicp_loop.cu; the gate and the fallback are then
-    `solvers.icp._finish_gicp`. No main path calls it: it is the other side
-    of a before/after beside `gicp_refine_fused`. `clocks`, an int64 CUDA
-    tensor of 4, receives thread 0's cycles (accumulate, reduce, solve and
-    compose summed over the rounds, the whole kernel).
-
-    Returns (T (4, 4), cost (), count ()) where cost/count are the gated
-    plane-to-plane cost and correspondence count of the last round's build.
-    """
-    N = _check_gicp_inputs(T_init, p1, p2, C1, C2, valid)
-    if clocks is not None:
-        _check(clocks, "clocks", torch.int64, (4,))
-    out = torch.empty((18,), dtype=torch.float32, device=T_init.device)
-    _launch("rgbd_gicp_refine", T_init.device, _ptr(T_init), _ptr(p1), _ptr(p2),
-            _ptr(C1), _ptr(C2), _ptr(valid), N, int(iters),
-            float(max_dist) * float(max_dist), _ptr(out),
-            None if clocks is None else _ptr(clocks))
-    LAUNCHES["gicp_refine_kernel"] += 1
-    return out[:16].view(4, 4), out[16], out[17]
 
 
 def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):

@@ -1,5 +1,5 @@
 """Full SLAM system: tracking + pose-graph backend + loop closure (port of
-rgbdslam_tpu/slam/system.py, the serial path).
+rgbdslam_tpu/slam/system.py).
 
 The reference's 3-thread runtime (its PoseGraph thread polls a queue,
 Solver/PoseGraph.cpp:59-103) is a synchronous backend step invoked per
@@ -25,9 +25,13 @@ batched pass over all C + L candidates (kernels K2 and K3 take the
 candidate on a grid axis), never a loop over candidates. The device bank is
 updated in place.
 
+The step is split in two (`_kf_dispatch` enqueues, `_kf_complete` does the
+host bookkeeping from the blob), so the tracker's ring and batched modes can
+read a keyframe's blob together with other results: with the frame's row in
+the ring, stacked with the batch's other keyframes in batched mode.
+
 Not yet ported (each raises): local and global bundle adjustment, the
-distributed backend, dense ICP, live export, the batched and ring tracking
-modes.
+distributed backend, dense ICP, live export.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from rgbdslam_tpu_torch.loop.bow import bow_scores, bow_vector
 from rgbdslam_tpu_torch.loop.detector import LoopDetector
 from rgbdslam_tpu_torch.mapping.keyframes import KeyframeStore
 from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
-from rgbdslam_tpu_torch.slam.tracking import Tracker, _not_ported
+from rgbdslam_tpu_torch.slam.tracking import Tracker
 from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraph
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
 
@@ -171,6 +175,15 @@ def kf_core(bank, f: FrameFeatures, meta: torch.Tensor, words, idf, cam: Camera,
                       top_j.to(torch.float32), loop_valid.to(torch.float32)])
 
 
+def kf_core_batched(bank, feats, batch_row: int, meta: torch.Tensor, words, idf,
+                    cam: Camera, cfg: SlamConfig, bow_on: bool,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """`kf_core` on frame `batch_row` of a batch's features (JAX
+    `_kf_core_batched`, system.py:214-222). The batched tracker keeps a
+    batch's features as a list, so taking the row costs no launch."""
+    return kf_core(bank, feats[batch_row], meta, words, idf, cam, cfg, bow_on, generator)
+
+
 class SlamSystem:
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  device="cuda"):
@@ -213,6 +226,10 @@ class SlamSystem:
         # in the slim blob: hydrated from the device bank on demand
         self._lazy_rows = set()
         self.tracker.on_keyframe = self._on_keyframe
+        # ring and batched tracking: enqueue a keyframe's device work at
+        # once, complete it after a read shared with other results
+        self.tracker.on_keyframe_dispatch = self._kf_dispatch
+        self.tracker.on_keyframe_complete = self._kf_complete
         if cfg.use_relocalization:
             self.tracker.relocalize_fn = self._relocalize
 
@@ -231,15 +248,33 @@ class SlamSystem:
         if value is not None:
             raise NotImplementedError("live_export is not yet ported")
 
-    track_batch = _not_ported("track_batch")
-    track_batch_dispatch = _not_ported("track_batch_dispatch")
-    track_batch_complete = _not_ported("track_batch_complete")
-    track_pipelined = _not_ported("track_pipelined")
-    track_pipelined_flush = _not_ported("track_pipelined_flush")
-
     # ------------------------------------------------------------------
     def track(self, timestamp: float, gray, depth) -> np.ndarray:
         return self.tracker.track(timestamp, gray, depth)
+
+    def track_batch(self, timestamps, grays, depths) -> np.ndarray:
+        """B frames enqueued back to back, the keyframe gate on the device,
+        one read of their rows; the backend runs per flagged keyframe.
+        Returns Tcw (B, 4, 4)."""
+        return self.tracker.track_batch(timestamps, grays, depths)
+
+    def track_batch_dispatch(self, timestamps, grays, depths) -> dict:
+        """Double buffering: dispatch batch i+1 before completing batch i,
+        so the host's bookkeeping of one batch overlaps the device's work on
+        the next."""
+        return self.tracker.track_batch_dispatch(timestamps, grays, depths)
+
+    def track_batch_complete(self, h: dict) -> np.ndarray:
+        return self.tracker.track_batch_complete(h)
+
+    def track_pipelined(self, timestamp: float, gray, depth):
+        """Per-frame tracking through the depth-2 ring: one read per frame,
+        a keyframe's backend completing one frame late. Returns the previous
+        frame's (ts, Tcw), or None."""
+        return self.tracker.track_pipelined(timestamp, gray, depth)
+
+    def track_pipelined_flush(self):
+        return self.tracker.track_pipelined_flush()
 
     def _ensure_bank(self, n_feat: int):
         if self._bank is None:
@@ -334,15 +369,23 @@ class SlamSystem:
         """Backend step per keyframe: one upload, the device work, one copy
         of the blob back; everything after is host numpy and the (rare)
         loop-closure solve."""
-        t0 = time.perf_counter()
         h = self._kf_dispatch(k, timestamp, f, Tcw)
-        self._kf_complete(h, h["blob"].cpu().numpy())
-        self.kf_backend_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        blob = h["blob"].cpu().numpy()
+        h["ms"] += (time.perf_counter() - t0) * 1e3
+        self._kf_complete(h, blob)
 
-    def _kf_dispatch(self, k: int, timestamp: float, f: FrameFeatures,
-                     Tcw: np.ndarray) -> dict:
-        """Register the keyframe's pose, compute the proximity candidates
-        on the host, and enqueue the device work. No copy back."""
+    def _kf_dispatch(self, k: int, timestamp: float, f: Optional[FrameFeatures],
+                     Tcw: np.ndarray, feats_batch=None, batch_row: int = 0) -> dict:
+        """Register the keyframe's pose (so that a later keyframe of the same
+        batch sees it in its radius search and edge checks), compute the
+        proximity candidates on the host, and enqueue the device work. No
+        copy back. `feats_batch` / `batch_row`: the keyframe is frame
+        `batch_row` of a batch's features (`kf_core_batched`), and `f` may be
+        None."""
+        t0 = time.perf_counter()
+        if feats_batch is not None:
+            f = feats_batch[batch_row]
         pg_cfg = self.cfg.pose_graph
         N = f.uv.shape[0]
         self._ensure_bank(N)
@@ -387,15 +430,23 @@ class SlamSystem:
         meta[3 + C:] = T21_prev.astype(np.float32).ravel()
 
         words, idf = self._bow_dev if bow_on else (None, None)
-        blob = kf_core(self._bank, f, upload(meta, self.device), words, idf, self.cam,
-                       self.cfg, bow_on, self.generator)
+        meta_dev = upload(meta, self.device)
+        if feats_batch is not None:
+            blob = kf_core_batched(self._bank, feats_batch, batch_row, meta_dev, words, idf,
+                                   self.cam, self.cfg, bow_on, self.generator)
+        else:
+            blob = kf_core(self._bank, f, meta_dev, words, idf, self.cam, self.cfg, bow_on,
+                           self.generator)
         return {"k": k, "ts": timestamp, "f": f, "Tcw": Tcw, "cands": cands,
-                "connections": connections, "bow_on": bow_on, "N": N, "blob": blob}
+                "connections": connections, "bow_on": bow_on, "N": N, "blob": blob,
+                "ms": (time.perf_counter() - t0) * 1e3}
 
     def _kf_complete(self, h: dict, blob: np.ndarray):
         """Host bookkeeping from the fetched blob: store rows, proximity
         edges, BoW registration, landmark tracks, loop detection and the
-        (rare) solve."""
+        (rare) solve. Appends the keyframe's backend time, this half and the
+        dispatch half summed, to `kf_backend_ms`."""
+        t0 = time.perf_counter()
         k, Tcw, cands = h["k"], h["Tcw"], h["cands"]
         connections, bow_on, N = h["connections"], h["bow_on"], h["N"]
         nd = 8
@@ -470,6 +521,7 @@ class SlamSystem:
         if (bow_on and self.kfs_since_loop >= self.cfg.loop.min_kfs_since_loop
                 and self._close_loop_from_rows(k, loop_j, loop_valid, ver[C:])):
             self.kfs_since_loop = 0
+        self.kf_backend_ms.append(h["ms"] + (time.perf_counter() - t0) * 1e3)
 
     def _close_loop_from_rows(self, k: int, loop_j, loop_valid, rows: np.ndarray) -> bool:
         """Host half of detectLoop: apply the inlier and match thresholds

@@ -104,8 +104,7 @@ def test_gicp_refine_matches_jax_and_falls_back():
                                       C1=jnp.asarray(C1), C2=jnp.asarray(C2))
         kernels.reset_launch_counts()
         Tt, ct, nt = ticp.gicp_refine(*_t(p1, p2, v, T0), IcpConfig(), *_t(C1, C2))
-        assert kernels.LAUNCHES["gicp_refine_kernel"] == 0   # CPU: plain loop
-        assert kernels.LAUNCHES["gicp_refine_fused"] == 0
+        assert kernels.LAUNCHES["gicp_refine_fused"] == 0    # CPU: plain loop
         assert bool(ct) == bool(cj)
         assert int(nt) == int(nj)
         np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-4, atol=1e-5)
@@ -184,8 +183,7 @@ def test_gicp_refine_matches_xla_on_indefinite_rendered_covariances(rendered_pai
                                   JIcpConfig(), C1=jnp.asarray(C1), C2=jnp.asarray(C2))
     kernels.reset_launch_counts()
     Tt, ct, nt = ticp.gicp_refine(*_t(p1, p2, inl, T0), IcpConfig(), *_t(C1, C2))
-    assert kernels.LAUNCHES["gicp_refine_kernel"] == 0       # CPU: plain loop
-    assert kernels.LAUNCHES["gicp_refine_fused"] == 0
+    assert kernels.LAUNCHES["gicp_refine_fused"] == 0        # CPU: plain loop
     assert bool(cx) and bool(ct)
     assert int(nt) == int(nx)
     assert np.isfinite(Tt.numpy()).all()
@@ -368,7 +366,5 @@ def test_fused_gicp_wrapper_checks():
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gicp_refine_fused(*args, 10, 0.07, 20)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.gicp_refine_kernel(*args, 10, 0.07)
     assert kernels.LAUNCHES["gicp_refine_fused"] == 0
     assert kernels._GICP_MAX_POINTS * 76 + 76 + 2032 <= 232448   # planes + static shared

@@ -76,16 +76,13 @@ def test_mahal_kernel_matches_plain(dev, kernels):
     assert int(kc.sum()) == 0 and float(ke.sum()) == 0.0
 
 
-def _k4_loop(kernels, which, args, iters, md):
-    """(T, cost, count) of the Gauss-Newton loop by the fused kernel (its
-    second result) or by the loop-alone kernel."""
-    if which == "fused":
-        return kernels.gicp_refine_fused(*args, iters, md, 20)[1]
-    return kernels.gicp_refine_kernel(*args, iters, md)
+def _k4_loop(kernels, args, iters, md):
+    """(T, cost, count) of the Gauss-Newton loop: the fused kernel's second
+    result."""
+    return kernels.gicp_refine_fused(*args, iters, md, 20)[1]
 
 
-@pytest.mark.parametrize("which", ["fused", "loop"])
-def test_gicp_kernel_matches_plain(dev, kernels, which):
+def test_gicp_kernel_matches_plain(dev, kernels):
     from rgbdslam_tpu_torch.geometry import se3
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -99,14 +96,13 @@ def test_gicp_kernel_matches_plain(dev, kernels, which):
     C2 = C1.flip(0).contiguous()
     valid = torch.rand(N, generator=g, device=dev) > 0.2
     T0 = (se3.exp(0.02 * torch.randn(6, generator=g, device=dev)) @ T).contiguous()
-    kT, kc, kn = _k4_loop(kernels, which, (T0, p1, p2, C1, C2, valid), 10, 0.07)
+    kT, kc, kn = _k4_loop(kernels, (T0, p1, p2, C1, C2, valid), 10, 0.07)
     pT, pc, pn = kernels.gicp_refine_ref(T0, p1, p2, C1, C2, valid, 10, 0.07)
     torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
     assert abs(float(kn) - float(pn)) <= 1.0
 
 
-@pytest.mark.parametrize("which", ["fused", "loop"])
-def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels, which):
+def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels):
     """Main-path inputs of the 640x480 sweep. Their depth-patch covariances
     come out slightly indefinite (one-pass moments cancel in f32), on which
     the Pallas kernel's Cholesky returned NaN; the kernel must stay finite
@@ -128,7 +124,7 @@ def test_gicp_kernel_on_rendered_frame_pairs(dev, kernels, which):
         r = ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)
         C2 = f1.surf_cov[m.idx2.long()].contiguous()
         inl, T0 = r.inliers.contiguous(), r.T21.contiguous()
-        kT, _, kn = _k4_loop(kernels, which, (T0, p1, p2, f0.surf_cov, C2, inl), 10, 0.07)
+        kT, _, kn = _k4_loop(kernels, (T0, p1, p2, f0.surf_cov, C2, inl), 10, 0.07)
         pT, _, pn = kernels.gicp_refine_ref(T0, p1, p2, f0.surf_cov, C2, inl, 10, 0.07)
         assert torch.isfinite(kT).all()
         torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
@@ -165,7 +161,6 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
                                 "hamming_match_2nn": 23,
                                 "match_gates": 23, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": 23, "gicp_refine_fused": 23,
-                                "gicp_refine_kernel": 0,
                                 "gicp_gn_normal_equations": 0}
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.05
     assert st["failures"] == 0 and np.isfinite(poses).all()
@@ -327,7 +322,6 @@ def test_slam_system_on_card_uses_only_kernels(dev, kernels):
                                 "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
-                                "gicp_refine_kernel": 0,
                                 "gicp_gn_normal_equations": 0}
     assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R, "match_gates": KF + R,
                                         "mahal_hypothesis_scores": 0,
@@ -720,7 +714,6 @@ def test_gicp_refine_fused_gate_and_limits(dev, kernels, monkeypatch):
     kernels.reset_launch_counts()
     T, conv, nv = icp.gicp_refine(p1, p2, valid, T0, IcpConfig(), C1=C1, C2=C2)
     assert kernels.LAUNCHES["gicp_refine_fused"] == 1
-    assert kernels.LAUNCHES["gicp_refine_kernel"] == 0
     assert bool(conv) and int(nv) == int(valid.sum()) and bool(torch.isfinite(T).all())
     with pytest.raises(ValueError):
         icp.gicp_refine(p1.cpu(), p2, valid, T0, IcpConfig(), C1=C1, C2=C2)
@@ -750,3 +743,177 @@ def test_gicp_refine_fused_on_rendered_frame_pairs(dev, kernels):
         (pT, pconv, pnv), _ = _finish_plain(kernels, args, 10, 0.07, 20)
         assert bool(kconv) and bool(pconv) and int(knv) == int(pnv)
         torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the batched and ring modes: K1's device threshold, host synchronisations
+# ---------------------------------------------------------------------------
+
+
+def _sync_calls(fn):
+    """(synchronising calls torch reports while fn() runs, fn's result)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower() for w in caught), out
+
+
+@pytest.mark.parametrize("kind", ["integer", "rendered"])
+@pytest.mark.parametrize("shape,levels,cell,thr,border", _DETECT_CASES)
+def test_detect_fused_tensor_threshold_matches_float(dev, kernels, kind, shape, levels, cell,
+                                                     thr, border):
+    """Kernel A reads the FAST threshold from device memory: a 0-dim f32
+    tensor gives the keypoints of the same threshold passed as a float, bit
+    for bit (also at a threshold the ADAPTIVE rule reaches, x0.7), and
+    neither call waits for the device."""
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    h, w = shape
+    g = torch.Generator(device=dev).manual_seed(h + 7)
+    if kind == "rendered":
+        cam = Camera(0.9 * w, 0.9 * w, (w - 1) / 2, (h - 1) / 2, width=w, height=h)
+        img = SyntheticDataset(n_frames=24, cam=cam, trajectory="orbit", device=dev).grab(5)[1]
+    else:
+        img = torch.randint(0, 256, shape, generator=g, device=dev).to(torch.float32)
+    pyr = image.build_pyramid(img, levels)
+    for t in (thr, thr * 0.7):
+        t_dev = torch.full((), t, dtype=torch.float32, device=dev)
+        kw = dict(num_features=1024, cell_size=cell, min_response=20.0, min_border=border)
+        kernels.detect_keypoints_fused(pyr, fast_threshold=t, **kw)     # first use of t
+        n_float, (a, _) = _sync_calls(
+            lambda: kernels.detect_keypoints_fused(pyr, fast_threshold=t, **kw))
+        n_tensor, (b, _) = _sync_calls(
+            lambda: kernels.detect_keypoints_fused(pyr, fast_threshold=t_dev, **kw))
+        assert n_float == 0 and n_tensor == 0
+        _same_keypoints(a, b)
+        _same_keypoints(b, fast.detect_keypoints_ref(pyr, fast_threshold=t_dev, **kw))
+        assert int(b.valid.sum()) > 20
+    with pytest.raises(TypeError):
+        kernels.detect_keypoints_fused(pyr, fast_threshold=t_dev.double(), **kw)
+    with pytest.raises(ValueError):
+        kernels.detect_keypoints_fused(pyr, fast_threshold=t_dev.cpu(), **kw)
+
+
+def _orbit_system(dev, n=24):
+    from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+
+    cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
+    cfg = SlamConfig(extractor=ExtractorConfig(num_levels=3, cell_size=8, fast_threshold=15.0),
+                     loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
+    ds = SyntheticDataset(n_frames=48, cam=cam, trajectory="orbit", device=dev)
+    system = SlamSystem(cam, cfg, seed=0, device=dev)
+    system.load_vocabulary(shipped_vocabulary("svo_fast"))
+    return ds, [ds.grab(i) for i in range(n)], system
+
+
+def _counts(system):
+    st = system.tracker.stats
+    return np.array([st.estimates, system.store.count, system.loops_closed,
+                     system.reloc_verifications])
+
+
+def test_batch_on_card_within_sync_budget(dev, kernels):
+    """Double-buffered batches of 8 on the card: no dispatch waits for the
+    device; a completion reads once for its rows (keyframe 0's blob rides
+    the first), once more for the blobs of the keyframes it dispatched, once
+    per loop closure and twice per relocalization. Launches follow the
+    formula with one estimate per frame after the first."""
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+
+    ds, frames, system = _orbit_system(dev)
+    kernels.reset_launch_counts()
+    pending = None
+    for i in range(0, len(frames), 8):
+        c = frames[i:i + 8]
+        n_disp, h = _sync_calls(lambda: system.track_batch_dispatch(*zip(*c)))
+        assert n_disp == 0
+        if pending is not None:
+            before = _counts(system)
+            n, _ = _sync_calls(lambda: system.track_batch_complete(pending))
+            _, dK, dL, dR = _counts(system) - before
+            assert n == 1 + int(dK > 0) + dL + 2 * dR, (n, dK, dL, dR)
+        pending = h
+    system.track_batch_complete(pending)
+    system.finish()
+    E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
+    assert E == len(frames) - 1
+    assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": len(frames),
+                                "hamming_match_2nn": E + 2 * KF + R,
+                                "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
+                                "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
+                                "gicp_gn_normal_equations": 0}
+    ts, poses = system.camera_trajectory()
+    assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
+    assert KF >= 5 and system.graph.n_vertices == KF == len(system.kf_backend_ms)
+
+
+def test_ring_on_card_within_sync_budget(dev, kernels):
+    """The ring on the card: one read per frame (its row, with the blob of
+    the keyframe the previous completion dispatched), one more per retry,
+    loop closure and two per relocalization; the first frame is the serial
+    initialisation (keyframe 0's blob), the flush reads the last row and the
+    last keyframe's blob."""
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+
+    ds, frames, system = _orbit_system(dev)
+    kernels.reset_launch_counts()
+    n, _ = _sync_calls(lambda: system.track_pipelined(*frames[0]))
+    assert n == 1 and system.store.count == 1
+    for f in frames[1:]:
+        had_row = system.tracker._pipe is not None
+        before = _counts(system)
+        n, _ = _sync_calls(lambda: system.track_pipelined(*f))
+        dE, _, dL, dR = _counts(system) - before
+        assert n == int(had_row) + (dE - 1) + dL + 2 * dR, (n, dE, dL, dR)
+    before = _counts(system)
+    n, _ = _sync_calls(system.track_pipelined_flush)
+    dE, dK, dL, dR = _counts(system) - before
+    assert n == 1 + dK + dE + dL + 2 * dR
+    system.finish()
+    E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
+    assert kernels.LAUNCHES["detect_keypoints_fused"] == len(frames)
+    assert kernels.LAUNCHES["hamming_match_2nn"] == E + 2 * KF + R
+    assert kernels.LAUNCHES["ransac_se3_fused"] == E + KF + R
+    assert kernels.LAUNCHES["gicp_refine_fused"] == E
+    ts, poses = system.camera_trajectory()
+    assert len(ts) == len(frames)
+    assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
+
+
+def test_adaptive_batch_on_card(dev, kernels):
+    """tests/test_extractor_cli.py's batched ADAPTIVE scenario on the card:
+    9 frames from threshold 60; the threshold evolves on the device (kernel
+    A reads it from there), the dispatch never waits, and the host extractor
+    takes the last row's threshold at completion."""
+    from rgbdslam_tpu_torch.config import ExtractorConfig, SlamConfig
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.slam.tracking import Tracker
+
+    cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
+    cfg = SlamConfig(extractor=ExtractorConfig(num_features=128, num_levels=2, cell_size=8,
+                                               fast_threshold=60.0, adapt_target_min=60,
+                                               adapt_target_max=120),
+                     adaptive=True)
+    ds = SyntheticDataset(n_frames=48, cam=cam, trajectory="orbit", device=dev)
+    frames = [ds.grab(i) for i in range(9)]
+    tr = Tracker(cam, cfg, seed=0, device=dev)
+    kernels.reset_launch_counts()
+    n, h = _sync_calls(lambda: tr.track_batch_dispatch(*zip(*frames)))
+    assert n == 0 and kernels.LAUNCHES["detect_keypoints_fused"] == 9
+    tr.track_batch_complete(h)
+    assert tr._extractor.threshold < 60.0 * 0.7 + 1e-6
+    assert tr._extractor.threshold >= tr._extractor.th_min - 1e-6

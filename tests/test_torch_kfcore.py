@@ -282,13 +282,14 @@ def test_unported_configuration_raises(field):
 def test_unported_modes_raise():
     import dataclasses
 
+    # the batched and ring modes run since they were ported
+    # (tests/test_torch_batch_ring.py); these still wait
     system = SlamSystem(Camera(**CAM_ARGS), TCFG, device="cpu")
-    z = np.zeros((2, 240, 320), np.float32)
-    for call in (lambda: system.track_batch([0.0, 0.1], z, z),
-                 lambda: system.track_batch_dispatch([0.0, 0.1], z, z),
-                 lambda: system.track_pipelined(0.0, z[0], z[0]),
-                 lambda: system.tracker.track_pipelined_flush(),
-                 lambda: setattr(system, "live_export", (5, "/tmp/x")),
+    for call in (lambda: setattr(system, "live_export", (5, "/tmp/x")),
+                 lambda: Tracker(Camera(**CAM_ARGS),
+                                 dataclasses.replace(TCFG, use_dense_icp=True), device="cpu"),
+                 lambda: SlamSystem(Camera(**CAM_ARGS),
+                                    dataclasses.replace(TCFG, use_local_ba=True), device="cpu"),
                  lambda: Tracker(Camera(**CAM_ARGS),
                                  dataclasses.replace(TCFG, detector="orb"), device="cpu"),
                  lambda: Tracker(Camera(**CAM_ARGS),

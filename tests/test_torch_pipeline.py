@@ -97,13 +97,11 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_cli_rejects_unported_modes():
-    # full SLAM and serial odometry run since the backend was ported
-    # (tests/test_torch_system.py); these modes still wait
-    for argv, what in ((["--dataset", "synthetic:sweep", "--batch", "8"], "--batch / --ring"),
-                       (["--dataset", "synthetic:sweep", "--local-ba"], "--local-ba"),
+    # full SLAM, serial odometry (tests/test_torch_system.py) and the batched
+    # and ring modes (below) run since they were ported; these modes still wait
+    for argv, what in ((["--dataset", "synthetic:sweep", "--local-ba"], "--local-ba"),
                        (["--dataset", "synthetic:sweep", "--dense-icp", "--plot"],
                         "--dense-icp, --plot"),
-                       (["--dataset", "synthetic:sweep", "--pipelined", "2", "--ring"], "--batch / --ring"),
                        (["--dataset", "/data/tum", "--pipelined", "2"], "disk datasets")):
         with pytest.raises(NotImplementedError, match=f"not yet ported: {what}"):
             cli.main(argv + ["--device", "cpu"])
@@ -117,3 +115,25 @@ def test_cli_pipelined_runs_on_cpu(tmp_path, capsys):
     assert np.isfinite(out["ate_rmse"])
     with open(os.path.join(tmp_path, "CameraTrajectory.txt")) as f:
         assert len(f.read().splitlines()) == 3
+
+
+@pytest.mark.parametrize("mode", [["--batch", "8"], ["--ring"],
+                                  ["--batch", "8", "--odometry-only"],
+                                  ["--ring", "--odometry-only"]])
+def test_cli_batch_and_ring_run_on_cpu(tmp_path, capsys, mode):
+    """The batched and ring modes through the CLI, full SLAM and the bare
+    tracker, at 320x240 on the 24-frame sweep: one JSON line as in serial
+    mode, both trajectory files, every frame tracked."""
+    assert cli.main(["--dataset", "synthetic:sweep", "--frames", "24", "--device", "cpu",
+                     "--width", "320", "--height", "240", "--cell-size", "8",
+                     "--fast-threshold", "15", "--out-dir", str(tmp_path)] + mode) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["frames"] == 24 and out["ate_pairs"] == 24 and out["failures"] == 0
+    assert out["ate_rmse"] < 0.05 and out["keyframes"] >= 2
+    assert ("loops_closed" in out) == ("--odometry-only" not in mode)
+    with open(os.path.join(tmp_path, "CameraTrajectory.txt")) as f:
+        assert len(f.read().splitlines()) == 24
+    with open(os.path.join(tmp_path, "KeyFrameTrajectory.txt")) as f:
+        assert len(f.read().splitlines()) == out["keyframes"]

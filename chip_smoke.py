@@ -37,7 +37,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                run sequentially equal to the double-buffered run), launch
                counts by the formulas, host synchronisations by the budgets
                (none inside a batch dispatch), the batched ADAPTIVE scenario
-               on the card, and the ring, batch and serial times.
+               on the card, and the ring, batch and serial times;
+  8. disk    — the same tour (freiburg3 intrinsics) written as a TUM-format
+               directory of PNGs and run through the CLI
+               (rgbdslam_tpu_torch.cli: serial full SLAM, --save-map
+               --export-ply --export-octomap --export-html --profile): the
+               run equals SlamSystem.track on the same frames quantized in
+               memory (keyframes, loops, launch counts, poses within 1e-6),
+               ATE < 0.05 m against groundtruth.txt with the revisit closed,
+               map.npz resumes into a fresh system (store, graph and device
+               bank equal, keyframe 0 verifies against itself), the outputs
+               exist, the occupancy rebuild equals the CLI's octomap.npz and
+               the CPU's stage by stage, and the native loader's frames and
+               run equal the Python loader's (or, where it does not build,
+               the CLI falls back with a message); loader, run, checkpoint,
+               rebuild and export times.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -272,6 +286,21 @@ def device_us_per_launch(fn, repeats: int = 10) -> dict:
     return out
 
 
+def device_rows(prof) -> list:
+    """(device microseconds, name, launches) of each kernel, copy and fill
+    in a torch.profiler window."""
+    rows = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue                     # host-side op events repeat their kernels' time
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, evt.key, evt.count))
+    return rows
+
+
 def profile_busy(fn, what: str, smi: str) -> None:
     """Log the device's busy share of fn()'s wall time and the ten kernels
     with the most device time, from torch.profiler."""
@@ -282,15 +311,7 @@ def profile_busy(fn, what: str, smi: str) -> None:
         fn()
         torch.cuda.synchronize()
         window_ms = 1000 * (time.perf_counter() - t0)
-    rows = []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue                     # host-side op events repeat their kernels' time
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, evt.key, evt.count))
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1000
     if busy_ms <= 0:
         log(f"[times] profiler, {what}: saw no device time")
@@ -304,6 +325,519 @@ def profile_busy(fn, what: str, smi: str) -> None:
            for dev_us, key, count in rows if own_kernel(key)}
     log(f"[times] profiler, {what}: device microseconds per launch of the port's own "
         f"kernels {json.dumps(own)}")
+
+
+def near_threshold_points(cloud, k: int, std_mul: float, rel: float = 1e-5) -> torch.Tensor:
+    """Valid points of a cloud whose mean k-NN distance lies within `rel` of
+    the statistical-outlier threshold, both computed in float64 on the
+    cloud's device: where float32 implementations may keep or drop a point
+    differently."""
+    p = cloud.xyz.detach().double()
+    valid = cloud.valid
+    d2 = torch.cdist(p, p) ** 2
+    d2[~(valid[:, None] & valid[None, :])] = float("inf")
+    d2.fill_diagonal_(float("inf"))
+    near = torch.topk(d2, k, dim=-1, largest=False).values
+    ok = torch.isfinite(near)
+    mean_d = torch.where(ok, near.clamp_min(0).sqrt(), 0.0).sum(-1) / ok.sum(-1).clamp_min(1)
+    m = mean_d[valid]
+    thresh = m.mean() + std_mul * m.std(unbiased=False)
+    return valid & ((mean_d - thresh).abs() <= rel * thresh)
+
+
+def near_face_samples(cloud, origin, res: float, sensor, n_steps: int = 64,
+                      rel: float = 1e-5):
+    """(ray samples, endpoints) of a world cloud's valid points within
+    rel * res of a voxel face, in float64 on the cloud's device: where
+    float32 implementations may put a sample in either neighbouring voxel."""
+    dev = cloud.xyz.device
+    pts = cloud.xyz.detach().double()
+    ts = (torch.arange(n_steps, dtype=torch.float64, device=dev) + 0.5) / n_steps
+    o = torch.as_tensor(np.asarray(sensor, np.float64), device=dev)
+    lo = torch.as_tensor(np.asarray(origin, np.float64), device=dev)
+    ray = pts[None] * ts[:, None, None] + o[None, None] * (1 - ts[:, None, None])
+
+    def close(p):
+        f = (p - lo) / res
+        return ((f - f.round()).abs() < rel).any(-1) & cloud.valid
+
+    return int(close(ray).sum()), int(close(pts).sum())
+
+
+def disk_phase(dev, smi: str, kernels, n: int = 128):
+    """Phase 8: a TUM-format sequence from disk through the port's CLI.
+
+    Writes the 640x480 128-frame tour (freiburg3 intrinsics, so that the
+    directory name selects the camera it was rendered with) as 8-bit grey and
+    16-bit depth PNGs at factor 5000 with associations.txt and
+    groundtruth.txt (tools/make_fake_tum.py's layout), runs
+    `rgbdslam_tpu_torch.cli.main` on it (serial full SLAM, --save-map
+    --export-ply --export-octomap --export-html --profile) and holds it
+    against SlamSystem.track on the same frames quantized in memory, the
+    checkpoint's resume, the outputs, the occupancy rebuild against the CPU
+    and the native loader. Returns the disk run's launch counts."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    import types
+    import zlib
+
+    from rgbdslam_tpu_torch import cli
+    from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.device import upload
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.geometry.camera import TUM_FR3
+    from rgbdslam_tpu_torch.io import png
+    from rgbdslam_tpu_torch.io import trajectory as traj_io
+    from rgbdslam_tpu_torch.io.datasets import DECODERS, RGBDDataset, load_depth_raw, load_gray
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.mapping import cloud as cl
+    from rgbdslam_tpu_torch.mapping.occupancy import insert_cloud, load_grid
+    from rgbdslam_tpu_torch.native import framepipe as fp
+    from rgbdslam_tpu_torch.slam import system as system_mod
+    from rgbdslam_tpu_torch.utils.serialization import load_map, save_map
+    from rgbdslam_tpu_torch.viz.octomap_export import build_occupancy_from_keyframes
+
+    cam = TUM_FR3
+    root = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    try:
+        # ---- the sequence
+        base = os.path.join(root, "rgbd_dataset_freiburg3_smoke")
+        os.makedirs(os.path.join(base, "rgb"))
+        os.makedirs(os.path.join(base, "depth"))
+        tour = SyntheticDataset(n_frames=n, cam=cam, trajectory="tour", device=dev)
+        t0 = time.perf_counter()
+        assoc, mem = [], []
+        for i in range(n):
+            ts, g, d = tour.grab(i)
+            g8 = g.cpu().numpy().astype(np.uint8)
+            d16 = np.clip(d.cpu().numpy() * 5000.0, 0, 65535).astype(np.uint16)
+            rp, dp = f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png"
+            png.write_png(os.path.join(base, rp), g8)
+            png.write_png(os.path.join(base, dp), d16)
+            assoc.append(f"{ts:.6f} {rp} {ts:.6f} {dp}")
+            # the frame as the loader returns it (f32 / python float)
+            mem.append((float(f"{ts:.6f}"), g8.astype(np.float32),
+                        d16.astype(np.float32) / cam.depth_factor))
+        with open(os.path.join(base, "associations.txt"), "w") as f:
+            f.write("\n".join(assoc) + "\n")
+        traj_io.save_tum(os.path.join(base, "groundtruth.txt"), tour.timestamps, tour.poses_twc)
+        write_s = time.perf_counter() - t0
+        log(f"[disk] wrote {n} frames 640x480 (rendered on the card, freiburg3 intrinsics) "
+            f"as grey + 16-bit depth PNGs in {write_s:.3f} s")
+
+        # ---- the Python loader with each decoder this machine has (cv2, PIL,
+        # the port's own): every frame equals the in-memory quantization
+        ds = RGBDDataset(base)
+        check(ds.cam == cam, f"the directory name selected {ds.cam}")
+        dec_ms = {}
+        for dec in DECODERS:
+            try:
+                __import__({"cv2": "cv2", "PIL": "PIL.Image", "png": "zlib"}[dec])
+            except ImportError:
+                continue
+            t0 = time.perf_counter()
+            grabs = [(ds.timestamps[i],
+                      load_gray(os.path.join(base, ds.rgb_files[i]), dec),
+                      load_depth_raw(os.path.join(base, ds.depth_files[i]), dec)
+                      / cam.depth_factor) for i in range(n)]
+            dec_ms[dec] = 1000 * (time.perf_counter() - t0) / n
+            for (ts_a, g_a, d_a), (ts_b, g_b, d_b) in zip(grabs, mem):
+                check(ts_a == ts_b and np.array_equal(g_a, g_b) and np.array_equal(d_a, d_b)
+                      and g_a.dtype == d_a.dtype == np.float32,
+                      f"the {dec} loader's frame at t={ts_a} differs from the written one")
+            del grabs
+        py_ms = dec_ms[ds.decoder]
+        log(f"[disk] Python loader, ms/frame over {n} frames by decoder (the default "
+            f"{ds.decoder}): {json.dumps({k: round(v, 3) for k, v in dec_ms.items()})}, every "
+            f"frame equal to the written one (host, {smi})")
+        # io/png.py on adaptively filtered files (libpng's per-row choice,
+        # Average and Paeth rows among them), as cv2.imwrite writes them when
+        # given a compression level
+        if "cv2" in dec_ms:
+            import cv2
+
+            adapt = {}
+            for what, arr in (("grey", mem[0][1].astype(np.uint8)),
+                              ("depth", (mem[0][2] * 5000.0).round().astype(np.uint16))):
+                pth = os.path.join(root, f"adaptive_{what}.png")
+                cv2.imwrite(pth, arr, [cv2.IMWRITE_PNG_COMPRESSION, 3])
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    back = png.read_png(pth)
+                ms = 1000 * (time.perf_counter() - t0) / 5
+                check(np.array_equal(back, arr), f"adaptive {what} PNG round trip")
+                with open(pth, "rb") as f:
+                    raw = zlib.decompress(b"".join(b for k, b in png._chunks(f.read())
+                                                   if k == b"IDAT"))
+                ftypes = np.frombuffer(raw, np.uint8).reshape(arr.shape[0], -1)[:, 0]
+                adapt[what] = f"{ms:.3f} ms (filter types {sorted(set(ftypes.tolist()))})"
+            log(f"[disk] io/png.py on one 640x480 file that cv2 filtered adaptively: "
+                f"grey {adapt['grey']}, depth {adapt['depth']} (host, {smi})")
+
+        def run_cli(argv):
+            """cli.main in-process, the plain kernel versions forbidden: (its
+            JSON line, its stderr, the SlamSystem it built)."""
+            built = []
+            orig = system_mod.SlamSystem
+
+            class Recorded(orig):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    built.append(self)
+
+            so, se = io.StringIO(), io.StringIO()
+            system_mod.SlamSystem = Recorded
+            try:
+                with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se), \
+                        plain_versions_forbidden(kernels):
+                    rc = cli.main(argv)
+            finally:
+                system_mod.SlamSystem = orig
+            check(rc == 0, f"cli.main returned {rc}")
+            return (json.loads(so.getvalue().strip().splitlines()[-1]), se.getvalue(),
+                    built[0] if built else None)
+
+        # ---- the main path: the CLI on the directory
+        out = os.path.join(root, "out")
+        argv = ["--dataset", base, "--kind", "TUM", "--frames", str(n), "--loop-interval", "12",
+                "--device", str(dev)]
+        exports = ["--save-map", "--export-ply", "--export-octomap", "--export-html",
+                   "--profile"]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, err, sys_d = run_cli(argv + ["--out-dir", out] + exports)
+        cli_s = time.perf_counter() - t0
+        launches_disk = dict(kernels.LAUNCHES)
+        batched_disk = dict(kernels.BATCHED_LAUNCHES)
+        log(f"[disk] cli: {json.dumps(res)}")
+        for line in err.strip().splitlines():
+            log(f"[disk] cli stderr: {line}")
+        K = sys_d.store.count
+        revisit = sys_d.graph.edges_spanning(10, K - 10)
+        log(f"[disk] cli wall {cli_s:.3f} s; keyframes {K}, loops {sys_d.loops_closed}, "
+            f"edges closing the revisit {revisit}; launches {json.dumps(launches_disk)}, "
+            f"batched {json.dumps(batched_disk)}")
+        check(res["frames"] == n and res["keyframes"] == K and res["loader"] == ds.decoder,
+              f"cli result {res}")
+        check(res["ate_rmse"] < 0.05 and res["ate_pairs"] == n,
+              f"ATE from groundtruth.txt {res['ate_rmse']} m over {res['ate_pairs']} pairs")
+        check(len(revisit) >= 1, "the disk run closed the revisit of the start by no edge")
+
+        # ---- the same frames from memory: the same run
+        cfg = SlamConfig(extractor=ExtractorConfig(num_features=1024, cell_size=16,
+                                                   fast_threshold=20.0),
+                         loop=LoopConfig(id_interval=12))
+        sys_m = system_mod.SlamSystem(cam, cfg, device=dev)
+        sys_m.load_vocabulary(shipped_vocabulary(cfg.detector))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_versions_forbidden(kernels):
+            for ts, g, d in mem:
+                sys_m.track(ts, g, d)
+            sys_m.finish()
+        mem_ms = 1000 * (time.perf_counter() - t0) / n
+        launches_mem = dict(kernels.LAUNCHES)
+        batched_mem = dict(kernels.BATCHED_LAUNCHES)
+        p_d, p_m = sys_d.camera_trajectory()[1], sys_m.camera_trajectory()[1]
+        gap = float(np.abs(p_d - p_m).max())
+        log(f"[disk] memory run: keyframes {sys_m.store.count}, loops {sys_m.loops_closed}, "
+            f"edges {sys_m.graph.n_edges} (disk {sys_d.graph.n_edges}); poses max abs diff "
+            f"{gap:.3g}; launches equal: {launches_mem == launches_disk}")
+        check(sys_m.store.count == K and sys_m.loops_closed == sys_d.loops_closed
+              and sys_m.graph.n_edges == sys_d.graph.n_edges, "disk and memory runs differ")
+        check(gap <= 1e-6, f"disk and memory poses differ by {gap}")
+        check(launches_mem == launches_disk and batched_mem == batched_disk,
+              f"launches: memory {launches_mem} {batched_mem}, disk {launches_disk} "
+              f"{batched_disk}")
+
+        # ---- resume from map.npz
+        map_path = os.path.join(out, "map.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_map(os.path.join(root, "map2.npz"), sys_d)
+        save_ms = 1000 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sys_r = system_mod.SlamSystem(cam, cfg, device=dev)
+        load_map(map_path, sys_r)
+        torch.cuda.synchronize()
+        load_ms = 1000 * (time.perf_counter() - t0)
+        E = sys_d.graph.n_edges
+        for f in ("desc", "xyz", "obs_valid", "uv", "intensity", "poses_cw", "timestamps"):
+            check(np.array_equal(getattr(sys_r.store, f)[:K], getattr(sys_d.store, f)[:K]),
+                  f"resumed store.{f} differs")
+        for f in ("e_a", "e_b", "e_Z", "e_w"):
+            check(np.array_equal(getattr(sys_r.graph, f)[:E], getattr(sys_d.graph, f)[:E]),
+                  f"resumed graph.{f} differs")
+        check(sys_r.graph.n_edges == E and sys_r.graph.n_vertices == K, "resumed graph size")
+        bank = [b[:K].cpu().numpy() for b in sys_r._bank]
+        check(np.array_equal(bank[0].view(np.uint32), sys_r.store.desc[:K])
+              and np.array_equal(bank[1], sys_r.store.xyz[:K])
+              and np.array_equal(bank[2], sys_r.store.obs_valid[:K])
+              and np.array_equal(bank[3], sys_d.loop_detector.bow_db[:K]),
+              "the resumed device bank differs from the store")
+        f0 = types.SimpleNamespace(desc=sys_r._bank[0][0], xyz=sys_r._bank[1][0],
+                                   obs_valid=sys_r._bank[2][0])
+        _T, ninl0, ok0, nm0 = sys_r._verify_candidates([0], f0)
+        log(f"[disk] resume: store, graph and bank equal; keyframe 0 against itself: "
+            f"{int(nm0[0])} matches, {int(ninl0[0])} inliers; save_map {save_ms:.1f} ms, "
+            f"load_map {load_ms:.1f} ms ({smi})")
+        check(bool(ok0[0]) and int(nm0[0]) > 50, f"keyframe 0 verified {int(nm0[0])} matches")
+
+        # ---- the outputs
+        for name in ("CameraTrajectory.txt", "KeyFrameTrajectory.txt", "map.npz",
+                     "map_points.ply", "octomap.npz", "octomap_voxels.ply", "map_viewer.html"):
+            pth = os.path.join(out, name)
+            check(os.path.exists(pth) and os.path.getsize(pth) > 0, f"{name} missing")
+        with open(os.path.join(out, "map_points.ply")) as f:
+            head = f.read(400)
+        n_obs = int(sys_d.store.obs_valid[:K].sum())
+        check(f"element vertex {n_obs}\n" in head, f"map_points.ply: {head[:80]!r}, {n_obs} obs")
+        check(res["octomap_voxels"] > 0 and res["octomap_keyframes"] == K
+              and res["octomap_kf_skipped"] == 0, f"octomap result {res}")
+        ts_index = {ts: i for i, (ts, _, _) in enumerate(mem)}
+        kf_images = {k: mem[ts_index[float(sys_d.store.timestamps[k])]][1:] for k in range(K)}
+        poses = sys_d.store.poses_cw
+        kcfg = cfg.keyframe
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = build_occupancy_from_keyframes(cam, kf_images, poses, kcfg, device=dev)
+        torch.cuda.synchronize()
+        build_ms = 1000 * (time.perf_counter() - t0)
+        g_cli = load_grid(os.path.join(out, "octomap.npz"), device=dev)
+        same = all(torch.equal(getattr(grid, f), getattr(g_cli, f))
+                   for f in ("log_odds", "color_sum", "color_cnt", "origin"))
+        check(same, "the card's rebuild differs from the CLI's octomap.npz")
+
+        # the rebuild by stage on the card: cloud, + SOR, + insertion
+        Twc = se3.inverse_np(poses[:K]).astype(np.float32)
+        up = [(upload(g, dev), upload(d, dev), upload(Twc[k], dev))
+              for k, (g, d) in sorted(kf_images.items())]
+        vox_kw = dict(max_points=4096, voxel=kcfg.voxel_size)
+
+        def staged(stage):
+            z = torch.zeros_like(g_cli.log_odds)
+            gr = g_cli._replace(log_odds=z, color_sum=z.clone(), color_cnt=z.clone())
+            for g, d, T in up:
+                c = cl.voxel_downsample(cl.create_cloud(cam, g, d, kcfg.cloud_stride,
+                                                        kcfg.cloud_z_min, kcfg.cloud_z_max),
+                                        **vox_kw)
+                if stage >= 1:
+                    c = cl.statistical_outlier_removal(c, kcfg.sor_neighbors, kcfg.sor_std_mul)
+                if stage >= 2:
+                    gr = insert_cloud(gr, cl.transform_cloud(c, T), T[:3, 3])
+            torch.cuda.synchronize()
+
+        stage_ms = []
+        for stage in range(3):
+            staged(stage)                                    # warm
+            t0 = time.perf_counter()
+            staged(stage)
+            stage_ms.append(1000 * (time.perf_counter() - t0))
+        sor_ms = stage_ms[1] - stage_ms[0]
+        log(f"[disk] octomap rebuild of {K} keyframes on the card: {build_ms:.1f} ms "
+            f"({build_ms / K:.3f} ms/keyframe, uploads from the host included), equal to "
+            f"the CLI's octomap.npz; by stage without uploads: clouds {stage_ms[0]:.1f} ms, "
+            f"+ SOR {stage_ms[1]:.1f} ms, + insertion {stage_ms[2]:.1f} ms; the SOR's share "
+            f"{100 * sor_ms / stage_ms[2]:.1f} % ({smi})")
+
+        # the card against the CPU, stage by stage, on every tenth keyframe
+        sub = list(range(0, K, 10))
+        flips = 0
+        vox_gap = 0.0
+        for k in sub:
+            g, d = kf_images[k]
+            c_dev = cl.voxel_downsample(cl.create_cloud(cam, upload(g, dev), upload(d, dev),
+                                                        kcfg.cloud_stride, kcfg.cloud_z_min,
+                                                        kcfg.cloud_z_max), **vox_kw)
+            c_cpu = cl.voxel_downsample(cl.create_cloud(cam, torch.from_numpy(g),
+                                                        torch.from_numpy(d), kcfg.cloud_stride,
+                                                        kcfg.cloud_z_min, kcfg.cloud_z_max),
+                                        **vox_kw)
+            check(torch.equal(c_dev.valid.cpu(), c_cpu.valid), f"keyframe {k}: voxel sets differ")
+            vox_gap = max(vox_gap, float((c_dev.xyz.cpu() - c_cpu.xyz).abs().max()))
+            s_dev = cl.statistical_outlier_removal(c_dev, kcfg.sor_neighbors, kcfg.sor_std_mul)
+            s_cpu = cl.statistical_outlier_removal(cl.Cloud(*(a.cpu() for a in c_dev)),
+                                                   kcfg.sor_neighbors, kcfg.sor_std_mul)
+            flip = (s_dev.valid != s_cpu.valid.to(dev))
+            near = near_threshold_points(c_dev, kcfg.sor_neighbors, kcfg.sor_std_mul)
+            check(not bool((flip & ~near).any()), f"keyframe {k}: SOR keeps differ away from "
+                  f"the threshold ({int(flip.sum())} points)")
+            flips += int(flip.sum())
+        log(f"[disk] card against CPU on keyframes {sub}: voxel clouds equal sets, centroids "
+            f"max abs diff {vox_gap:.3g}; SOR keeps differing {flips}")
+        check(vox_gap <= 1e-5, f"voxel centroids differ by {vox_gap}")
+
+        # the whole grid: the port's CPU build from the same keyframe images
+        # and poses against the card's. A voxel may differ only through a
+        # point the SOR may keep or drop (within 1e-5 of its threshold: its
+        # ray's 64 samples and its endpoint) or a sample within 1e-5 voxel of
+        # a face (two voxels), counted in float64 on the card's clouds
+        t0 = time.perf_counter()
+        grid_cpu = build_occupancy_from_keyframes(cam, kf_images, poses, kcfg, device="cpu")
+        cpu_build_s = time.perf_counter() - t0
+        sor_near = ray_near = end_near = 0
+        origin = grid.origin.cpu().numpy()
+        for i, (g, d, T) in enumerate(up):
+            c = cl.voxel_downsample(cl.create_cloud(cam, g, d, kcfg.cloud_stride,
+                                                    kcfg.cloud_z_min, kcfg.cloud_z_max),
+                                    **vox_kw)
+            sor_near += int(near_threshold_points(c, kcfg.sor_neighbors, kcfg.sor_std_mul).sum())
+            w = cl.transform_cloud(cl.statistical_outlier_removal(c, kcfg.sor_neighbors,
+                                                                  kcfg.sor_std_mul), T)
+            r_n, e_n = near_face_samples(w, origin, grid.resolution, Twc[i][:3, 3])
+            ray_near += r_n
+            end_near += e_n
+        lo_diff = int((grid.log_odds.cpu() != grid_cpu.log_odds).sum())
+        cnt_same = grid.color_cnt.cpu() == grid_cpu.color_cnt
+        cnt_diff = int((~cnt_same).sum())
+        cs_dev, cs_cpu = grid.color_sum.cpu()[cnt_same], grid_cpu.color_sum[cnt_same]
+        cs_gap = float(((cs_dev - cs_cpu).abs() / (1e-3 + 1e-6 * cs_cpu.abs())).max())
+        occ = int((grid_cpu.log_odds > 0).sum())
+        log(f"[disk] the whole grid of {K} keyframes, card against the port's CPU build "
+            f"({cpu_build_s:.1f} s on the host): {tuple(grid.log_odds.shape)} voxels, "
+            f"{occ} occupied; log-odds differ in {lo_diff}, hit counts in {cnt_diff}, colour "
+            f"sums within {cs_gap:.3g} of (1e-3 + 1e-6 |sum|); points within 1e-5 of the SOR "
+            f"threshold {sor_near}, ray samples within 1e-5 voxel of a face {ray_near}, "
+            f"endpoints {end_near}")
+        check(torch.equal(grid.origin.cpu(), grid_cpu.origin) and occ > 1000,
+              "the CPU grid's bounds or content")
+        check(lo_diff <= 2 * (ray_near + end_near) + 65 * sor_near,
+              f"{lo_diff} log-odds differ for {ray_near + end_near} near-face samples and "
+              f"{sor_near} near-threshold points")
+        check(cnt_diff <= 2 * end_near + sor_near,
+              f"{cnt_diff} hit counts differ for {end_near} near-face endpoints and "
+              f"{sor_near} near-threshold points")
+        check(cs_gap <= 1.0, f"colour sums differ by {cs_gap} of their tolerance")
+
+        # ---- the native loader
+        if fp.native_available():
+            pipe = fp.FramePipe(cam.width, cam.height, n_workers=2, capacity=8)
+            items = [(os.path.join(base, ds.rgb_files[i]), os.path.join(base, ds.depth_files[i]),
+                      cam.depth_factor) for i in range(n)]
+            t0 = time.perf_counter()
+            nat = list(pipe.stream(items))
+            nat_ms = 1000 * (time.perf_counter() - t0) / n
+            for i, (g, d, tag) in enumerate(nat):
+                check(tag == i and np.array_equal(g, mem[i][1]) and np.array_equal(d, mem[i][2]),
+                      f"native frame {i} differs from the Python loader's")
+            res_n, _err, sys_n = run_cli(argv + ["--out-dir", os.path.join(root, "native"),
+                                                 "--native-loader"])
+            gap_n = float(np.abs(sys_n.camera_trajectory()[1] - p_d).max())
+            log(f"[disk] native loader built: {nat_ms:.3f} ms/frame prefetched over {n} frames "
+                f"(2 workers), every frame equal to the Python loader's; its run: "
+                f"{json.dumps(res_n)}, poses max abs diff to the disk run {gap_n:.3g}")
+            check(res_n["loader"] == "native" and res_n["keyframes"] == K
+                  and res_n["loops_closed"] == res["loops_closed"] and gap_n <= 1e-6,
+                  "the native loader's run differs")
+        else:
+            log(f"[disk] native loader did not build: {fp.build_error()}")
+            res_n, err_n, _ = run_cli(argv + ["--out-dir", os.path.join(root, "native"),
+                                              "--native-loader", "--odometry-only",
+                                              "--frames", "8"])
+            check("native loader unavailable" in err_n and res_n["loader"] == ds.decoder,
+                  f"no fallback line from the CLI: {err_n!r}")
+            log(f"[disk] the CLI fell back: {err_n.strip().splitlines()[-1]!r}")
+
+        # ---- live export on the card. The tracking thread snapshots host
+        # state and a CUDA event; a worker thread writes the files, its device
+        # work on a stream of its own. The same 32 frames three times, each
+        # timed over the frames before finish(): without live export, with
+        # the worker's jobs held (the tracking thread's own share), with the
+        # worker running. The first two must make the same host syncs. The
+        # held jobs then run inline under the profiler: the worker's host and
+        # device time, which bounds what the device can add to the third run.
+        n_live = 32
+
+        def live_system(live_dir=None, hold=None):
+            sys_x = system_mod.SlamSystem(cam, cfg, device=dev)
+            sys_x.load_vocabulary(shipped_vocabulary(cfg.detector))
+            if live_dir is not None:
+                os.makedirs(live_dir, exist_ok=True)
+                sys_x.live_export = (4, live_dir, 0.0)
+            if hold is not None:
+                sys_x._live_enqueue = lambda snap: hold.append(snap) or True
+            return sys_x
+
+        def track_live(sys_x):
+            for ts, g, d in mem[:n_live]:
+                sys_x.track(ts, g, d)
+
+        def timed_live(sys_x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            track_live(sys_x)
+            frame_ms = 1000 * (time.perf_counter() - t0) / n_live
+            t0 = time.perf_counter()
+            sys_x.finish()
+            torch.cuda.synchronize()
+            return frame_ms, 1000 * (time.perf_counter() - t0)
+
+        base_ms, base_fin = timed_live(live_system())
+        held = []
+        sys_h = live_system(os.path.join(root, "held"), hold=held)
+        held_ms, held_fin = timed_live(sys_h)
+        live_dir = os.path.join(root, "live")
+        sys_l = live_system(live_dir)
+        live_ms, live_fin = timed_live(sys_l)
+        sys_b = live_system()
+        n_sync_base = sync_calls(lambda: track_live(sys_b))[0]
+        held_sync = []
+        sys_s = live_system(os.path.join(root, "held_sync"), hold=held_sync)
+        n_sync_held, first_sync, _ = sync_calls(lambda: track_live(sys_s))
+        sys_h._live_stream = torch.cuda.Stream(device=dev)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for job in held:
+                sys_h._live_write_job(job)
+            torch.cuda.synchronize()
+            jobs_ms = 1000 * (time.perf_counter() - t0)
+        jobs_dev_ms = sum(r[0] for r in device_rows(prof)) / 1000
+        live_files = sorted(os.listdir(live_dir))
+        log(f"[disk] live export every 4 keyframes over {n_live} frames, the tracking thread's "
+            f"ms/frame before finish(): without {base_ms:.3f}, jobs held {held_ms:.3f}, worker "
+            f"running {live_ms:.3f}; finish() {base_fin:.1f} / {held_fin:.1f} / {live_fin:.1f} "
+            f"ms; host syncs over the frames without {n_sync_base}, jobs held {n_sync_held} "
+            f"({len(held_sync)} snapshots); the worker wrote {sys_l.live_exports_written}, "
+            f"dropped {sys_l.live_exports_dropped}, errors {sys_l.live_export_errors}, files "
+            f"{live_files} ({smi})")
+        log(f"[disk] the {len(held)} held jobs inline: host {jobs_ms:.1f} ms, device busy "
+            f"{jobs_dev_ms:.3f} ms; the device can explain at most {jobs_dev_ms / n_live:.3f} "
+            f"ms/frame of the worker's {live_ms - held_ms:.3f} ms/frame, the worker's host "
+            f"time is {jobs_ms / n_live:.3f} ms/frame ({smi})")
+        check(n_sync_held == n_sync_base and len(held_sync) >= 2,
+              f"live export added host syncs to the tracking thread: {n_sync_held} against "
+              f"{n_sync_base} ({first_sync})")
+        check(not sys_l.live_export_errors and sys_l.live_exports_written >= 2
+              and {"map_viewer.html", "trajectory.png", "overlay.png",
+                   "octomap.npz"} <= set(live_files), "live export")
+        check(len(load_grid(os.path.join(live_dir, "octomap.npz"),
+                            device=dev).log_odds.nonzero()) > 0, "the live octomap is empty")
+
+        def stage_of(name):
+            for line in err.splitlines():
+                if line.startswith(name + " "):
+                    return line.split()[1]
+            return "?"
+
+        log(f"[times] disk path: Python loader ({ds.decoder}) {py_ms:.3f} ms/frame; the CLI run "
+            f"{1000 * res['wall_s'] / n:.3f} ms/frame (decode and tracking) against the "
+            f"memory run's {mem_ms:.3f} ms/frame; save_map {save_ms:.1f} ms, load_map "
+            f"{load_ms:.1f} ms; octomap rebuild {build_ms:.1f} ms ({build_ms / K:.3f} "
+            f"ms/keyframe, SOR {100 * sor_ms / stage_ms[2]:.1f} %); the CLI's stages (ms/call): "
+            f"track {stage_of('track')}, octomap {stage_of('octomap')}, save_map "
+            f"{stage_of('save_map')}, PLY {stage_of('export_ply')}, HTML "
+            f"{stage_of('export_html')} ({smi})")
+        return launches_disk, batched_disk
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1214,22 +1748,35 @@ def main() -> int:
         f"{json.dumps(sorted(set(batch_syncs['complete'])))}")
 
     # batched ADAPTIVE on the card (tests/test_extractor_cli.py's scenario):
-    # 9 frames from threshold 60, the threshold evolving on the device and
-    # read by kernel A from there; the dispatch never waits for the device
+    # 9 frames from threshold 60, then 9 more. The run's first frame goes
+    # through the host extractor, as in the JAX package: its re-detections
+    # read the device once each, and these are the first dispatch's only
+    # synchronisations. After it the threshold evolves on the device, read by
+    # kernel A from there: the second dispatch never waits for the device.
     acfg = SlamConfig(extractor=ExtractorConfig(num_features=128, num_levels=2, cell_size=8,
                                                 fast_threshold=60.0, adapt_target_min=60,
                                                 adapt_target_max=120),
                       adaptive=True)
     orbit_small = SyntheticDataset(n_frames=48, cam=cam_small, trajectory="orbit", device=dev)
     a_frames = tuple(zip(*[orbit_small.grab(i) for i in range(9)]))
+    a_frames2 = tuple(zip(*[orbit_small.grab(i) for i in range(9, 18)]))
     a_tr = Tracker(cam_small, acfg, seed=0, device=dev)
     with plain_versions_forbidden(kernels):
         n_adisp, msg, a_h = sync_calls(lambda: a_tr.track_batch_dispatch(*a_frames))
+        a_reads = a_tr._extractor.reads
         a_tr.track_batch_complete(a_h)
-    a_thr = a_tr._extractor.threshold
+        a_thr = a_tr._extractor.threshold
+        n_adisp2, msg2, a_h = sync_calls(lambda: a_tr.track_batch_dispatch(*a_frames2))
+        a_tr.track_batch_complete(a_h)
     log(f"[modes] batched ADAPTIVE, 9 frames 320x240 from threshold 60: threshold {a_thr:.4f} "
-        f"(th_min {a_tr._extractor.th_min}), {n_adisp} synchronisations in the dispatch")
-    check(n_adisp == 0, f"the ADAPTIVE batch dispatch synchronised {n_adisp} times: {msg!r}")
+        f"(th_min {a_tr._extractor.th_min}), {n_adisp} synchronisations in the first dispatch "
+        f"for {a_reads} detections of its first frame, {n_adisp2} in the second dispatch; "
+        f"threshold after 18 frames {a_tr._extractor.threshold:.4f}")
+    check(a_reads >= 2 and n_adisp == a_reads,
+          f"the first ADAPTIVE batch dispatch synchronised {n_adisp} times for {a_reads} "
+          f"detections: {msg!r}")
+    check(n_adisp2 == 0, f"a later ADAPTIVE batch dispatch synchronised {n_adisp2} times: "
+          f"{msg2!r}")
     check(a_thr < 60.0 * 0.7 + 1e-6 and a_thr >= a_tr._extractor.th_min - 1e-6,
           f"batched ADAPTIVE threshold {a_thr}")
 
@@ -1253,6 +1800,9 @@ def main() -> int:
         mode_times(f"ring seed {sd}", system, ms.sum() + flush_ms, finish_ms)
     for (B, sd), (system, wall_ms, finish_ms) in zip(batch_runs, batches):
         mode_times(f"batch {B} seed {sd}", system, wall_ms, finish_ms)
+
+    # ---------------------------------------------------------------- 8
+    launches_disk, batched_disk = disk_phase(dev, smi, kernels)
 
     # ---------------------------------------------------------------- 5
     odo = odos[0]
@@ -1526,7 +2076,8 @@ def main() -> int:
     # `launches_off_path`; an entry named here must show none on a main path,
     # every other entry must show some there.
     paths = {"sweep": (launches_sweep, {}), "tour": (launches_tour, batched_tour),
-             "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch)}
+             "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch),
+             "disk": (launches_disk, batched_disk)}
 
     def path_launches(wrapper, b13):
         out = {}
@@ -1579,6 +2130,8 @@ def main() -> int:
                   f"{entry['launches_off_path']} through its public entry")
         else:
             check(on_path > 0, f"{entry['name']} was launched on no main path")
+            check(entry["launches_disk"] > 0, f"{entry['name']} was not launched on the "
+                  "disk path")
     log(json.dumps(line))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""rgbdslam_tpu_torch — serial RGB-D SLAM (tracking, keyframes, proximity
-edges, BoW loop closure, pose-graph optimization) in PyTorch, with
+"""rgbdslam_tpu_torch — RGB-D SLAM (tracking, keyframes, proximity edges,
+BoW loop closure, pose-graph optimization, maps) in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `rgbdslam_tpu` (JAX/XLA/Pallas), which stays the reference it is
@@ -15,10 +15,16 @@ Subpackages:
   frontend  extractor, per-frame feature build + matching
   solvers   Horn fit, Mahalanobis RANSAC, plane-to-plane GICP, pose-graph
             Levenberg-Marquardt (dense and matrix-free CG)
-  mapping   keyframe and landmark stores, covisibility (host numpy)
+  mapping   keyframe and landmark stores, covisibility (host numpy),
+            keyframe clouds and the occupancy grid
   loop      binary codebook, BoW vectors, loop-candidate detection
-  slam      Tracker, SlamSystem (serial full SLAM), PipelinedOdometry
-  io        synthetic renderer (box room, multi-room), TUM trajectory files
+  slam      Tracker, SlamSystem (serial, ring and batched full SLAM),
+            PipelinedOdometry
+  io        synthetic renderer (box room, multi-room), TUM/ICL/CoRBS
+            datasets, PNG read/write, TUM trajectory files
+  native    the C++ prefetching PNG loader (ctypes)
+  utils     map checkpoints (npz), stage timers and traces
+  viz       PLY / HTML / plot exports, the octomap rebuild
   eval      ATE/RPE
 """
 

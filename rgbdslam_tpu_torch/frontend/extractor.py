@@ -55,6 +55,7 @@ class Extractor:
         self.th_min = cfg.adapt_th_min if th_min is None else th_min
         self.th_max = cfg.adapt_th_max if th_max is None else th_max
         self.threshold = float(cfg.fast_threshold)
+        self.reads = 0       # device-to-host reads made by the retry loop
 
     def build(self, gray: torch.Tensor, depth: torch.Tensor, threshold) -> FrameFeatures:
         """Feature build at a given FAST threshold (a float, or a 0-dim f32
@@ -97,6 +98,7 @@ class Extractor:
         for _ in range(5):
             before = self.threshold
             n_valid = int(f.valid.sum())     # one device-to-host read per round
+            self.reads += 1
             self.adapt(n_valid)
             if n_valid >= self.target_min or self.threshold >= before - 1e-9:
                 break

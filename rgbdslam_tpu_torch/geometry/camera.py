@@ -85,3 +85,25 @@ def unproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tenso
 def valid_depth(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     """Depth validity mask (finite, within (min_depth, max_depth))."""
     return torch.isfinite(depth) & (depth > cam.min_depth) & (depth < cam.max_depth)
+
+
+def camera_from_dict(d: dict) -> Camera:
+    """Camera from a plain dict/JSON (the reference's unused YAML camera
+    loader, System/Utility.cpp:37-64, as a format-agnostic equivalent)."""
+    return Camera(
+        fx=float(d["fx"]), fy=float(d["fy"]),
+        cx=float(d["cx"]), cy=float(d["cy"]),
+        k1=float(d.get("k1", 0.0)), k2=float(d.get("k2", 0.0)),
+        k3=float(d.get("k3", 0.0)), p1=float(d.get("p1", 0.0)),
+        p2=float(d.get("p2", 0.0)),
+        depth_factor=float(d.get("depth_factor", 5000.0)),
+        width=int(d.get("width", 640)), height=int(d.get("height", 480)),
+    )
+
+
+def load_camera(path: str) -> Camera:
+    """Load a camera from a JSON file."""
+    import json
+
+    with open(path) as f:
+        return camera_from_dict(json.load(f))

@@ -30,12 +30,25 @@ host bookkeeping from the blob), so the tracker's ring and batched modes can
 read a keyframe's blob together with other results: with the frame's row in
 the ring, stacked with the batch's other keyframes in batched mode.
 
+Live export (`live_export = (every_n_keyframes, out_dir)`): every N
+keyframes the tracking thread snapshots host state and a worker thread
+rewrites map_viewer.html, trajectory.png, overlay.png and, when the
+big-change epoch advances (a loop closure) and at the end, octomap.npz. The
+worker runs its device work on a CUDA stream of its own, ordered after the
+snapshot by an event: taking a snapshot reads nothing from the device
+(chip_smoke.py counts the tracking thread's synchronisations with the
+worker's jobs held). The worker's host work still competes with the
+tracking thread for the interpreter; PERF.md gives what that costs.
+
 Not yet ported (each raises): local and global bundle adjustment, the
-distributed backend, dense ICP, live export.
+distributed backend, dense ICP.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
 import time
 from typing import Optional
 
@@ -220,7 +233,31 @@ class SlamSystem:
         self.reloc_verifications = 0    # candidate verifications run for LOST frames
         self.kf_backend_ms = []   # wall ms of each keyframe's backend step,
                                   # the loop-closure solve included
-        self.map_epoch = 0        # bumped after each loop-closure optimization
+        # big-change epoch (Map::informNewBigChange, Core/Map.cpp:134-144):
+        # bumped after each loop-closure optimization; the live exporter
+        # rebuilds the occupancy grid when it advances
+        self.map_epoch = 0
+        # during-run export: (every_n_keyframes, out_dir[, min_seconds]) ->
+        # map_viewer.html + trajectory.png + the latest keyframe's
+        # tracked-point overlay.png + (epoch-gated) octomap.npz (the
+        # offline analog of the reference's render loop,
+        # Drawer/Viewer.cpp:83-136, its live overlay texture
+        # Viewer.cpp:122-128 and the big-change octomap rebuild
+        # MapDrawer.cpp:48-71)
+        self.live_export = None
+        self.live_exports_written = 0
+        self.live_exports_dropped = 0   # worker-busy skips
+        self.live_export_errors = []    # the worker's exceptions, as text
+        self._live_q = None
+        self._live_stream = None        # the worker's CUDA stream
+        self._live_last_t = -1e18       # wall-clock export-floor state
+        self._live_final = False        # finish()'s export bypasses the floor
+        self._live_occ_epoch = -1       # epoch of the last octomap.npz write
+        self._live_occ_builder = None   # the worker's incremental grid
+        self._live_keeper = None        # keyframe (gray, depth) references
+        self._live_overlay = None       # (gray, uv, valid, track_inlier) of
+                                        # the latest keyframe
+        self._recent_frames = {}        # ts -> (gray, depth), the last ~40
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 12345)
         # keyframe rows whose descriptors and BoW vectors were not shipped
         # in the slim blob: hydrated from the device bank on demand
@@ -239,29 +276,34 @@ class SlamSystem:
         self._bank = None     # (desc [K, N, 8], xyz [K, N, 3], valid [K, N], bow [K, V])
         self._bow_dev = None  # (words, idf) on the device once a codebook exists
 
-    @property
-    def live_export(self):
-        return None
-
-    @live_export.setter
-    def live_export(self, value):
-        if value is not None:
-            raise NotImplementedError("live_export is not yet ported")
-
     # ------------------------------------------------------------------
+    def _remember_frame(self, ts, gray, depth):
+        """Live export: keep references (no copy, no read) to the last ~40
+        frames, so that a keyframe's own images pair with its features in
+        `_kf_complete`, matched by timestamp in every tracking mode."""
+        if self.live_export is None:
+            return
+        self._recent_frames[float(ts)] = (gray, depth)
+        if len(self._recent_frames) > 40:
+            for t in sorted(self._recent_frames)[:-40]:
+                del self._recent_frames[t]
+
     def track(self, timestamp: float, gray, depth) -> np.ndarray:
+        self._remember_frame(timestamp, gray, depth)
         return self.tracker.track(timestamp, gray, depth)
 
     def track_batch(self, timestamps, grays, depths) -> np.ndarray:
         """B frames enqueued back to back, the keyframe gate on the device,
         one read of their rows; the backend runs per flagged keyframe.
         Returns Tcw (B, 4, 4)."""
-        return self.tracker.track_batch(timestamps, grays, depths)
+        return self.track_batch_complete(self.track_batch_dispatch(timestamps, grays, depths))
 
     def track_batch_dispatch(self, timestamps, grays, depths) -> dict:
         """Double buffering: dispatch batch i+1 before completing batch i,
         so the host's bookkeeping of one batch overlaps the device's work on
         the next."""
+        for ts, g, d in zip(timestamps, grays, depths):
+            self._remember_frame(ts, g, d)
         return self.tracker.track_batch_dispatch(timestamps, grays, depths)
 
     def track_batch_complete(self, h: dict) -> np.ndarray:
@@ -271,6 +313,7 @@ class SlamSystem:
         """Per-frame tracking through the depth-2 ring: one read per frame,
         a keyframe's backend completing one frame late. Returns the previous
         frame's (ts, Tcw), or None."""
+        self._remember_frame(timestamp, gray, depth)
         return self.tracker.track_pipelined(timestamp, gray, depth)
 
     def track_pipelined_flush(self):
@@ -515,6 +558,9 @@ class SlamSystem:
             kf_centers=self.store.centers(),
         )
 
+        if self.live_export is not None:
+            self._live_capture(k, h["ts"], match_valid, N)
+
         # loop closure (detectLoop, Solver/PoseGraph.cpp:245-287): candidate
         # selection and verification already ran on the device; only the
         # host gates and the solve remain
@@ -522,6 +568,8 @@ class SlamSystem:
                 and self._close_loop_from_rows(k, loop_j, loop_valid, ver[C:])):
             self.kfs_since_loop = 0
         self.kf_backend_ms.append(h["ms"] + (time.perf_counter() - t0) * 1e3)
+        if self.live_export is not None and (k + 1) % self.live_export[0] == 0:
+            self._write_live_export()
 
     def _close_loop_from_rows(self, k: int, loop_j, loop_valid, rows: np.ndarray) -> bool:
         """Host half of detectLoop: apply the inlier and match thresholds
@@ -550,6 +598,142 @@ class SlamSystem:
             self.loops_closed += 1
             self.map_epoch += 1
         return closed
+
+    # ------------------------------------------------------------------
+    def _live_capture(self, k: int, ts: float, match_valid, N: int):
+        """Pair keyframe k's own images (by timestamp, from the recent-frame
+        references) with its features, for the tracked-point overlay and the
+        occupancy keeper. No copy of an image, no read of the device."""
+        fr = self._recent_frames.get(float(ts))
+        if fr is None:
+            return
+        if self._live_keeper is None:
+            from rgbdslam_tpu_torch.viz.octomap_export import KeyframeImageKeeper
+
+            self._live_keeper = KeyframeImageKeeper(max_frames=256, materialize=False)
+        self._live_keeper.offer(k, fr[0], fr[1])
+        inl = match_valid if match_valid is not None else np.zeros((N,), bool)
+        self._live_overlay = (fr[0], self.store.uv[k].copy(), self.store.obs_valid[k].copy(),
+                              np.asarray(inl, bool).copy())
+
+    def _write_live_export(self):
+        """Snapshot the map for the export worker (the reference's Viewer::run,
+        Drawer/Viewer.cpp:83-136): host copies of the landmark cloud, the
+        keyframe and camera trajectories, the overlay, the keyframe image
+        references and poses, and a CUDA event after which the worker may
+        read the images. A wall-clock floor (2 s, or the tuple's third
+        element) spaces the exports; a busy worker drops one."""
+        _every, out_dir = self.live_export[:2]
+        min_dt = self.live_export[2] if len(self.live_export) > 2 else 2.0
+        now = time.monotonic()
+        if not self._live_final and now - self._live_last_t < min_dt:
+            return
+        self._live_last_t = now
+        K = self.store.count
+        pw, inten = self.landmarks.world_points()
+        _ts, cam_twc = self.tracker.camera_trajectory()
+        snap = {
+            "out_dir": out_dir,
+            "pw": pw.copy(), "inten": inten.copy(),
+            "poses_twc": se3.inverse_np(self.store.poses_cw[:K]) if K else None,
+            "cam_twc": cam_twc,
+            "overlay": self._live_overlay,
+            "epoch": self.map_epoch,
+            "final": self._live_final,
+            "occ": None,
+            "ready": None,
+        }
+        self._live_overlay = None          # one write per keyframe capture
+        if self._live_keeper is not None and self._live_keeper.images:
+            # the worker's builder inserts only new keyframes per export and
+            # writes the file at epoch boundaries and at the end
+            snap["occ"] = (dict(self._live_keeper.images),
+                           self.store.poses_cw[:self.store.max_keyframes].copy())
+        if self.device.type == "cuda":
+            snap["ready"] = torch.cuda.Event()
+            snap["ready"].record()
+        self._live_enqueue(snap)
+
+    def _live_enqueue(self, snap: dict) -> bool:
+        if self._live_q is None:
+            self._live_q = queue.Queue(maxsize=1)
+            if self.device.type == "cuda":
+                self._live_stream = torch.cuda.Stream(device=self.device)
+
+            def worker():
+                while True:
+                    job = self._live_q.get()
+                    try:
+                        self._live_write_job(job)
+                        self.live_exports_written += 1
+                    except Exception as e:  # noqa: BLE001 (the export must not stop tracking)
+                        self.live_export_errors.append(f"{type(e).__name__}: {e}")
+                    finally:
+                        self._live_q.task_done()
+
+            threading.Thread(target=worker, daemon=True).start()
+        try:
+            self._live_q.put_nowait(snap)
+            return True
+        except queue.Full:                 # worker busy: drop this export
+            self.live_exports_dropped += 1
+            return False
+
+    def live_export_flush(self):
+        """Block until the export worker has drained its queue."""
+        if self._live_q is not None:
+            self._live_q.join()
+
+    def _live_write_job(self, snap: dict):
+        if self._live_stream is None:
+            self._live_files(snap)
+            return
+        with torch.cuda.stream(self._live_stream):
+            self._live_stream.wait_event(snap["ready"])
+            self._live_files(snap)
+
+    def _live_files(self, snap: dict):
+        """The worker's writes, each to a temporary name renamed into place."""
+        from rgbdslam_tpu_torch.viz.export import (draw_tracked_points,
+                                                   plot_trajectory_quick, save_html_viewer)
+
+        out_dir = snap["out_dir"]
+        html = os.path.join(out_dir, "map_viewer.html")
+        # live writes subsample the cloud (15k points) and rasterize the
+        # trajectory directly; the full export is the CLI's at the end
+        save_html_viewer(html + ".tmp", snap["pw"], snap["inten"], snap["poses_twc"],
+                         max_points=15_000)
+        os.replace(html + ".tmp", html)
+        if len(snap["cam_twc"]):
+            png = os.path.join(out_dir, "trajectory.png")
+            plot_trajectory_quick(png + ".tmp.png", snap["cam_twc"])
+            os.replace(png + ".tmp.png", png)
+        if snap["overlay"] is not None:
+            from rgbdslam_tpu_torch.io.png import write_png
+
+            g, uv, valid, inl = snap["overlay"]
+            g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            p = os.path.join(out_dir, "overlay.png")
+            write_png(p + ".tmp.png", draw_tracked_points(g, uv, inl, valid))
+            os.replace(p + ".tmp.png", p)
+        if snap["occ"] is not None:
+            from rgbdslam_tpu_torch.mapping.occupancy import save_grid
+            from rgbdslam_tpu_torch.viz.octomap_export import IncrementalOccupancyBuilder
+
+            if self._live_occ_builder is None:
+                self._live_occ_builder = IncrementalOccupancyBuilder(device=self.device)
+            images, poses_cw = snap["occ"]
+            b = self._live_occ_builder
+            grid, _changed = b.update(self.cam, images, poses_cw, snap["epoch"],
+                                      self.cfg.keyframe)
+            # the npz write reads the grid back and compresses it: only at
+            # epoch boundaries and at the end
+            if grid is not None and (b.epoch > self._live_occ_epoch or snap["final"]):
+                p = os.path.join(out_dir, "octomap.npz")
+                save_grid(p + ".tmp.npz", grid, extra={"epoch": b.epoch},
+                          sparse_cap=2_000_000)
+                os.replace(p + ".tmp.npz", p)
+                self._live_occ_epoch = b.epoch
 
     def _relocalize(self, f: FrameFeatures):
         """LOST-state global relocalization: BoW retrieval over the
@@ -601,6 +785,14 @@ class SlamSystem:
         Solver/PoseGraph.cpp:407-418)."""
         if self.graph.n_vertices > 5:
             self._optimize(self.cfg.pose_graph.opt_iters_default)
+        if self.live_export is not None:
+            # the guaranteed final export: drain the worker, snapshot the
+            # final state (with any pending occupancy write), drain again
+            self.live_export_flush()
+            self._live_final = True
+            self._write_live_export()
+            self._live_final = False
+            self.live_export_flush()
 
     def camera_trajectory(self):
         return self.tracker.camera_trajectory()

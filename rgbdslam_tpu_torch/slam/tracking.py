@@ -373,8 +373,9 @@ class Tracker:
     # pose), backend corrections land at batch boundaries, and the ADAPTIVE
     # feedback runs on the device between frames (x0.7 / x1.3 in the carry)
     # instead of the serial path's within-frame re-detection. The first frame
-    # of a run is built at the carried threshold as well (the JAX package
-    # re-detects it on the host), so that no dispatch waits for the device.
+    # of a run goes through the host extractor as in the JAX package: with
+    # ADAPTIVE its re-detections read the device, so the run's first dispatch
+    # then waits once per detection; every other dispatch reads nothing.
     # ------------------------------------------------------------------
     def track_batch(self, timestamps, grays, depths) -> np.ndarray:
         """Process B frames: `track_batch_dispatch`, then
@@ -403,9 +404,17 @@ class Tracker:
             # the ADAPTIVE threshold rides the carry, seeded from the host
             thr = torch.full((), ex.threshold, dtype=torch.float32, device=dev)
             if self.state is TrackerState.NOT_INITIALIZED:
-                f0 = ex.build(upload(grays[0], dev).to(torch.float32),
-                              upload(depths[0], dev).to(torch.float32), thr)
-                thr = ex.adapt_on_device(thr, torch.sum(f0.valid).to(torch.float32))
+                g0 = upload(grays[0], dev).to(torch.float32)
+                d0 = upload(depths[0], dev).to(torch.float32)
+                if ex.adaptive:
+                    # the JAX package's first frame: the host extractor with
+                    # its within-frame re-detections (one read per
+                    # detection), the carry seeded with the threshold it
+                    # leaves
+                    f0 = ex(g0, d0)
+                    thr = torch.full((), ex.threshold, dtype=torch.float32, device=dev)
+                else:
+                    f0 = ex.build(g0, d0, thr)
                 Tcw0 = np.eye(4, dtype=np.float32)
                 h["init_kf"] = self._initialize(timestamps[0], f0, Tcw0, dispatch=True)
                 self.trajectory.append(TrackedFrame(timestamps[0], Tcw0, Tcw0.copy(), 0, 0))

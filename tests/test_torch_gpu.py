@@ -895,9 +895,11 @@ def test_ring_on_card_within_sync_budget(dev, kernels):
 
 def test_adaptive_batch_on_card(dev, kernels):
     """tests/test_extractor_cli.py's batched ADAPTIVE scenario on the card:
-    9 frames from threshold 60; the threshold evolves on the device (kernel
-    A reads it from there), the dispatch never waits, and the host extractor
-    takes the last row's threshold at completion."""
+    9 frames from threshold 60, then 9 more. The run's first frame is
+    re-detected on the host as in the JAX package (one read per round, the
+    run's only waits); then the threshold evolves on the device (kernel A
+    reads it from there), a later dispatch never waits, and the host
+    extractor takes the last row's threshold at completion."""
     from rgbdslam_tpu_torch.config import ExtractorConfig, SlamConfig
     from rgbdslam_tpu_torch.geometry.camera import Camera
     from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
@@ -909,11 +911,19 @@ def test_adaptive_batch_on_card(dev, kernels):
                                                adapt_target_max=120),
                      adaptive=True)
     ds = SyntheticDataset(n_frames=48, cam=cam, trajectory="orbit", device=dev)
-    frames = [ds.grab(i) for i in range(9)]
+    frames = [ds.grab(i) for i in range(18)]
     tr = Tracker(cam, cfg, seed=0, device=dev)
     kernels.reset_launch_counts()
-    n, h = _sync_calls(lambda: tr.track_batch_dispatch(*zip(*frames)))
-    assert n == 0 and kernels.LAUNCHES["detect_keypoints_fused"] == 9
+    n, h = _sync_calls(lambda: tr.track_batch_dispatch(*zip(*frames[:9])))
+    reads = tr._extractor.reads
+    # a detection per round of the first frame (the last round's unread
+    # when the rounds run out), then one per frame
+    assert reads >= 2 and n == reads
+    assert kernels.LAUNCHES["detect_keypoints_fused"] - 8 in (reads, reads + 1)
     tr.track_batch_complete(h)
     assert tr._extractor.threshold < 60.0 * 0.7 + 1e-6
     assert tr._extractor.threshold >= tr._extractor.th_min - 1e-6
+    kernels.reset_launch_counts()
+    n, h = _sync_calls(lambda: tr.track_batch_dispatch(*zip(*frames[9:])))
+    assert n == 0 and kernels.LAUNCHES["detect_keypoints_fused"] == 9
+    tr.track_batch_complete(h)

@@ -282,11 +282,10 @@ def test_unported_configuration_raises(field):
 def test_unported_modes_raise():
     import dataclasses
 
-    # the batched and ring modes run since they were ported
-    # (tests/test_torch_batch_ring.py); these still wait
-    system = SlamSystem(Camera(**CAM_ARGS), TCFG, device="cpu")
-    for call in (lambda: setattr(system, "live_export", (5, "/tmp/x")),
-                 lambda: Tracker(Camera(**CAM_ARGS),
+    # the batched and ring modes (tests/test_torch_batch_ring.py) and the
+    # live export (tests/test_torch_disk_slam.py) run since they were
+    # ported; these still wait
+    for call in (lambda: Tracker(Camera(**CAM_ARGS),
                                  dataclasses.replace(TCFG, use_dense_icp=True), device="cpu"),
                  lambda: SlamSystem(Camera(**CAM_ARGS),
                                     dataclasses.replace(TCFG, use_local_ba=True), device="cpu"),

@@ -73,5 +73,7 @@ def test_tour_renders_occlusion():
 def test_unknown_dataset_or_trajectory_raises():
     with pytest.raises(ValueError, match="unknown trajectory"):
         tsyn.SyntheticDataset(n_frames=4, trajectory="spiral")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a directory is a disk dataset since they were ported
+    # (tests/test_torch_datasets.py): one without associations.txt raises
+    with pytest.raises(FileNotFoundError, match="associations.txt"):
         open_dataset("/data/rgbd_dataset_freiburg1_xyz")

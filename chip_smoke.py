@@ -51,7 +51,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                the CPU's stage by stage, and the native loader's frames and
                run equal the Python loader's (or, where it does not build,
                the CLI falls back with a message); loader, run, checkpoint,
-               rebuild and export times.
+               rebuild and export times;
+  9. accuracy — dense ICP alone on five tour pairs (the card against the
+               CPU within 1e-4 m / rad; ms, launches, no host sync per call);
+               the tour with dense ICP through serial, ring and batches of 8
+               (seeds 0-2: median ATE < 0.05 m, the revisit closed, host
+               synchronisations to the budgets: serial one more per polished
+               frame, the ring one per frame, none in a batch dispatch), and
+               with local and with global BA (serial: median ATE < 0.05 m,
+               one read per solve, a global solve after each loop and at
+               finish()); the Kinect-noise tour with a real revisit
+               (tour_trajectory(128, loops=1.15), noise fields drawn on the
+               host with numpy for seeds 0-2, the card's noisy pixels equal
+               to the CPU's) through base, --noise-robust, --noise-robust
+               --local-ba and --noise-robust --global-ba: finite poses,
+               failures <= 15 %, the --noise-robust median ATE within 1.5 x
+               the JAX package's on the same frames + 0.01 m; BA solves alone
+               (ms, launches, no host sync); launch counts by the formulas.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -838,6 +854,377 @@ def disk_phase(dev, smi: str, kernels, n: int = 128):
         return launches_disk, batched_disk
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# The JAX package's --noise-robust runs of the Kinect-noise tour on the same
+# noisy frames as phase 9 (640x480, tour_trajectory(128, loops=1.15), noise
+# seeds 0-2 drawn by kinect_noise_fields and applied by apply_sensor_noise,
+# the RANSAC seed equal to the noise seed), ATE in m, on the CPU:
+#   python tools/tour_reference_jax.py --loops 1.15 --noise --config noise-robust
+JAX_NOISE_ROBUST_ATE = (0.04776, 0.03176, 0.02102)
+
+def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
+    """Phase 9: the accuracy path of full SLAM on the card.
+
+    Dense ICP alone on five tour pairs against the port's CPU dense_icp;
+    the slam cell's clean tour with dense ICP through serial `track`, the
+    ring and batches of 8, and with local and with global BA (serial); the
+    Kinect-noise tour with a real revisit (tour_trajectory(128,
+    loops=1.15)), its noise drawn on the host with numpy for seeds 0-2,
+    through four configurations (base, --noise-robust, --noise-robust
+    --local-ba, --noise-robust --global-ba), the --noise-robust median held
+    to the JAX package's on the same frames. `dense_off`: phase 6/7's
+    ms/frame per mode and seed, printed beside the dense runs'. Returns the
+    phase's main-path launch counts (all and batched)."""
+    import dataclasses
+
+    from rgbdslam_tpu_torch.config import LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import (MULTIROOM_BOXES, MULTIROOM_HALF,
+                                                 SyntheticDataset, apply_sensor_noise,
+                                                 kinect_noise_fields, render_frame)
+    from rgbdslam_tpu_torch.slam import tracking
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+    from rgbdslam_tpu_torch.solvers.ba import BAEdges, local_ba
+    from rgbdslam_tpu_torch.solvers.dense_icp import dense_icp
+
+    t_phase = time.perf_counter()
+    base = SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
+    dense_cfg = dataclasses.replace(base, use_dense_icp=True)
+    lba_cfg = dataclasses.replace(base, use_local_ba=True)
+    gba_cfg = dataclasses.replace(base, use_global_ba=True)
+    n_tour = len(tour_frames)
+    seeds = (0, 1, 2)
+
+    # ---- dense ICP alone: five pairs of the tour, the tracker's call
+    # (levels (4, 2), ten rounds each, trust bound (0.1 m, 0.1 rad)) from the
+    # true motion perturbed by ~1 cm / 0.5 deg. (Sweep pairs facing the one
+    # flat wall leave the along-wall motion unobserved: there the solve
+    # slides until the trust bound decides, on either side of it by
+    # rounding, so they hold no implementation to 1e-4.)
+    xi = torch.tensor([0.01, -0.01, 0.01, 0.005, -0.005, 0.005])
+    kw = dict(levels=base.dense_icp_levels, max_correction=(0.1, 0.1))
+    P = tour.poses_twc
+    for i in (0, 30, 60, 90, 120):
+        T_gt = torch.from_numpy((np.linalg.inv(P[i + 1]) @ P[i]).astype(np.float32))
+        T0 = se3.exp(xi) @ T_gt
+        d_a, d_b = tour_frames[i][2], tour_frames[i + 1][2]
+        T_dev = dense_icp(SYNTHETIC, d_a, d_b, T0.to(dev), **kw).cpu()
+        T_cpu = dense_icp(SYNTHETIC, d_a.cpu(), d_b.cpu(), T0, **kw)
+        # the rotation by the atan2 log in float64: an arccos of the trace
+        # reads ~5e-4 rad from the f32 matrices' rounding alone
+        gap = se3.inverse(T_cpu.double()) @ T_dev.double()
+        dt = float(se3.translation_norm(gap))
+        dr = float(torch.linalg.norm(se3.log_smooth(gap)[3:]))
+        e0 = float(se3.translation_norm(se3.inverse(T0) @ T_gt))
+        e1 = float(se3.translation_norm(se3.inverse(T_dev) @ T_gt))
+        log(f"[accuracy] dense_icp tour pair ({i}, {i + 1}): card against CPU translation "
+            f"{dt:.3g} m, rotation {dr:.3g} rad; error to the truth {e0:.5f} -> {e1:.5f} m")
+        check(dt < 1e-4 and dr < 1e-4, f"dense_icp pair {i}: the card differs from the CPU "
+              f"by {dt} m, {dr} rad (tolerance 1e-4)")
+        check(e1 < e0, f"dense_icp pair {i}: no closer to the truth ({e0} -> {e1})")
+
+    T0 = T0.to(dev)
+
+    def one_icp():
+        return dense_icp(SYNTHETIC, d_a, d_b, T0, **kw)
+
+    icp_ms = cuda_ms(one_icp)
+    # one call a window: over four replays the tracer has dropped a few of
+    # the graph's ~8,000 kernel records
+    icp_launches = device_launches(one_icp, reps=1)
+    n_icp_sync, msg, _ = sync_calls(one_icp)
+    log(f"[accuracy] dense_icp 640x480, levels {base.dense_icp_levels}: {icp_ms:.4f} ms per "
+        f"call back to back (CUDA events), {icp_launches} device launches per call, "
+        f"{n_icp_sync} host synchronisations ({smi})")
+    check(n_icp_sync == 0, f"dense_icp synchronised {n_icp_sync} times: {msg!r}")
+
+    # ---- the runs: every polish counted (one host read each in serial
+    # mode, none in the ring or a batch)
+    polishes = [0]
+    real_dense = tracking.dense_icp
+
+    def counting_dense(*a, **k):
+        polishes[0] += 1
+        return real_dense(*a, **k)
+
+    def counts(system):
+        st = system.tracker.stats
+        return (st.estimates, system.store.count, system.loops_closed,
+                system.reloc_verifications, polishes[0],
+                len(system.local_ba_ms) + len(system.global_ba_ms))
+
+    def drive(cfg, seed, mode, frames, syncs=None):
+        """One run of `mode` (serial, ring, batch 8 double-buffered). With
+        `syncs` (a dict) every call runs under the sync debug mode and is
+        held to its budget: serial one read per estimate, polish, keyframe,
+        loop closure and BA solve, two per relocalization; the ring one per
+        frame once a frame is in it (the polish rides inside), plus
+        retries, loop closures and BA solves; a batch dispatch none, a
+        completion one for its rows, one for its keyframes' blobs, plus
+        loop closures, BA solves and relocalizations. Returns (system, wall
+        ms of the frames, finish ms)."""
+        system = SlamSystem(SYNTHETIC, cfg, seed=seed, device=dev)
+        system.load_vocabulary(voc)
+
+        def call(kind, fn, budget_of):
+            if syncs is None:
+                return fn()
+            before = counts(system)
+            n, msg, out = sync_calls(fn)
+            budget = budget_of(*(a - b for a, b in zip(counts(system), before)))
+            rec = syncs.setdefault(kind, {"calls": 0, "syncs": set()})
+            rec["calls"] += 1
+            rec["syncs"].add(n)
+            check(n == budget, f"{mode} seed {seed} {kind}: {n} synchronisations, budget "
+                  f"{budget}; first: {msg!r}")
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "serial":
+            for i, f in enumerate(frames):
+                call("first frame" if i == 0 else "frame",
+                     lambda: system.track(*f),
+                     lambda dE, dK, dL, dR, dP, dB: dE + dP + dK + dL + 2 * dR + dB)
+        elif mode == "ring":
+            for i, f in enumerate(frames):
+                had_row = system.tracker._pipe is not None
+                call("first frame" if i == 0 else "frame",
+                     lambda: system.track_pipelined(*f),
+                     lambda dE, dK, dL, dR, dP, dB, i=i, had=had_row:
+                     dK if i == 0 else int(had) + (dE - 1) + dL + 2 * dR + dB)
+            call("flush", system.track_pipelined_flush,
+                 lambda dE, dK, dL, dR, dP, dB: 1 + dK + dE + dL + 2 * dR + dB)
+        else:
+            pending = None
+            for i in range(0, len(frames), 8):
+                h = call("dispatch", lambda i=i: system.track_batch_dispatch(
+                    *zip(*frames[i:i + 8])), lambda *d: 0)
+                if pending is not None:
+                    call("completion", lambda p=pending: system.track_batch_complete(p),
+                         lambda dE, dK, dL, dR, dP, dB: 1 + int(dK > 0) + dL + 2 * dR + dB)
+                pending = h
+            call("completion", lambda: system.track_batch_complete(pending),
+                 lambda dE, dK, dL, dR, dP, dB: 1 + int(dK > 0) + dL + 2 * dR + dB)
+        wall_ms = 1000 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        call("finish", system.finish, lambda dE, dK, dL, dR, dP, dB: 1 + dB)
+        return system, wall_ms, 1000 * (time.perf_counter() - t0)
+
+    def gates(tag, system, ds):
+        """ATE, finite poses, failures <= 15 %, the graph consistent."""
+        ts_c, poses_c = system.camera_trajectory()
+        rmse, info = ate_rmse(ts_c, poses_c, ds.timestamps, ds.poses_twc)
+        K, st = system.store.count, system.tracker.stats
+        check(poses_c.shape == (len(ds), 4, 4) and np.isfinite(poses_c).all(),
+              f"{tag}: poses not finite")
+        check(system.graph.n_vertices == K, f"{tag}: graph and store out of step")
+        check(st.failures <= 0.15 * len(ds), f"{tag}: {st.failures} tracking failures")
+        return rmse
+
+    def by_kind(syncs):
+        return json.dumps({k: [sorted(v["syncs"]), v["calls"]] for k, v in syncs.items()})
+
+    tally = {"frames": 0, "E": 0, "KF": 0, "R": 0}
+
+    def tallied(system, n):
+        tally["frames"] += n
+        tally["E"] += system.tracker.stats.estimates
+        tally["KF"] += system.store.count
+        tally["R"] += system.reloc_verifications
+        return system
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.dense_icp = counting_dense
+    try:
+        with plain_versions_forbidden(kernels):
+            # ---- the clean tour with dense ICP, three modes
+            for mode in ("serial", "ring", "batch 8"):
+                ates, row = [], []
+                for sd in seeds:
+                    p0 = polishes[0]
+                    system, wall_ms, finish_ms = drive(dense_cfg, sd, mode.split()[0],
+                                                       tour_frames)
+                    tallied(system, n_tour)
+                    rmse = gates(f"dense {mode} seed {sd}", system, tour)
+                    K = system.store.count
+                    revisit = system.graph.edges_spanning(10, K - 10)
+                    check(len(revisit) >= 1, f"dense {mode} seed {sd}: revisit not closed")
+                    ates.append(rmse)
+                    row.append(f"seed {sd}: {wall_ms / n_tour:.3f} (dense off "
+                               f"{dense_off[mode][sd]:.3f})")
+                    log(f"[accuracy] dense ICP {mode} seed {sd}: ATE {rmse:.5f} m, keyframes "
+                        f"{K}, loops {system.loops_closed}, revisit {revisit}, failures "
+                        f"{system.tracker.stats.failures}, polishes {polishes[0] - p0}, "
+                        f"{wall_ms / n_tour:.3f} ms/frame, finish {finish_ms:.1f} ms")
+                med = float(np.median(ates))
+                log(f"[times] dense ICP {mode}: ms/frame {'; '.join(row)}; ATE median "
+                    f"{med:.5f} m ({smi})")
+                check(med < 0.05, f"dense ICP {mode}: median ATE {med} m >= 0.05 m")
+            # synchronisations, one more run of each mode (seed 1)
+            for mode in ("serial", "ring", "batch"):
+                syncs = {}
+                system, _, _ = drive(dense_cfg, 1, mode, tour_frames, syncs=syncs)
+                tallied(system, n_tour)
+                log(f"[accuracy] dense ICP {mode} seed 1 synchronisations per call by kind "
+                    f"{by_kind(syncs)} ([counts seen], calls); all to the budget")
+
+            # ---- the clean tour with local and with global BA, serial
+            ba_runs = {}
+            for tag, cfg in (("local BA", lba_cfg), ("global BA", gba_cfg)):
+                ates = []
+                for sd in seeds:
+                    system, wall_ms, finish_ms = drive(cfg, sd, "serial", tour_frames)
+                    tallied(system, n_tour)
+                    rmse = gates(f"{tag} seed {sd}", system, tour)
+                    ates.append(rmse)
+                    ba_runs[(tag, sd)] = system
+                    n_l, n_g = len(system.local_ba_ms), len(system.global_ba_ms)
+                    ms_l = float(np.mean(system.local_ba_ms)) if n_l else 0.0
+                    log(f"[accuracy] {tag} seed {sd}: ATE {rmse:.5f} m, keyframes "
+                        f"{system.store.count}, loops {system.loops_closed}, local BA solves "
+                        f"{n_l} ({ms_l:.2f} ms each), global BA solves {n_g} "
+                        f"{json.dumps([round(x, 1) for x in system.global_ba_ms])} ms, "
+                        f"{wall_ms / n_tour:.3f} ms/frame (dense off "
+                        f"{dense_off['serial'][sd]:.3f}), finish {finish_ms:.1f} ms ({smi})")
+                    if cfg.use_local_ba:
+                        check(n_l > 0, f"{tag} seed {sd}: no local solve")
+                    if cfg.use_global_ba:
+                        check(n_g == system.loops_closed + 1,
+                              f"{tag} seed {sd}: {n_g} global solves, {system.loops_closed} "
+                              "loops")
+                med = float(np.median(ates))
+                log(f"[accuracy] {tag}: ATE median {med:.5f} m")
+                check(med < 0.05, f"{tag}: median ATE {med} m >= 0.05 m")
+            syncs = {}
+            both = dataclasses.replace(base, use_local_ba=True, use_global_ba=True)
+            system, _, _ = drive(both, 1, "serial", tour_frames, syncs=syncs)
+            tallied(system, n_tour)
+            log(f"[accuracy] local + global BA serial seed 1 synchronisations per call "
+                f"{by_kind(syncs)}; {len(system.local_ba_ms)} local and "
+                f"{len(system.global_ba_ms)} global solves, one read each")
+
+            # ---- the Kinect-noise tour
+            noisy = SyntheticDataset(n_frames=n_tour, cam=SYNTHETIC, trajectory="tour",
+                                     loops=1.15, device=dev)
+            clean = [noisy.grab(i) for i in range(n_tour)]
+            configs = (("base", base), ("noise-robust", dense_cfg),
+                       ("noise-robust + local BA", dataclasses.replace(dense_cfg,
+                                                                       use_local_ba=True)),
+                       ("noise-robust + global BA", dataclasses.replace(dense_cfg,
+                                                                        use_global_ba=True)))
+            noisy_ates = {name: [] for name, _ in configs}
+            h, w = SYNTHETIC.height, SYNTHETIC.width
+            for sd in seeds:
+                t0 = time.perf_counter()
+                frames = []
+                for i, (ts, g, d) in enumerate(clean):
+                    fields = kinect_noise_fields(sd, i, h, w)
+                    frames.append((ts, *apply_sensor_noise(SYNTHETIC, g, d, None, *fields)))
+                    if i == 64:
+                        # the same noisy pixels as the CPU's (the JAX reference's)
+                        gc, dc = render_frame(SYNTHETIC, noisy.poses_twc[i], "cpu",
+                                              MULTIROOM_HALF, MULTIROOM_BOXES)
+                        gc, dc = apply_sensor_noise(SYNTHETIC, gc, dc, None, *fields)
+                        dg = float((frames[-1][1].cpu() - gc).abs().max())
+                        dd = float((frames[-1][2].cpu() - dc).abs().max())
+                        check(dg == 0.0 and dd == 0.0, f"noisy frame {i} seed {sd}: the "
+                              f"card's differs from the CPU's by {dg}, {dd}")
+                torch.cuda.synchronize()
+                noise_ms = 1000 * (time.perf_counter() - t0) / n_tour
+                for name, cfg in configs:
+                    system, wall_ms, finish_ms = drive(cfg, sd, "serial", frames)
+                    tallied(system, n_tour)
+                    rmse = gates(f"noisy {name} seed {sd}", system, noisy)
+                    noisy_ates[name].append(rmse)
+                    n_g = len(system.global_ba_ms)
+                    log(f"[accuracy] noisy tour {name} seed {sd}: ATE {rmse:.5f} m, keyframes "
+                        f"{system.store.count}, loops {system.loops_closed}, failures "
+                        f"{system.tracker.stats.failures}, relocalizations "
+                        f"{system.tracker.stats.relocalizations}, local BA solves "
+                        f"{len(system.local_ba_ms)}, global BA solves {n_g}, "
+                        f"{wall_ms / n_tour:.3f} ms/frame, finish {finish_ms:.1f} ms "
+                        f"(noise drawn and applied in {noise_ms:.3f} ms/frame) ({smi})")
+                    if cfg.use_global_ba:
+                        check(n_g == system.loops_closed + 1,
+                              f"noisy {name} seed {sd}: {n_g} global BA solves for "
+                              f"{system.loops_closed} loops")
+                del frames
+    finally:
+        tracking.dense_icp = real_dense
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    jax_med = float(np.median(JAX_NOISE_ROBUST_ATE))
+    for name, ates in noisy_ates.items():
+        log(f"[accuracy] noisy tour {name}: ATE median {float(np.median(ates)):.5f} m, seeds "
+            f"{json.dumps([round(a, 5) for a in ates])}")
+    nr = float(np.median(noisy_ates["noise-robust"]))
+    limit = 1.5 * jax_med + 0.01
+    log(f"[accuracy] noisy tour --noise-robust: median {nr:.5f} m; the JAX package's on the "
+        f"same frames {jax_med:.5f} m (CPU, {json.dumps(JAX_NOISE_ROBUST_ATE)}), bound "
+        f"{limit:.5f} m")
+    check(nr <= limit, f"--noise-robust median ATE {nr} m above {limit} m")
+
+    # ---- BA solves alone: a window of seed 1's local-BA run and the whole
+    # map of its global-BA run, ms per solve by CUDA events, launches, waits
+    for tag, (system, cfg) in (("local BA", (ba_runs[("local BA", 1)], lba_cfg)),
+                               ("global BA", (ba_runs[("global BA", 1)], gba_cfg))):
+        K = system.store.count
+        if tag == "local BA":
+            W = cfg.ba_window
+            problem, lm_ids, _ = system.landmarks.window_problem(
+                K - W, K - 1, system.store.poses_cw, device=dev)
+            fixed = torch.arange(W, device=dev) == 0
+            edges, iters = None, cfg.ba_iterations
+        else:
+            pad_k = 4
+            while pad_k < K:
+                pad_k *= 2
+            problem, lm_ids, _ = system.landmarks.window_problem(
+                0, K - 1, system.store.poses_cw, pad_k=pad_k, device=dev)
+            fixed = (torch.arange(pad_k, device=dev) == 0) | (torch.arange(pad_k, device=dev) >= K)
+            g = system.graph
+            E = g.n_edges
+            edges = BAEdges(a=torch.from_numpy(g.e_a[:E].astype(np.int64)).to(dev),
+                            b=torch.from_numpy(g.e_b[:E].astype(np.int64)).to(dev),
+                            Z=torch.from_numpy(g.e_Z[:E]).to(dev),
+                            w=torch.from_numpy(g.e_w[:E] * cfg.ba_edge_scale).to(dev))
+            iters = cfg.global_ba_iterations
+
+        def solve():
+            return local_ba(SYNTHETIC, problem, fixed, iters, edges=edges,
+                            edge_huber=system.graph.huber_delta)
+
+        ms = cuda_ms(solve, iters=3, warmup=1)
+        n_launch = device_launches(solve, reps=1)
+        n_sync, msg, _ = sync_calls(solve)
+        log(f"[accuracy] {tag} alone, {problem.Tcw.shape[0]} keyframes x "
+            f"{problem.Xw.shape[0]} landmark slots ({len(lm_ids)} used) x "
+            f"{problem.obs_kf.shape[1]} observations, {iters} LM rounds: {ms:.3f} ms per "
+            f"solve (CUDA events), {n_launch} device launches, {n_sync} host "
+            f"synchronisations ({smi})")
+        check(n_sync == 0, f"{tag}: the solve synchronised {n_sync} times ({msg!r})")
+
+    E, KF, R = tally["E"], tally["KF"], tally["R"]
+    expect = {
+        "detect_score_map": 0, "detect_keypoints_fused": tally["frames"],
+        "hamming_match_2nn": E + 2 * KF + R, "match_gates": E + 2 * KF + R,
+        "mahal_hypothesis_scores": 0, "ransac_se3_fused": E + KF + R,
+        "gicp_refine_fused": E, "gicp_gn_normal_equations": 0}
+    log(f"[accuracy] launches over the phase's runs {json.dumps(launches)}; formula with "
+        f"frames={tally['frames']}, E={E}, KF={KF}, R={R} -> {json.dumps(expect)}; batched "
+        f"{json.dumps(batched)}")
+    check(launches == expect, f"accuracy launch counts {launches} != {expect}")
+    check(batched == {"hamming_match_2nn": KF + R, "match_gates": KF + R,
+                      "mahal_hypothesis_scores": 0, "ransac_se3_fused": KF + R},
+          f"accuracy batched launches {batched}")
+    log(f"[accuracy] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, batched
 
 
 def main() -> int:
@@ -2065,6 +2452,17 @@ def main() -> int:
         "RANSAC are held by their dependent block reductions (10, 1 and 2 + 4 x "
         f"{rc.refine_iters}) and serial solves and Horn fits, not by throughput")
 
+    # ---------------------------------------------------------------- 9
+    # last: run before phase 5, it left phase 5's shortest profiler windows
+    # (one launch a call) without device events
+    dense_off = {
+        "serial": [ms.sum() / n_tour for _, ms, _ in tours],
+        "ring": [(ms.sum() + flush_ms) / n_tour for _, ms, flush_ms, _ in rings],
+        "batch 8": [wall_ms / n_tour for (B, _), (_, wall_ms, _) in zip(batch_runs, batches)
+                    if B == 8]}
+    launches_accuracy, batched_accuracy = accuracy_phase(
+        dev, smi, kernels, tour, tour_frames, voc, dense_off)
+
     # launches per entry and main path (the sweep's pipeline, the tour
     # through the serial, ring and batched modes), each path driven with the
     # counts set to 0 just before it and read just after; an unbatched entry
@@ -2077,7 +2475,8 @@ def main() -> int:
     # every other entry must show some there.
     paths = {"sweep": (launches_sweep, {}), "tour": (launches_tour, batched_tour),
              "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch),
-             "disk": (launches_disk, batched_disk)}
+             "disk": (launches_disk, batched_disk),
+             "accuracy": (launches_accuracy, batched_accuracy)}
 
     def path_launches(wrapper, b13):
         out = {}
@@ -2130,8 +2529,9 @@ def main() -> int:
                   f"{entry['launches_off_path']} through its public entry")
         else:
             check(on_path > 0, f"{entry['name']} was launched on no main path")
-            check(entry["launches_disk"] > 0, f"{entry['name']} was not launched on the "
-                  "disk path")
+            for path in ("disk", "accuracy"):
+                check(entry[f"launches_{path}"] > 0,
+                      f"{entry['name']} was not launched on the {path} path")
     log(json.dumps(line))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

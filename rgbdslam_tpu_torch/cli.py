@@ -18,7 +18,13 @@ On a synthetic sequence, and on the CPU at a small size (slow at 640x480):
       --cell-size 8 --fast-threshold 15
 
 `--batch B` (B > 1) tracks B frames per host read, `--ring` through the
-depth-2 ring (one read per frame); without either, frame by frame.
+depth-2 ring (one read per frame); without either, frame by frame. The
+accuracy flags work in each mode: `--dense-icp` polishes every successful
+estimate by dense projective ICP against the previous depth,
+`--noise-robust` is the noisy-sensor preset (dense ICP with the shipped
+vocabulary), `--local-ba` bundle-adjusts the last keyframes' window at each
+keyframe, `--global-ba` every keyframe and landmark after each loop closure
+and at the end.
 `--odometry-only` runs the bare tracker in any of these modes; `--pipelined
 B` the odometry-only pipeline, B frames per host round trip.
 `--native-loader` reads a directory through the C++ prefetching loader
@@ -32,8 +38,8 @@ observations in world coordinates), octomap.npz + octomap_voxels.ply (the
 occupancy grid rebuilt from every keyframe's cloud under the final poses),
 map_viewer.html and trajectory.png. One JSON line with the counts and,
 against the ground truth (--eval-gt, else <dir>/groundtruth.txt, else the
-synthetic poses), the ATE and RPE. Dense ICP, bundle adjustment and the
-distributed backend raise "not yet ported".
+synthetic poses), the ATE and RPE. The distributed backend raises "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import os
 import sys
 import time
 
-WAITING = ("dense_icp", "noise_robust", "local_ba", "global_ba", "distributed")
+WAITING = ("distributed",)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -106,9 +112,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="synthetic image width (default 640); the intrinsics scale with it")
     p.add_argument("--height", type=int, default=None, help="synthetic image height")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
-    for flag in ("--dense-icp", "--noise-robust", "--local-ba", "--global-ba",
-                 "--distributed"):
-        p.add_argument(flag, action="store_true", help="not yet ported")
+    p.add_argument("--dense-icp", action="store_true",
+                   help="dense projective point-to-plane refinement per frame")
+    p.add_argument("--noise-robust", action="store_true",
+                   help="the noisy-sensor preset: dense ICP + the shipped vocabulary")
+    p.add_argument("--local-ba", action="store_true",
+                   help="sliding-window landmark bundle adjustment")
+    p.add_argument("--global-ba", action="store_true",
+                   help="full-map landmark BA after loop closures and at shutdown")
+    p.add_argument("--distributed", action="store_true", help="not yet ported")
     return p
 
 
@@ -192,6 +204,9 @@ def main(argv=None) -> int:
                                   cell_size=args.cell_size,
                                   fast_threshold=args.fast_threshold),
         loop=LoopConfig(id_interval=args.loop_interval),
+        use_dense_icp=args.dense_icp or args.noise_robust,
+        use_local_ba=args.local_ba,
+        use_global_ba=args.global_ba,
         detector=args.detector,
         adaptive=args.adaptive,
     )

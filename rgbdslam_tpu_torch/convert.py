@@ -3,7 +3,8 @@
 The system has no learned weights. What a run carries is its config, the
 BRIEF pattern (the same numpy draw in both packages), the per-frame
 features the next frame is matched against, the vocabulary, the keyframe
-bank and pose-graph edges (the per-keyframe result blob is one f32 array:
+bank, pose-graph edges and bundle-adjustment problems (the per-keyframe
+result blob is one f32 array:
 `torch.from_numpy` / `.numpy()` carry it). Descriptor words cross as uint32
 bits viewed as int32.
 """
@@ -110,3 +111,42 @@ def pose_graph_edges_from_numpy(a, b, Z, weight, device="cpu"):
         Z=torch.as_tensor(np.asarray(Z, dtype=np.float32), device=device),
         weight=torch.as_tensor(np.asarray(weight, dtype=np.float32), device=device))
 
+
+BA_PROBLEM_FIELDS = ("Tcw", "Xw", "lm_valid", "obs_kf", "obs_uv", "obs_valid", "obs_z")
+_BA_DTYPES = {"Tcw": np.float32, "Xw": np.float32, "lm_valid": bool, "obs_kf": np.int64,
+              "obs_uv": np.float32, "obs_valid": bool, "obs_z": np.float32}
+
+
+def ba_problem_from_numpy(p, device="cpu"):
+    """solvers.ba.BAProblem on `device` from the JAX package's BAProblem
+    (or any mapping or object with its fields) as host arrays; int32
+    observation indices become int64."""
+    import torch
+
+    from rgbdslam_tpu_torch.solvers.ba import BAProblem
+
+    get = p.__getitem__ if isinstance(p, dict) else lambda n: getattr(p, n)
+    return BAProblem(**{n: torch.tensor(np.asarray(get(n), dtype=_BA_DTYPES[n]), device=device)
+                        for n in BA_PROBLEM_FIELDS})
+
+
+def ba_problem_to_numpy(p) -> Dict[str, np.ndarray]:
+    """Field name -> host array of a BAProblem of either package."""
+    out = {}
+    for n in BA_PROBLEM_FIELDS:
+        a = getattr(p, n)
+        out[n] = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return out
+
+
+def ba_edges_from_numpy(a, b, Z, w, device="cpu"):
+    """solvers.ba.BAEdges from the JAX package's edge arrays (int32 vertex
+    indices become int64)."""
+    import torch
+
+    from rgbdslam_tpu_torch.solvers.ba import BAEdges
+
+    return BAEdges(a=torch.tensor(np.asarray(a, dtype=np.int64), device=device),
+                   b=torch.tensor(np.asarray(b, dtype=np.int64), device=device),
+                   Z=torch.tensor(np.asarray(Z, dtype=np.float32), device=device),
+                   w=torch.tensor(np.asarray(w, dtype=np.float32), device=device))

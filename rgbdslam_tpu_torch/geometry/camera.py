@@ -82,6 +82,22 @@ def unproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tenso
     return torch.stack([x, y, depth], dim=-1)
 
 
+def depth_to_points(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """Dense backprojection of a metric depth image (H, W) -> (H, W, 3);
+    pixels without depth give z = 0 points (callers mask on z). The
+    division by the focal length is a product with its f32 reciprocal, as
+    XLA compiles it and as PyTorch's CUDA kernels do, so every device
+    rounds it alike (Frame::createCloud, Core/Frame.cpp:475-506, without
+    the stride)."""
+    h, w = depth.shape
+    vv, uu = torch.meshgrid(torch.arange(h, dtype=depth.dtype, device=depth.device),
+                            torch.arange(w, dtype=depth.dtype, device=depth.device),
+                            indexing="ij")
+    x = (uu - cam.cx) * (1.0 / cam.fx) * depth
+    y = (vv - cam.cy) * (1.0 / cam.fy) * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
 def valid_depth(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     """Depth validity mask (finite, within (min_depth, max_depth))."""
     return torch.isfinite(depth) & (depth > cam.min_depth) & (depth < cam.max_depth)

@@ -27,14 +27,8 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric."""
     x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]
     zero = torch.zeros_like(x)
-    return torch.stack(
-        [
-            torch.stack([zero, -z, y], dim=-1),
-            torch.stack([z, zero, -x], dim=-1),
-            torch.stack([-y, x, zero], dim=-1),
-        ],
-        dim=-2,
-    )
+    return torch.stack([zero, -z, y, z, zero, -x, -y, x, zero],
+                       dim=-1).reshape(phi.shape[:-1] + (3, 3))
 
 
 def _eye3(like: torch.Tensor) -> torch.Tensor:
@@ -66,11 +60,23 @@ def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
 
 
 def exp(xi: torch.Tensor) -> torch.Tensor:
-    """SE(3) exponential map: (..., 6) [rho, phi] -> (..., 4, 4)."""
+    """SE(3) exponential map: (..., 6) [rho, phi] -> (..., 4, 4). The
+    arithmetic of so3_exp and of the left Jacobian, each shared term
+    computed once (a solver loop calls this every round)."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    R = so3_exp(phi)
-    t = (_so3_left_jacobian(phi) @ rho[..., None])[..., 0]
-    return from_Rt(R, t)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    sin = torch.sin(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin) / (theta2 * theta))
+    W = hat(phi)
+    WW = W @ W
+    eye = _eye3(phi)
+    R = eye + a[..., None, None] * W + b[..., None, None] * WW
+    V = eye + b[..., None, None] * W + c[..., None, None] * WW
+    return from_Rt(R, (V @ rho[..., None])[..., 0])
 
 
 def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -96,6 +102,18 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    """|t|, the reference's `tnorm` (System/Tracking.cpp:201-205)."""
+    return torch.linalg.norm(T[..., :3, 3], dim=-1)
+
+
+def rotation_angle(T: torch.Tensor) -> torch.Tensor:
+    """acos((tr(R) - 1) / 2), the reference's `rnorm`
+    (System/Tracking.cpp:207-211)."""
+    tr = T[..., 0, 0] + T[..., 1, 1] + T[..., 2, 2]
+    return torch.arccos(torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0))
 
 
 def vee(W: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ int64 range, and masked to 32 bits.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,18 +188,67 @@ def sweep_trajectory(n_frames: int, span: float = 1.6) -> np.ndarray:
     return np.stack(poses)
 
 
+def kinect_noise_fields(seed: int, i: int, height: int, width: int):
+    """The three standard fields of frame `i`'s sensor noise drawn on the
+    host with numpy (`default_rng((seed, i))`): grey normal, depth normal,
+    dropout uniform, each (height, width) f32. Any package can replay them
+    through `apply_sensor_noise`."""
+    rng = np.random.default_rng((seed, i))
+    return (rng.standard_normal((height, width), dtype=np.float32),
+            rng.standard_normal((height, width), dtype=np.float32),
+            rng.random((height, width), dtype=np.float32))
+
+
+def apply_sensor_noise(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       n_gray=None, n_depth=None, u_drop=None):
+    """Kinect-class sensor corruption (JAX synthetic.py:240-263):
+
+    - image shot noise (sigma 2 grey levels),
+    - depth noise sigma_z = 0.0015 z^2, Khoshelham & Elberink's measured
+      Kinect model (the reference's RANSAC gate over-estimates it as
+      0.01 z^2, Solver/SolverSE3.cpp:289-297),
+    - depth dropout (3 % of pixels -> 0, like IR shadowing).
+
+    The standard normal fields `n_gray`, `n_depth` and the uniform field
+    `u_drop` (H, W) are drawn from `generator` on the images' device, or
+    injected (tensors or host arrays), so the same noisy pixels can be
+    replayed elsewhere. `cam` is unused (the JAX signature)."""
+    fields = (n_gray, n_depth, u_drop)
+    if all(f is None for f in fields):
+        if generator is None:
+            raise ValueError("apply_sensor_noise needs a generator or the three fields")
+        kw = {"generator": generator, "dtype": torch.float32, "device": gray.device}
+        fields = (torch.randn(gray.shape, **kw), torch.randn(depth.shape, **kw),
+                  torch.rand(depth.shape, **kw))
+    elif any(f is None for f in fields):
+        raise ValueError("inject all three noise fields or none")
+    n_gray, n_depth, u_drop = (torch.as_tensor(f, dtype=torch.float32).to(gray.device)
+                               for f in fields)
+    g = torch.clamp(gray + 2.0 * n_gray, 0.0, 255.0)
+    sigma_z = 0.0015 * depth * depth
+    d = depth + sigma_z * n_depth
+    dropout = u_drop < 0.03
+    d = torch.where(dropout | (depth <= 0), 0.0, torch.clamp_min(d, 0.0))
+    return g, d
+
+
 class SyntheticDataset:
     """Dataset over the renderer: grab(i) -> (timestamp, gray [H,W] f32,
     depth [H,W] f32 meters) as tensors on `device`; ground truth in
-    `.poses_twc`. Sensor noise is not yet ported."""
+    `.poses_twc`. With `noise`, frames carry the Kinect-class noise of
+    `apply_sensor_noise`, drawn from a generator seeded by (seed, i): the
+    same frame is the same noisy frame on every call."""
 
     name = "SYNTH"
 
     def __init__(self, n_frames: int = 120, cam: Camera = SYNTHETIC,
                  trajectory: str = "orbit", fps: float = 30.0,
-                 loops: float = 1.0, device="cpu"):
+                 loops: float = 1.0, noise: bool = False, seed: int = 0, device="cpu"):
         self.cam = cam
         self.fps = fps
+        self.noise = noise
+        self._seed = seed
         self.device = torch.device(device)
         self._room_half = None
         self._boxes = None
@@ -221,4 +270,9 @@ class SyntheticDataset:
     def grab(self, i: int):
         gray, depth = render_frame(self.cam, self.poses_twc[i], device=self.device,
                                    room_half=self._room_half, boxes=self._boxes)
+        if self.noise:
+            # a 32-bit seed mixed from (seed, i): the CPU generator keeps 32 bits
+            mixed = int(np.random.SeedSequence((self._seed, i)).generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(mixed)
+            gray, depth = apply_sensor_noise(self.cam, gray, depth, gen)
         return self.timestamps[i], gray, depth

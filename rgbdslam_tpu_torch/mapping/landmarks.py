@@ -1,7 +1,7 @@
 """Landmark store: bounded landmark tracks feeding bundle adjustment.
 
-Numpy only (the port's own copy of rgbdslam_tpu/mapping/landmarks.py; the
-bundle-adjustment window problem waits for the BA port).
+Numpy (the port's own copy of rgbdslam_tpu/mapping/landmarks.py); the
+bundle-adjustment window problem goes up to the device as tensors.
 Core/Landmark.{h,cpp} + the landmark half of Core/Map: the
 reference's Landmark objects hold a world position, a best descriptor, and an
 observation map KF->keypoint-index (Core/Landmark.cpp:43-74) — but are only
@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
 from rgbdslam_tpu_torch.geometry import se3
 
 
@@ -213,19 +214,58 @@ class LandmarkStore:
 
     # ------------------------------------------------------------------
     def window_problem(self, kf_lo: int, kf_hi: int, poses_cw: np.ndarray,
-                       min_obs: int = 2, pad_k: Optional[int] = None):
-        """Build a BAProblem over keyframes [kf_lo, kf_hi] (inclusive).
+                       min_obs: int = 2, pad_k: Optional[int] = None, device="cuda"):
+        """Build a BAProblem on `device` over keyframes [kf_lo, kf_hi]
+        (inclusive).
 
         Only landmarks with >= min_obs observations inside the window enter;
         keyframe indices are re-based to the window. Returns
         (problem, lm_ids, kf_ids) with fixed budgets (padded).
 
         `pad_k` pads the keyframe dimension to a fixed size with identity
-        poses and no observations (global BA over a growing map reuses one
-        compiled program per power-of-two bucket).
+        poses and no observations (the JAX package's power-of-two bucket of
+        global BA over a growing map).
         """
-        raise NotImplementedError(
-            "window_problem feeds bundle adjustment, which is not yet ported")
+        from rgbdslam_tpu_torch.device import resolve_device, upload
+        from rgbdslam_tpu_torch.solvers.ba import BAProblem
+
+        kf_ids = np.arange(kf_lo, kf_hi + 1)
+        K = len(kf_ids)
+        in_window = (self.obs_kf >= kf_lo) & (self.obs_kf <= kf_hi) & self.obs_valid
+        n_in = in_window.sum(axis=1)
+        lm_mask = self.valid & (n_in >= min_obs)
+        lm_ids = np.nonzero(lm_mask)[0]
+
+        # the landmark dimension padded to a power of two, as in the JAX
+        # package (where it saves compiles): the same arrays, so the same
+        # numbers
+        Lw = 8
+        while Lw < max(1, len(lm_ids)):
+            Lw *= 2
+
+        obs_kf = np.zeros((Lw, self.M), np.int64)
+        obs_uv = np.zeros((Lw, self.M, 2), np.float32)
+        obs_z = np.zeros((Lw, self.M), np.float32)
+        obs_valid = np.zeros((Lw, self.M), bool)
+        Xw = np.zeros((Lw, 3), np.float32)
+        lm_valid = np.zeros((Lw,), bool)
+        if len(lm_ids):
+            nl = len(lm_ids)
+            obs_kf[:nl] = np.clip(self.obs_kf[lm_ids] - kf_lo, 0, K - 1)
+            obs_uv[:nl] = self.obs_uv[lm_ids]
+            obs_z[:nl] = self.obs_z[lm_ids]
+            obs_valid[:nl] = in_window[lm_ids]
+            Xw[:nl] = self.Xw[lm_ids]
+            lm_valid[:nl] = True
+
+        Tcw = np.asarray(poses_cw[kf_lo:kf_hi + 1], np.float32)
+        if pad_k is not None and pad_k > K:
+            Tcw = np.concatenate(
+                [Tcw, np.broadcast_to(np.eye(4, dtype=np.float32), (pad_k - K, 4, 4))])
+        dev = resolve_device(device)
+        problem = BAProblem(*(upload(a, dev) for a in (
+            Tcw, Xw, lm_valid, obs_kf, obs_uv, obs_valid, obs_z)))
+        return problem, lm_ids, kf_ids
 
     def update_from_solution(self, lm_ids: np.ndarray, Xw_opt: np.ndarray):
         if len(lm_ids):

@@ -7,7 +7,9 @@ computed on every frame and selected by the rmse >= 0.8 trigger with a
 `where` (no host branch). The JAX `lax.scan` becomes a Python loop that
 only enqueues device work; each batch of B frames is copied to the device
 once and its (B, 18) results come back in one device-to-host copy, so no
-frame waits for the host. No keyframes and no backend.
+frame waits for the host. No keyframes and no backend. Like the JAX
+package's pipeline (pipeline.py:42-62), it ignores `use_dense_icp`: the
+dense polish belongs to the tracker's modes.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ class PipelinedOdometry:
                  batch: int = 8, seed: int = 0, device="cuda"):
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if cfg.use_dense_icp:
-            raise NotImplementedError("dense ICP is not yet ported")
         self.cam = cam
         self.cfg = cfg
         self.batch = batch

@@ -18,6 +18,13 @@ Backend step per keyframe (updateGraph semantics, Solver/PoseGraph.cpp:105-126):
   4. on a loop: optimize(20), write the corrected poses back into the
      keyframe store and the tracker (Tracking::correct / Frame::correctPose).
 
+With `use_local_ba` a keyframe without device-verified loop candidates
+then bundle-adjusts the sliding window of its last `ba_window` keyframes and
+their landmarks; with `use_global_ba` a closed loop, and `finish()`, adjust
+every keyframe and landmark jointly with the graph's edges (no reference
+analog: its backend is pose-graph-only). Each BA solve is enqueued whole and
+read back once (poses and landmarks in one copy).
+
 Host-device traffic per keyframe: one pinned upload of the `meta` array
 and one copy back of the packed result blob (the layout of the JAX
 package's fused keyframe program). The candidate verification is one
@@ -40,8 +47,7 @@ snapshot by an event: taking a snapshot reads nothing from the device
 worker's jobs held). The worker's host work still competes with the
 tracking thread for the interpreter; PERF.md gives what that costs.
 
-Not yet ported (each raises): local and global bundle adjustment, the
-distributed backend, dense ICP.
+Not yet ported (raises): the distributed backend.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from rgbdslam_tpu_torch.loop.detector import LoopDetector
 from rgbdslam_tpu_torch.mapping.keyframes import KeyframeStore
 from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
 from rgbdslam_tpu_torch.slam.tracking import Tracker
+from rgbdslam_tpu_torch.solvers.ba import BAEdges, local_ba
 from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraph
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
 
@@ -200,9 +207,8 @@ def kf_core_batched(bank, feats, batch_row: int, meta: torch.Tensor, words, idf,
 class SlamSystem:
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  device="cuda"):
-        for flag in ("use_local_ba", "use_global_ba", "distributed", "use_dense_icp"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"SlamConfig.{flag} is not yet ported")
+        if cfg.distributed:
+            raise NotImplementedError("SlamConfig.distributed is not yet ported")
         if cfg.extractor.num_features > MAX_PACKED_FEATURES:
             raise ValueError("num_features > 4096 breaks the packed track-extension lane")
         self.cam = cam
@@ -229,6 +235,8 @@ class SlamSystem:
         self.loops_closed = 0
         self.loop_solve_ms = []   # wall ms of each mid-run loop-closure
                                   # optimize(20) (Solver/PoseGraph.cpp:71)
+        self.local_ba_ms = []     # wall ms of each local / global BA solve,
+        self.global_ba_ms = []    # its read included
         self.last_loop_candidates = 0   # Tracking::loopCandidates analog
         self.reloc_verifications = 0    # candidate verifications run for LOST frames
         self.kf_backend_ms = []   # wall ms of each keyframe's backend step,
@@ -561,12 +569,29 @@ class SlamSystem:
         if self.live_export is not None:
             self._live_capture(k, h["ts"], match_valid, N)
 
+        # the loop gate of this keyframe; with device-verified loop
+        # candidates the window BA is skipped: if the closure lands, the
+        # pose-graph solve and global BA supersede it, and if every
+        # candidate fails the host gates, the next keyframe's window covers
+        # this one (JAX system.py:717-732)
+        loop_gate_open = bow_on and self.kfs_since_loop >= self.cfg.loop.min_kfs_since_loop
+        likely_loop = loop_gate_open and bool(np.any(loop_valid))
+        if self.cfg.use_local_ba and not likely_loop:
+            self._local_ba(k)
+
         # loop closure (detectLoop, Solver/PoseGraph.cpp:245-287): candidate
         # selection and verification already ran on the device; only the
         # host gates and the solve remain
-        if (bow_on and self.kfs_since_loop >= self.cfg.loop.min_kfs_since_loop
-                and self._close_loop_from_rows(k, loop_j, loop_valid, ver[C:])):
+        loop_found = loop_gate_open and self._close_loop_from_rows(k, loop_j, loop_valid,
+                                                                   ver[C:])
+        if loop_found:
             self.kfs_since_loop = 0
+            if self.cfg.use_global_ba:
+                # global BA polishes the pose-graph solution, over every
+                # registered keyframe as the pose-graph solve: k itself but
+                # in a batch, whose later keyframes (and their odometry
+                # edges) are registered before k completes
+                self._global_ba(self.graph.n_vertices - 1)
         self.kf_backend_ms.append(h["ms"] + (time.perf_counter() - t0) * 1e3)
         if self.live_export is not None and (k + 1) % self.live_export[0] == 0:
             self._write_live_export()
@@ -768,6 +793,85 @@ class SlamSystem:
         return True, Tcw.astype(np.float32)
 
     # ------------------------------------------------------------------
+    def _ba_solve(self, problem, fixed: np.ndarray, iterations: int, edges=None):
+        """One BA solve on the device and one read of its solution: host
+        (Tcw (K, 4, 4), Xw (L, 3))."""
+        Tcw, Xw, _cost = local_ba(self.cam, problem, upload(fixed, self.device), iterations,
+                                  edges=edges, edge_huber=self.graph.huber_delta)
+        K, L = Tcw.shape[0], Xw.shape[0]
+        flat = torch.cat([Tcw.reshape(-1), Xw.reshape(-1)]).cpu().numpy()
+        return flat[:16 * K].reshape(K, 4, 4), flat[16 * K:].reshape(L, 3)
+
+    def _local_ba(self, k: int):
+        """Window BA: the last `ba_window` keyframes and their landmarks,
+        the window's first keyframe fixed as the gauge."""
+        W = self.cfg.ba_window
+        if k + 1 < W:
+            return
+        t0 = time.perf_counter()
+        kf_lo = k - W + 1
+        problem, lm_ids, kf_ids = self.landmarks.window_problem(
+            kf_lo, k, self.store.poses_cw, device=self.device)
+        if len(lm_ids) < 8:
+            return
+        fixed = np.zeros((W,), bool)
+        fixed[0] = True
+        Tcw_opt, Xw_opt = self._ba_solve(problem, fixed, self.cfg.ba_iterations)
+        self.landmarks.update_from_solution(lm_ids, Xw_opt)
+        self.store.poses_cw[kf_lo:k + 1] = Tcw_opt
+        for i, kf in enumerate(kf_ids):
+            self.graph.Twc[kf] = se3.inverse_np(Tcw_opt[i]).astype(np.float32)
+        self.tracker.apply_correction(self.store.poses_cw[:k + 1], relocalize=True)
+        self.local_ba_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def _global_ba(self, k: int):
+        """Full-map BA (beyond the reference: its backend is pose-graph-only,
+        Solver/PoseGraph.cpp:350-368): every keyframe pose and landmark
+        jointly with the graph's edges as relative-pose factors (weights x
+        `ba_edge_scale`). Keyframe 0 is the gauge, as the pose graph's
+        vertex 0. The keyframes are padded to a power of two with fixed
+        identity poses, and the edges to a power of two with zero weights,
+        as in the JAX package: the same arrays, so the same numbers."""
+        K = k + 1
+        if K < 3:
+            return
+        t0 = time.perf_counter()
+        pad_k = 4
+        while pad_k < K:
+            pad_k *= 2
+        problem, lm_ids, kf_ids = self.landmarks.window_problem(
+            0, k, self.store.poses_cw, pad_k=pad_k, device=self.device)
+        if len(lm_ids) < 8:
+            return
+        fixed = np.zeros((pad_k,), bool)
+        fixed[0] = True
+        fixed[K:] = True          # the padding keyframes must not move
+        g = self.graph
+        E = g.n_edges
+        Ep = 8
+        while Ep < max(E, 1):
+            Ep *= 2
+        eZ = np.tile(np.eye(4, dtype=np.float32), (Ep, 1, 1))
+        ew = np.zeros((Ep,), np.float32)
+        eab = np.zeros((2, Ep), np.int64)
+        eZ[:E] = g.e_Z[:E]
+        ew[:E] = g.e_w[:E] * self.cfg.ba_edge_scale
+        eab[0, :E] = g.e_a[:E]
+        eab[1, :E] = g.e_b[:E]
+        eab = upload(eab, self.device)
+        edges = BAEdges(a=eab[0], b=eab[1], Z=upload(eZ, self.device),
+                        w=upload(ew, self.device))
+        Tcw_opt, Xw_opt = self._ba_solve(problem, fixed, self.cfg.global_ba_iterations,
+                                         edges)
+        Tcw_opt = Tcw_opt[:K]
+        self.landmarks.update_from_solution(lm_ids, Xw_opt)
+        self.store.poses_cw[:K] = Tcw_opt
+        for kf in kf_ids:
+            g.Twc[kf] = se3.inverse_np(Tcw_opt[kf]).astype(np.float32)
+        self.tracker.apply_correction(self.store.poses_cw[:K], relocalize=True)
+        self.global_ba_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # ------------------------------------------------------------------
     def _optimize(self, iterations: int):
         """Global pose-graph optimization + pose write-back
         (PoseGraph::optimize + Frame::correctPose + Tracking::correct)."""
@@ -785,6 +889,8 @@ class SlamSystem:
         Solver/PoseGraph.cpp:407-418)."""
         if self.graph.n_vertices > 5:
             self._optimize(self.cfg.pose_graph.opt_iters_default)
+            if self.cfg.use_global_ba:
+                self._global_ba(self.graph.n_vertices - 1)
         if self.live_export is not None:
             # the guaranteed final export: drain the worker, snapshot the
             # final state (with any pending occupancy write), drain again

@@ -8,17 +8,18 @@ keyframe gate) and 4x4 pose composition. Three modes, as in the JAX package:
 
 - serial (`track`): per frame the host reads one packed 20-float result,
   its one synchronisation with the device; a second-reference retry reads
-  one more;
+  one more, and so does the dense-ICP polish of a successful estimate;
 - ring (`track_pipelined*`): frame i is enqueued against frame i-1's
-  features before the host reads frame i-1's row, which comes back in one
-  read with the blob of the keyframe the previous completion dispatched;
+  features (and depth, for the dense-ICP polish, which runs inside the
+  enqueued step) before the host reads frame i-1's row, which comes back in
+  one read with the blob of the keyframe the previous completion dispatched;
 - batched (`track_batch*`): B frames enqueued back to back (`batch_body`),
-  the keyframe gate and the ADAPTIVE threshold evolving on the device, one
-  read of the (B, 22) rows per batch and one of the batch's keyframe blobs.
+  the keyframe gate, the ADAPTIVE threshold and the dense-ICP polish on the
+  device, one read of the (B, 22) rows per batch and one of the batch's
+  keyframe blobs.
 
 The JAX `lax.scan` and its jitted programs become Python loops that only
-enqueue device work. The dense-ICP polish of the ring and batch bodies is
-not ported (`use_dense_icp` raises).
+enqueue device work.
 
 Pose convention: Tcw (world -> camera), as the reference (Core/Frame.cpp).
 VO estimates T21 (ref-camera -> cur-camera) and composes
@@ -42,6 +43,7 @@ from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
 from rgbdslam_tpu_torch.frontend.matcher import gather_matched_points, match_frames
 from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
+from rgbdslam_tpu_torch.solvers.dense_icp import dense_icp
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
 
@@ -121,23 +123,39 @@ def keyframe_gate(T21: torch.Tensor, success: torch.Tensor, D: torch.Tensor, kf_
     return kf, torch.where(kf, eye, D_new)
 
 
+def dense_polish(cam: Camera, cfg: SlamConfig, est: torch.Tensor, d_prev: torch.Tensor,
+                 depth: torch.Tensor) -> torch.Tensor:
+    """The dense projective ICP polish of a packed estimate row against the
+    previous frame's depth, kept where the estimate succeeded (JAX
+    tracking.py:143-148, 209-217), on the device. Returns the row with its
+    T21 replaced."""
+    T21 = est[:16].reshape(4, 4)
+    T_d = dense_icp(cam, d_prev, depth, T21, levels=cfg.dense_icp_levels,
+                    max_correction=(0.1, 0.1))
+    T21 = torch.where(est[16] > 0.5, T_d, T21)
+    return torch.cat([T21.reshape(16), est[16:]])
+
+
 def batch_body(ex: Extractor, cfg: SlamConfig, f_prev: FrameFeatures, D: torch.Tensor,
-               thr: torch.Tensor, gray: torch.Tensor, depth: torch.Tensor,
-               generator: Optional[torch.Generator] = None):
+               d_prev: torch.Tensor, thr: torch.Tensor, gray: torch.Tensor,
+               depth: torch.Tensor, generator: Optional[torch.Generator] = None):
     """One frame of the batched scan (JAX `_batch_body`, tracking.py:186-226),
     all enqueued on the device and nothing read back: the feature build at
     the carried threshold `thr` (0-dim f32), the fused estimate against
-    `f_prev`, the keyframe gate on the accumulated motion D, and the ADAPTIVE
-    x0.7 / x1.3 update of the threshold from this frame's keypoint count.
-    Returns the next carry (f_cur, D, thr) and the frame's (22,) f32 row
-    [T21 (16) | success | rmse | inliers | kf | n_valid | thr]."""
+    `f_prev`, with `cfg.use_dense_icp` its dense polish against the previous
+    depth `d_prev`, the keyframe gate on the accumulated motion D, and the
+    ADAPTIVE x0.7 / x1.3 update of the threshold from this frame's keypoint
+    count. Returns the next carry (f_cur, D, depth, thr) and the frame's
+    (22,) f32 row [T21 (16) | success | rmse | inliers | kf | n_valid | thr]."""
     f_cur = ex.build(gray, depth, thr)
     est = fused_estimate(f_prev, f_cur, cfg, generator)
+    if cfg.use_dense_icp:
+        est = dense_polish(ex.cam, cfg, est, d_prev, depth)
     kf, D_out = keyframe_gate(est[:16].reshape(4, 4), est[16] > 0.5, D, cfg.keyframe)
     n_valid = torch.sum(f_cur.valid).to(torch.float32)
     thr_new = ex.adapt_on_device(thr, n_valid)
     row = torch.cat([est, torch.stack([kf.to(torch.float32), n_valid, thr_new])])
-    return f_cur, D_out, thr_new, row
+    return f_cur, D_out, depth, thr_new, row
 
 
 class Tracker:
@@ -154,8 +172,6 @@ class Tracker:
 
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  device="cuda"):
-        if cfg.use_dense_icp:
-            raise NotImplementedError("use_dense_icp is not yet ported")
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -168,6 +184,10 @@ class Tracker:
         self.ref2_frame: Optional[FrameFeatures] = None
         self.ref_Tcw = np.eye(4, dtype=np.float32)
         self.ref2_Tcw = np.eye(4, dtype=np.float32)
+        # the depth of the reference frame and of the frame being tracked,
+        # for the dense-ICP polish (serial: kept only when it is on)
+        self.ref_depth: Optional[torch.Tensor] = None
+        self._cur_depth: Optional[torch.Tensor] = None
         # the extractor carries the ADAPTIVE threshold state
         self._extractor = Extractor(cam, cfg.extractor, detector=cfg.detector,
                                     adaptive=cfg.adaptive)
@@ -191,7 +211,7 @@ class Tracker:
         self.consecutive_failures = 0
         self._last_inliers = 0
         # batched mode: the scan carry (features, accumulated motion D since
-        # the last keyframe, FAST threshold), all on the device and chained
+        # the last keyframe, depth, FAST threshold), all on the device and chained
         # from one dispatch to the next, so batch i+1 can be enqueued before
         # batch i is completed. None: rebuild it from the host state.
         self._batch_carry = None
@@ -211,14 +231,17 @@ class Tracker:
         return fused_estimate(ref, cur, self.cfg, self.generator)
 
     def _step(self, ref: FrameFeatures, gray: torch.Tensor, depth: torch.Tensor,
-              threshold: float):
+              threshold: float, d_prev: Optional[torch.Tensor] = None):
         """One frame's device work: feature build and the fused estimate
-        against `ref`. Returns (features, packed (20,)): the estimate's 19
+        against `ref`, polished by dense ICP against `d_prev` when that is
+        given (the ring). Returns (features, packed (20,)): the estimate's 19
         values and the count of detected keypoints (the ADAPTIVE feedback
         reads it from the same copy)."""
         cur = self._extractor.build(gray, depth, threshold)
         self.stats.estimates += 1
         packed = fused_estimate(ref, cur, self.cfg, self.generator)
+        if d_prev is not None:
+            packed = dense_polish(self.cam, self.cfg, packed, d_prev, depth)
         return cur, torch.cat([packed, torch.sum(cur.valid).to(torch.float32)[None]])
 
     # ------------------------------------------------------------------
@@ -230,6 +253,8 @@ class Tracker:
             self.track_pipelined_flush()         # a switch of mode drains the ring
         gray = upload(gray, self.device).to(torch.float32)
         depth = upload(depth, self.device).to(torch.float32)
+        if self.cfg.use_dense_icp:
+            self._cur_depth = depth
         if self.state is TrackerState.NOT_INITIALIZED:
             f = self._extractor(gray, depth)
             Tcw = np.eye(4, dtype=np.float32)
@@ -266,6 +291,7 @@ class Tracker:
         self.ref2_frame = f
         self.ref_Tcw = Tcw.copy()
         self.ref2_Tcw = Tcw.copy()
+        self.ref_depth = self._cur_depth
         self._last_inliers = 0
         self._batch_carry = None        # a batch re-seeds from the host state
         handle = None
@@ -302,13 +328,28 @@ class Tracker:
                 break
         ref_Tcw = self.ref_Tcw
         T21_host, success, _rmse, n_inl = self._unpack(pk)
+        used_ref2 = False
 
         if not success and self.ref2_frame is not None:
             # anti-drift hover heuristic (System/Tracking.cpp:136-143)
             pk = self._estimate(self.ref2_frame, f).cpu().numpy()
             ref_Tcw = self.ref2_Tcw
+            used_ref2 = True
             T21_host, success, _rmse, n_inl = self._unpack(pk)
+
+        if (success and self.cfg.use_dense_icp and not used_ref2
+                and self.ref_depth is not None):
+            # the dense projective point-to-plane polish of the estimate,
+            # from the device copy of its T21 and read back: the frame's one
+            # extra read. Skipped after the ref2 retry: only the reference
+            # frame's depth is kept, and refining T(ref2 -> cur) against it
+            # would converge to T(ref -> cur) and compose it with ref2's pose.
+            T_d = dense_icp(self.cam, self.ref_depth, self._cur_depth,
+                            packed[:16].reshape(4, 4), levels=self.cfg.dense_icp_levels,
+                            max_correction=(0.1, 0.1))
+            T21_host = T_d.cpu().numpy()
         Tcw = self._finish_vo(f, T21_host, success, n_inl, ref_Tcw)
+        self.ref_depth = self._cur_depth
         self._batch_carry = None        # the serial path moved the references
         return Tcw, f
 
@@ -398,7 +439,7 @@ class Tracker:
         dev, ex = self.device, self._extractor
         B = len(timestamps)
         h = {"timestamps": list(timestamps), "B": B, "start": 0, "init_Tcw": None,
-             "init_kf": None, "feats": [], "read": None}
+             "init_kf": None, "feats": [], "read": None, "d_fin": None}
         carry = self._batch_carry
         if carry is None:
             # the ADAPTIVE threshold rides the carry, seeded from the host
@@ -421,12 +462,17 @@ class Tracker:
                 h["init_Tcw"], h["start"] = Tcw0, 1
             D0 = upload((self.ref_Tcw @ se3.inverse_np(self.last_kf_Tcw)).astype(np.float32),
                         dev)
-            carry = (self.ref_frame, D0, thr)
-        f_prev, D, thr = carry
+            # the reference depth seeds the dense-ICP lane of the carry (the
+            # batch's first depth where there is none: the frame it
+            # initialised with)
+            d_ref = (self.ref_depth if self.ref_depth is not None
+                     else upload(depths[0], dev).to(torch.float32))
+            carry = (self.ref_frame, D0, d_ref, thr)
+        f_prev, D, d_prev, thr = carry
         rows = []
         for i in range(h["start"], B):
-            f_prev, D, thr, row = batch_body(
-                ex, self.cfg, f_prev, D, thr, upload(grays[i], dev).to(torch.float32),
+            f_prev, D, d_prev, thr, row = batch_body(
+                ex, self.cfg, f_prev, D, d_prev, thr, upload(grays[i], dev).to(torch.float32),
                 upload(depths[i], dev).to(torch.float32), self.generator)
             self.stats.estimates += 1
             # the frames' features stay a list: the backend takes keyframe
@@ -434,7 +480,8 @@ class Tracker:
             # concatenation per field and a gather per keyframe
             h["feats"].append(f_prev)
             rows.append(row)
-        self._batch_carry = (f_prev, D, thr)
+        self._batch_carry = (f_prev, D, d_prev, thr)
+        h["d_fin"] = d_prev
         # the batch's one read: its rows, and the blob of keyframe 0 when
         # this batch initialised the run
         parts = ([torch.stack(rows).reshape(-1)] if rows else []) + (
@@ -506,6 +553,7 @@ class Tracker:
         self.velocity = Tcw @ np.linalg.inv(self.ref_Tcw)
         self.ref2_frame, self.ref2_Tcw = self.ref_frame, self.ref_Tcw
         self.ref_frame, self.ref_Tcw = feats[-1], Tcw.copy()
+        self.ref_depth = h["d_fin"]
         if self._extractor.adaptive:
             # the device-evolved threshold, for a carry re-seed or a switch
             # back to serial tracking
@@ -532,10 +580,12 @@ class Tracker:
             return timestamp, self.track(timestamp, gray, depth)
         self._batch_carry = None
         # the reference: the frame still in the ring, else the last completed
-        ref = self._pipe["f"] if self._pipe is not None else self.ref_frame
-        f, packed = self._step(ref, upload(gray, self.device).to(torch.float32),
-                               upload(depth, self.device).to(torch.float32),
-                               self._extractor.threshold)
+        ref, d_prev = ((self._pipe["f"], self._pipe["d"]) if self._pipe is not None
+                       else (self.ref_frame, self.ref_depth))
+        depth = upload(depth, self.device).to(torch.float32)
+        f, packed = self._step(ref, upload(gray, self.device).to(torch.float32), depth,
+                               self._extractor.threshold,
+                               d_prev if self.cfg.use_dense_icp else None)
         # the generator's state after this frame's draws: a retry for this
         # frame draws from here, as the serial path's does, although the next
         # frame will have drawn by then
@@ -543,7 +593,7 @@ class Tracker:
         out = self._pipe_complete()
         kf_h, self._pipe_kf_pending = self._pipe_kf_pending, None
         read = packed if kf_h is None else torch.cat([packed, kf_h["blob"]])
-        self._pipe = {"ts": timestamp, "f": f, "read": read, "kf_h": kf_h,
+        self._pipe = {"ts": timestamp, "f": f, "d": depth, "read": read, "kf_h": kf_h,
                       "gen_state": gen_state}
         return out
 
@@ -584,8 +634,9 @@ class Tracker:
             T21_host, success, _rmse, n_inl = self._unpack(pk2)
             ref_Tcw = self.ref2_Tcw
 
-        Tcw = self._relocalize_if_lost(f, self._finish_vo(f, T21_host, success, n_inl,
-                                                          ref_Tcw))
+        Tcw = self._finish_vo(f, T21_host, success, n_inl, ref_Tcw)
+        self.ref_depth = p["d"]
+        Tcw = self._relocalize_if_lost(f, Tcw)
         # the host keyframe gate on corrected poses, as in the serial path
         if (self.state is TrackerState.OK and self.keyframes
                 and self._need_keyframe(Tcw)):
@@ -639,17 +690,22 @@ class Tracker:
         reference re-localizes the current frame against the latest
         distinct KF (Tracking::correct, System/Tracking.cpp:165-193); here
         the live reference poses are re-anchored through the last
-        keyframe's correction."""
-        k = len(self.keyframes)
-        kf_poses = np.asarray(kf_poses)[:k]
-        old_last = self.keyframes[-1][2]
-        new_last = kf_poses[len(self.keyframes) - 1]
+        keyframe's correction. A batch registers all its keyframes before
+        their backend steps complete, so a bundle adjustment completing one
+        of them corrects fewer keyframes than are registered: the later
+        ones keep their poses, and so do the live references, which hang on
+        the last keyframe. (The JAX package indexes past the solved poses
+        there and raises, tracking.py:842-845.)"""
+        kf_poses = np.asarray(kf_poses)[:len(self.keyframes)]
+        K = len(kf_poses)
+        old_last = self.keyframes[K - 1][2]
+        new_last = kf_poses[K - 1]
         self.keyframes = [
-            (ts, f, kf_poses[i].astype(np.float32))
-            for i, (ts, f, _) in enumerate(self.keyframes)
+            (ts, f, kf_poses[i].astype(np.float32) if i < K else Tcw)
+            for i, (ts, f, Tcw) in enumerate(self.keyframes)
         ]
         self.last_kf_Tcw = self.keyframes[-1][2]
-        if relocalize:
+        if relocalize and K == len(self.keyframes):
             # Tcw_ref' = (Tcw_ref @ Tkf_old^-1) @ Tkf_new; the projection is
             # the backstop that breaks the per-closure error feedback
             # (se3.orthonormalize_np)

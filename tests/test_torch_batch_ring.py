@@ -245,7 +245,7 @@ def test_adaptive_feedback_in_batched_scan(frames):
     assert tr._extractor.threshold < 60.0 * 0.7 + 1e-6, tr._extractor.threshold
     assert tr._extractor.threshold >= tr._extractor.th_min - 1e-6
     # the carry holds the same threshold on the device
-    assert tr._batch_carry[2].item() == np.float32(tr._extractor.threshold)
+    assert tr._batch_carry[3].item() == np.float32(tr._extractor.threshold)
 
 
 def test_mid_batch_blackout_relocalizes(frames):

@@ -292,7 +292,7 @@ def test_batched_adaptive_first_frame_equals_jax():
     tt.track_batch_complete(tt.track_batch_dispatch(*fr))
     ex = tt._extractor
     assert ex.threshold == jt._extractor.threshold < 60.0 * 0.7 and ex.reads >= 2
-    assert tt._batch_carry[2].item() == np.float32(ex.threshold)
+    assert tt._batch_carry[3].item() == np.float32(ex.threshold)
     kj, kt = jt.keyframes[0][1], tt.keyframes[0][1]
     for k in ("uv", "level", "valid", "desc"):
         a = getattr(kt, k).numpy()

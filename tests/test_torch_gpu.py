@@ -927,3 +927,70 @@ def test_adaptive_batch_on_card(dev, kernels):
     n, h = _sync_calls(lambda: tr.track_batch_dispatch(*zip(*frames[9:])))
     assert n == 0 and kernels.LAUNCHES["detect_keypoints_fused"] == 9
     tr.track_batch_complete(h)
+
+
+def test_dense_icp_graph_replays_the_eager_call(dev):
+    """dense_icp on the card replays a CUDA graph of the eager call: the
+    replay equals the eager ops bit for bit, a second call with other
+    inputs reuses the graph, and the card agrees with the CPU within 1e-4
+    m / rad on tour pairs (chip_smoke.py phase 9's tolerance)."""
+    import numpy as np
+
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.solvers import dense_icp as D
+
+    cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
+    ds = SyntheticDataset(n_frames=128, cam=cam, trajectory="tour", device=dev)
+    xi = torch.tensor([0.01, -0.01, 0.01, 0.005, -0.005, 0.005], device=dev)
+    kw = dict(levels=(4, 2), max_correction=(0.1, 0.1))
+    for i in (10, 70):
+        d_a, d_b = ds.grab(i)[2], ds.grab(i + 1)[2]
+        T_gt = torch.from_numpy((np.linalg.inv(ds.poses_twc[i + 1])
+                                 @ ds.poses_twc[i]).astype(np.float32)).to(dev)
+        T0 = se3.exp(xi) @ T_gt
+        T_graph = D.dense_icp(cam, d_a, d_b, T0, **kw)
+        T_eager = D._dense_icp(cam, (4, 2), 10, 0.3, (0.1, 0.1), d_a, d_b, T0)
+        assert torch.equal(T_graph, T_eager)
+        T_cpu = D.dense_icp(cam, d_a.cpu(), d_b.cpu(), T0.cpu(), **kw)
+        gap = se3.inverse(T_cpu.double()) @ T_graph.cpu().double()
+        assert float(se3.translation_norm(gap)) < 1e-4
+        assert float(torch.linalg.norm(se3.log_smooth(gap)[3:])) < 1e-4
+    assert D._graphed.cache_info().currsize == 1
+
+
+def test_local_ba_on_card_matches_cpu(dev):
+    """local_ba's one-hot assembly and solve on the card against the CPU on
+    a 6-keyframe problem with edges (the tolerances of
+    tests/test_torch_ba.py)."""
+    import numpy as np
+
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.geometry.camera import Camera
+    from rgbdslam_tpu_torch.solvers.ba import BAEdges, BAProblem, local_ba
+
+    cam = Camera(300.0, 300.0, 159.5, 119.5, width=320, height=240)
+    g = torch.Generator().manual_seed(0)
+    K, L, M = 6, 64, 6
+    Tcw = se3.exp(torch.cat([0.3 * torch.randn(K, 3, generator=g),
+                             0.05 * torch.randn(K, 3, generator=g)], 1))
+    Tcw[:, 2, 3] += 3.0
+    Xw = torch.randn(L, 3, generator=g) * torch.tensor([1.0, 0.7, 0.3])
+    obs_kf = torch.stack([torch.randperm(K, generator=g)[:M] for _ in range(L)])
+    Xc = (Tcw[obs_kf, :3, :3] @ Xw[:, None, :, None])[..., 0] + Tcw[obs_kf, :3, 3]
+    uv = torch.stack([300.0 * Xc[..., 0] / Xc[..., 2] + 159.5,
+                      300.0 * Xc[..., 1] / Xc[..., 2] + 119.5], -1)
+    problem = BAProblem(Tcw=se3.exp(0.01 * torch.randn(K, 6, generator=g)) @ Tcw,
+                        Xw=Xw + 0.02 * torch.randn(L, 3, generator=g),
+                        lm_valid=torch.ones(L, dtype=torch.bool), obs_kf=obs_kf,
+                        obs_uv=uv + 0.3 * torch.randn(L, M, 2, generator=g),
+                        obs_valid=torch.rand(L, M, generator=g) > 0.2, obs_z=Xc[..., 2])
+    a = torch.arange(1, K)
+    edges = BAEdges(a=a, b=a - 1, Z=Tcw[a] @ se3.inverse(Tcw[a - 1]), w=torch.full((K - 1,), 100.0))
+    fixed = torch.arange(K) == 0
+    out_cpu = local_ba(cam, problem, fixed, 5, edges=edges)
+    out_dev = local_ba(cam, BAProblem(*(x.to(dev) for x in problem)), fixed.to(dev), 5,
+                       edges=BAEdges(*(x.to(dev) for x in edges)))
+    np.testing.assert_allclose(out_dev[0].cpu().numpy(), out_cpu[0].numpy(), atol=2e-5)
+    np.testing.assert_allclose(out_dev[1].cpu().numpy(), out_cpu[1].numpy(), atol=5e-5)

@@ -269,8 +269,7 @@ def test_cli_full_slam_runs_on_cpu(tmp_path, capsys):
     assert out["frames"] == 8 and "loops_closed" not in out and out["keyframes"] >= 2
 
 
-@pytest.mark.parametrize("field", ["use_local_ba", "use_global_ba", "distributed",
-                                   "use_dense_icp"])
+@pytest.mark.parametrize("field", ["distributed"])
 def test_unported_configuration_raises(field):
     import dataclasses
 
@@ -282,13 +281,12 @@ def test_unported_configuration_raises(field):
 def test_unported_modes_raise():
     import dataclasses
 
-    # the batched and ring modes (tests/test_torch_batch_ring.py) and the
-    # live export (tests/test_torch_disk_slam.py) run since they were
+    # the batched and ring modes (tests/test_torch_batch_ring.py), the
+    # live export (tests/test_torch_disk_slam.py), dense ICP and bundle
+    # adjustment (tests/test_torch_accuracy_slam.py) run since they were
     # ported; these still wait
-    for call in (lambda: Tracker(Camera(**CAM_ARGS),
-                                 dataclasses.replace(TCFG, use_dense_icp=True), device="cpu"),
-                 lambda: SlamSystem(Camera(**CAM_ARGS),
-                                    dataclasses.replace(TCFG, use_local_ba=True), device="cpu"),
+    for call in (lambda: SlamSystem(Camera(**CAM_ARGS),
+                                    dataclasses.replace(TCFG, distributed=True), device="cpu"),
                  lambda: Tracker(Camera(**CAM_ARGS),
                                  dataclasses.replace(TCFG, detector="orb"), device="cpu"),
                  lambda: Tracker(Camera(**CAM_ARGS),

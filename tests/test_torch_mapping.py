@@ -142,8 +142,15 @@ def test_landmark_store_matches(with_desc):
     lj.update_from_solution(ids, X)
     lt.update_from_solution(ids, X)
     np.testing.assert_array_equal(lt.Xw, lj.Xw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lt.window_problem(0, 3, old)
+    # the bundle-adjustment window (tests/test_torch_ba.py solves it)
+    for args in ((0, 3, old), (2, 5, new)):
+        pj, lm_j, kf_j = lj.window_problem(*args)
+        pt, lm_t, kf_t = lt.window_problem(*args, device="cpu")
+        np.testing.assert_array_equal(lm_t, lm_j)
+        np.testing.assert_array_equal(kf_t, kf_j)
+        for name in pj._fields:
+            np.testing.assert_array_equal(getattr(pt, name).numpy(), np.asarray(getattr(pj, name)),
+                                          err_msg=name)
 
     cj, ct = jcovis.covisibility_matrix(lj, 6), tcovis.covisibility_matrix(lt, 6)
     np.testing.assert_array_equal(ct, cj)

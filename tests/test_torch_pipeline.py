@@ -99,13 +99,14 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_cli_rejects_unported_modes():
     # full SLAM, serial odometry (tests/test_torch_system.py), the batched
     # and ring modes (below), disk datasets and the exports
-    # (tests/test_torch_disk_slam.py) run since they were ported; these
-    # modes still wait
-    for argv, what in ((["--dataset", "synthetic:sweep", "--local-ba"], "--local-ba"),
-                       (["--dataset", "synthetic:sweep", "--dense-icp", "--plot"],
-                        "--dense-icp"),
+    # (tests/test_torch_disk_slam.py), dense ICP and bundle adjustment
+    # (tests/test_torch_accuracy_slam.py) run since they were ported; the
+    # distributed backend still waits, with any other flag
+    for argv, what in ((["--dataset", "synthetic:sweep", "--distributed"], "--distributed"),
+                       (["--dataset", "synthetic:sweep", "--dense-icp", "--distributed",
+                         "--plot"], "--distributed"),
                        (["--dataset", "/data/tum", "--pipelined", "2", "--global-ba",
-                         "--distributed"], "--global-ba, --distributed")):
+                         "--distributed"], "--distributed")):
         with pytest.raises(NotImplementedError, match=f"not yet ported: {what}"):
             cli.main(argv + ["--device", "cpu"])
 

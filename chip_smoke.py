@@ -68,6 +68,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                failures <= 15 %, the --noise-robust median ATE within 1.5 x
                the JAX package's on the same frames + 0.01 m; BA solves alone
                (ms, launches, no host sync); launch counts by the formulas.
+ 10. families — every extractor variant of the factory: K1's GFTT mode (the
+               dense kernel and kernels A and B on phase 3's ten images), the
+               dense K1 on the 8 levels of the x1.2 scale space of 5 tour
+               frames at a float and a device-tensor threshold, the response
+               gate kernel B computes from the device threshold at cfg x
+               {0.5, 1, 1.5} and the subpixel offsets, all exact against the
+               plain versions; the builds of orb, orb2, gftt, star, brisk,
+               freak, latch, sift and surf on the card against the port's CPU
+               build on 5 tour frames (keypoints exact, binary bits >= 99.9 %,
+               float rows within 1e-5 outside counted bin flips); full SLAM on
+               the clean revisit tour (tour_trajectory(128, loops=1.15)):
+               serial seed 0 for orb, gftt, star, brisk, freak, latch, sift,
+               surf and svo_fast with subpixel refinement, orb and sift also
+               on seeds 1-2 and through the ring and batches of 8 (seeds 0-2),
+               ADAPTIVE orb in batches: finite poses, failures <= 15 %, ATE
+               <= 1.5 x the JAX package's on the same frames + 0.01 m (orb
+               and sift: each mode's median over seeds 0-2 against the JAX
+               median, batches against the JAX package's batches), the ring
+               equal to serial on runs without a failed frame, host synchronisations to
+               the budgets (ORB seed 1 serial, ring and batch; ADAPTIVE: the first
+               dispatch reads once per host detection, a later one never);
+               build and frame times, launches, BoW loops beside JAX's.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -83,8 +105,8 @@ on 13 tour candidates), the whole gicp_refine against the plain loop and
 gate on those five sweep pairs and (phase 6) on five tour pairs, and K5
 (reached through solvers.icp.gicp_normal_equations) against its plain
 version and against one round of K4. The kernels that lie on no main path
-(dense K1, K3's scorer alone, K5) are driven through their public entries
-and counted apart as `launches_off_path`.
+(K3's scorer alone, K5) are driven through their public entries and counted
+apart as `launches_off_path`; the dense K1 runs on the families path.
 Phase 5 counts the device launches of one call with the profiler
 (detect_keypoints 2, gicp_refine 1, ransac_se3 at most 4, match_descriptors
 at most 2).
@@ -252,21 +274,23 @@ def device_launches(fn, reps: int = 4) -> int:
     """Kernels, copies and fills the device ran for one fn(), counted by
     torch.profiler over `reps` calls. A window this short sometimes comes
     back without a single device event (the tracer's buffers were not
-    flushed); that is no reading, so it is taken again, at most three times."""
+    flushed; once, three windows in a row); that is no reading, so it is
+    taken again over a window twice as long, at most six times."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()                                   # first-use set-up stays outside
-    for _ in range(3):
+    for attempt in range(6):
+        n = reps << attempt
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         total = sum(evt.count for evt in prof.key_averages()
                     if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
         if total:
-            check(total % reps == 0, f"{total} device launches over {reps} equal calls")
-            return total // reps
-    raise AssertionError("the profiler saw no device event in three windows")
+            check(total % n == 0, f"{total} device launches over {n} equal calls")
+            return total // n
+    raise AssertionError("the profiler saw no device event in six windows")
 
 
 # how the profiler names the kernels of csrc/ (a template's name starts with
@@ -1227,6 +1251,426 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
     return launches, batched
 
 
+# The JAX package's serial runs of the clean tour with a real revisit
+# (tour_trajectory(128, loops=1.15), 640x480, the slam cell's configuration
+# with detector=V, the shipped vocabulary of V's family where there is one,
+# else online training; the RANSAC seed = the run's seed), ATE in m, on the
+# CPU:
+#   python tools/tour_reference_jax.py --loops 1.15 --detector V [--subpixel] --seeds S
+# Every run closes 2 BoW loops.
+JAX_FAMILY_ATE = {
+    ("orb", 0): 0.0288, ("orb", 1): 0.03316, ("orb", 2): 0.05338,
+    ("sift", 0): 0.01684, ("sift", 1): 0.01291, ("sift", 2): 0.0186,
+    ("gftt", 0): 0.04394, ("star", 0): 0.02289, ("brisk", 0): 0.00597,
+    ("freak", 0): 0.19046, ("latch", 0): 0.02671, ("surf", 0): 0.02494,
+    ("svo_fast+subpixel", 0): 0.02611,
+}
+# The same runs of orb and sift in batches of 8 (`--batch 8`): the JAX
+# package's batched ORB fails 1-5 frames a run (no second-reference retry
+# inside a batch), which the port's shares.
+JAX_FAMILY_ATE_BATCH8 = {
+    ("orb", 0): 0.10282, ("orb", 1): 0.05704, ("orb", 2): 0.17803,
+    ("sift", 0): 0.04907, ("sift", 1): 0.096, ("sift", 2): 0.05779,
+}
+JAX_FAMILY_LOOPS = 2
+# the variants phase 10 runs on seeds 0-2 in every mode: each run is held to
+# the JAX package's run of its seed, and each mode's median to JAX's median
+MULTI_SEED = ("orb", "sift")
+# The runs held by their mode's median alone. A seed's RANSAC draws differ
+# between the packages (torch's generator on the card, JAX's on the CPU),
+# so a run and the JAX run of its seed are two draws, not one; one failed
+# frame moves a run's ATE by 2-3x in both packages (PERF.md section 6: the
+# seed sweeps of tools/tour_torch.py and tools/tour_reference_jax.py).
+# These two runs fail a frame where the JAX run of their seed fails fewer.
+HELD_BY_MEDIAN = {("sift", 0, "serial"), ("orb", 1, "batch 8")}
+FAMILY_VARIANTS = ("orb", "orb2", "gftt", "star", "brisk", "freak", "latch", "sift", "surf")
+
+
+def families_phase(dev, smi, kernels, detect_images):
+    """Phase 10: the extractor families. K1's GFTT mode, the x1.2 levels, the
+    response gate at moved thresholds and the subpixel offsets against their
+    plain versions, exactly; each new variant's build on the card against
+    the CPU's; full SLAM of the families on the clean revisit tour. Returns
+    the path's launch counts (all and batched), the dense K1's timing, bound
+    and largest difference, and the runs' figures."""
+    import dataclasses
+
+    from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.frontend.extractor import Extractor
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.ops import fast, image
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+
+    t_phase = time.perf_counter()
+    base = SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
+    ecfg = base.extractor
+    n_tour = 128
+    tour = SyntheticDataset(n_frames=n_tour, cam=SYNTHETIC, trajectory="tour", loops=1.15,
+                            device=dev)
+    tour_frames = [tour.grab(i) for i in range(n_tour)]
+    probe = (0, 25, 50, 75, 100)
+    cpu_frames = {i: (tour_frames[i][1].cpu(), tour_frames[i][2].cpu()) for i in probe}
+    k1_err = 0.0
+
+    def same(a, b, what):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), what)
+
+    def same_keypoints(a, b, what):
+        """A card build's keypoints against the CPU's: levels and validity
+        exact, integer positions exact, subpixel ones within 1e-4 px, scores
+        within f32 rounding (the card's tensor code rounds the Shi-Tomasi
+        arithmetic apart from the CPU's by ulps; the kernels equal the plain
+        versions on the card bit for bit)."""
+        same(a.level.cpu(), b.level, what + ": level")
+        same(a.valid.cpu(), b.valid, what + ": valid")
+        same(a.uv.cpu().floor(), b.uv.floor(), what + ": integer uv")
+        check(float((a.uv.cpu() - b.uv).abs().max()) <= 1e-4, what + ": uv")
+        torch.testing.assert_close(a.score.cpu(), b.score, rtol=1e-5, atol=1e-3)
+
+    def maps_equal(a, b, what):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        same(fa, fb, what + " (keep mask)")
+        same(a[fa], b[fb], what + " (scores)")
+
+    # ---- K1's GFTT mode: the dense kernel and kernels A and B on the ten
+    # images of phase 3's detection check
+    n_gftt = 0
+    for tag, gray, ecfg_i in detect_images:
+        levels = image.build_pyramid(gray, ecfg_i.num_levels)
+        args = (ecfg_i.num_features, ecfg_i.cell_size, ecfg_i.fast_threshold,
+                ecfg_i.min_response, ecfg_i.min_border)
+        for lvl, img in enumerate(levels[:fast.used_levels(len(levels), ecfg_i.cell_size)]):
+            km, kr = kernels.detect_score_map(img, ecfg_i.fast_threshold, False)
+            pm, pr = kernels.detect_score_map_ref(img, ecfg_i.fast_threshold, False)
+            maps_equal(km, pm, f"GFTT dense K1, {tag} level {lvl}")
+            same(kr, pr, f"GFTT dense K1 raw map, {tag} level {lvl}")
+        kp, (cmax, carg) = kernels.detect_keypoints_fused(levels, *args, False)
+        pmax, parg = fast.detect_cells_ref(levels, ecfg_i.cell_size, ecfg_i.fast_threshold,
+                                           ecfg_i.min_border, False)
+        same(cmax, pmax, f"GFTT kernel A maxima, {tag}")
+        same(carg, parg, f"GFTT kernel A arguments, {tag}")
+        part = fast.detect_select_ref(cmax, carg, gray.shape[1] // ecfg_i.cell_size,
+                                      ecfg_i.num_features, ecfg_i.cell_size, ecfg_i.min_response)
+        whole = fast.detect_keypoints_ref(levels, *args, False)
+        for ref in (part, whole):
+            for f in ("uv", "level", "score", "valid"):
+                same(getattr(kp, f), getattr(ref, f), f"GFTT detection {tag}: {f}")
+        check(int(kp.valid.sum()) > 50, f"GFTT detection {tag}: {int(kp.valid.sum())} keypoints")
+        n_gftt += 1
+    check(n_gftt == 10, f"the GFTT mode was held on {n_gftt} images")
+
+    # ---- the response gate scaled with the threshold (F6) by kernel B from
+    # the device threshold, at cfg x {0.5, 1, 1.5}, float and device tensor
+    gate_log = []
+    for tag, gray, ecfg_i in detect_images[:3]:
+        levels = image.build_pyramid(gray, ecfg_i.num_levels)
+        for factor in (0.5, 1.0, 1.5):
+            t = ecfg_i.fast_threshold * factor
+            ref = fast.detect_keypoints_ref(levels, ecfg_i.num_features, ecfg_i.cell_size, t,
+                                            ecfg_i.min_response, ecfg_i.min_border, True,
+                                            ecfg_i.fast_threshold)
+            for thr in (t, torch.full((), t, dtype=torch.float32, device=dev)):
+                kp = kernels.detect_keypoints_fused(levels, ecfg_i.num_features,
+                                                    ecfg_i.cell_size, thr, ecfg_i.min_response,
+                                                    ecfg_i.min_border, True,
+                                                    ecfg_i.fast_threshold)[0]
+                for f in ("uv", "level", "score", "valid"):
+                    same(getattr(kp, f), getattr(ref, f), f"F6 gate {tag} x{factor}: {f}")
+            gate = fast.response_gate(ecfg_i.min_response, t, ecfg_i.fast_threshold)
+            check(bool((ref.score[ref.valid] > gate).all()), f"F6 gate {tag} x{factor}")
+            gate_log.append(f"x{factor}: gate {gate:.4f}, {int(ref.valid.sum())} valid")
+    log(f"[families] the response gate from the device threshold (kernel B) equals the "
+        f"plain gate, float and tensor thresholds, on 3 images: {'; '.join(gate_log[:3])}")
+
+    # ---- the dense K1 on the 8 levels of the x1.2 scale space of 5 tour
+    # frames, at a float and a device-tensor threshold; subpixel offsets
+    t_dev = torch.full((), ecfg.fast_threshold, dtype=torch.float32, device=dev)
+    x12_levels = None
+    for i in probe:
+        pyr = image.build_scaled_pyramid(tour_frames[i][1], 8, 1.2)
+        pyr_cpu = image.build_scaled_pyramid(cpu_frames[i][0], 8, 1.2)
+        for lvl, (img, img_c) in enumerate(zip(pyr, pyr_cpu)):
+            same(img.cpu(), img_c, f"x1.2 level {lvl} of tour frame {i}: card != CPU")
+            pm, pr = kernels.detect_score_map_ref(img, ecfg.fast_threshold)
+            for thr in (ecfg.fast_threshold, t_dev):
+                km, kr = kernels.detect_score_map(img, thr)
+                maps_equal(km, pm, f"dense K1, x1.2 level {lvl} of tour frame {i}")
+                same(kr, pr, f"dense K1 raw, x1.2 level {lvl} of tour frame {i}")
+                k1_err = max(k1_err, float((kr - pr).abs().max()))
+            for fast_gate in (True, False):
+                a = fast.detect_keypoints_level(img, 128, ecfg.cell_size, ecfg.fast_threshold,
+                                                20.0, 16, fast_gate, subpixel=True)
+                b = fast.detect_keypoints_level(img_c, 128, ecfg.cell_size,
+                                                ecfg.fast_threshold, 20.0, 16, fast_gate,
+                                                subpixel=True)
+                same_keypoints(a, b, f"subpixel, x1.2 level {lvl} of tour frame {i}")
+        if x12_levels is None:
+            x12_levels = pyr
+    for tag, gray, ecfg_i in detect_images[:3]:
+        levels = image.build_pyramid(gray, ecfg_i.num_levels)
+        a = fast.detect_keypoints(levels, ecfg_i.num_features, ecfg_i.cell_size,
+                                  ecfg_i.fast_threshold, ecfg_i.min_response,
+                                  ecfg_i.min_border, subpixel=True,
+                                  gate_threshold=ecfg_i.fast_threshold)
+        b = fast.detect_keypoints([lv.cpu() for lv in levels], ecfg_i.num_features,
+                                  ecfg_i.cell_size, ecfg_i.fast_threshold, ecfg_i.min_response,
+                                  ecfg_i.min_border, subpixel=True,
+                                  gate_threshold=ecfg_i.fast_threshold)
+        same_keypoints(a, b, f"subpixel {tag}")
+    log(f"[families] dense K1 on the 8 x1.2 levels of {len(probe)} tour frames (the card's "
+        f"pyramid equal to the CPU's bit for bit), float and device-tensor threshold, and "
+        f"the subpixel offsets of both pyramids: all equal to the plain versions; raw map "
+        f"max abs diff {k1_err:.3g}")
+
+    # ---- each new variant's build: card against the port's CPU build
+    build_ms, build_launches = {}, {}
+    for v in FAMILY_VARIANTS:
+        ex = Extractor(SYNTHETIC, ecfg, detector=v)
+        bits_diff = bits = flips = rows = 0
+        for i in probe:
+            gray, depth = tour_frames[i][1], tour_frames[i][2]
+            fc = ex.build(gray, depth, ecfg.fast_threshold)
+            if v == "orb2":
+                fo = Extractor(SYNTHETIC, ecfg, detector="orb").build(gray, depth,
+                                                                      ecfg.fast_threshold)
+                for f in ("uv", "valid", "level", "score", "desc"):
+                    same(getattr(fc, f), getattr(fo, f), f"orb2 = orb, frame {i}: {f}")
+                continue
+            f = ex.build(*cpu_frames[i], ecfg.fast_threshold)
+            same_keypoints(fc, f, f"{v} frame {i}")
+            a, b = fc.desc.cpu().numpy(), f.desc.numpy()
+            if a.dtype == np.int32:
+                x = np.unpackbits((a.view(np.uint32) ^ b.view(np.uint32)).view(np.uint8))
+                bits_diff += int(x.sum())
+                bits += x.size
+            else:
+                flips += int((np.abs(a - b).max(axis=1) > 1e-5).sum())
+                rows += len(a)
+        if bits:
+            check(bits_diff <= 0.001 * bits, f"{v}: {bits_diff} of {bits} bits differ")
+        if rows:
+            check(flips <= 0.01 * rows, f"{v}: {flips} of {rows} rows beyond 1e-5")
+        gray, depth = tour_frames[50][1], tour_frames[50][2]
+        build_ms[v] = cuda_ms(lambda: ex.build(gray, depth, ecfg.fast_threshold), iters=5)
+        kernels.reset_launch_counts()
+        ex.build(gray, depth, ecfg.fast_threshold)
+        build_launches[v] = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        if v.startswith("orb"):
+            check(build_launches[v].get("detect_score_map") == 8,
+                  f"{v}: the dense K1 ran {build_launches[v]} times in one build")
+        log(f"[families] {v} build, card = CPU on {len(probe)} tour frames: keypoints "
+            f"equal; descriptor bits apart {bits_diff} of {bits}, float rows beyond 1e-5 "
+            f"{flips} of {rows}; {build_ms[v]:.3f} ms a build (CUDA events), launches "
+            f"of our kernels {json.dumps(build_launches[v])} ({smi})")
+
+    # ---- full SLAM of the families on the clean revisit tour
+    def config(v):
+        if v == "svo_fast+subpixel":
+            return dataclasses.replace(base, extractor=dataclasses.replace(ecfg, subpixel=True))
+        return dataclasses.replace(base, detector=v)
+
+    from rgbdslam_tpu_torch.slam.tracking import TrackerState
+
+    def counts(system):
+        st = system.tracker.stats
+        return (st.estimates, system.store.count, system.loops_closed,
+                system.reloc_verifications)
+
+    def counted_call(system, mode, fn, tally):
+        """fn() under the sync debug mode, held to the budget of PERF.md
+        section 2 for its mode (phases 6-7): serial one read per estimate,
+        keyframe and loop closure, two per relocalization; the ring one per
+        frame once a row is in it, one per retry, loop closure, two per
+        relocalization; a batch dispatch none."""
+        tr = system.tracker
+        init, had_row = tr.state is TrackerState.NOT_INITIALIZED, tr._pipe is not None
+        before = counts(system)
+        n, msg, out = sync_calls(fn)
+        dE, dK, dL, dR = (a - b for a, b in zip(counts(system), before))
+        if mode == "serial":
+            budget = dE + dK + dL + 2 * dR
+        elif mode == "ring":
+            budget = dK if init else int(had_row) + (dE - 1) + dL + 2 * dR
+        else:
+            budget = 0
+        tally.append(n)
+        check(n == budget, f"{mode}, call {len(tally)}: {n} synchronisations, budget {budget} "
+              f"(estimates {dE}, keyframes {dK}, loops {dL}, relocalizations {dR}); "
+              f"first: {msg!r}")
+        return out
+
+    def run(v, seed, mode, counted=None):
+        system = SlamSystem(SYNTHETIC, config(v), seed=seed, device=dev)
+        voc = shipped_vocabulary(v.split("+")[0])
+        if voc:
+            system.load_vocabulary(voc)
+        st = system.tracker.stats
+        # the failed frames, and the frames whose estimate was retried against
+        # the second reference (a step that made two estimates); the ring
+        # reads both a frame late
+        failed, retried, ests = [], [], [st.estimates]
+
+        def note(i):
+            failed.extend([i] * (st.failures - len(failed)))
+            made = st.estimates - ests[-1]
+            if mode != "batch 8" and made >= (1 if mode == "ring" and i == n_tour - 1 else 2):
+                retried.append(i)
+            ests.append(st.estimates)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "batch 8":
+            pending = None
+            for i in range(0, n_tour, 8):
+                batch = tuple(zip(*tour_frames[i:i + 8]))
+                if counted is None:
+                    h = system.track_batch_dispatch(*batch)
+                else:
+                    h = counted_call(system, mode,
+                                     lambda: system.track_batch_dispatch(*batch), counted)
+                if pending is not None:
+                    system.track_batch_complete(pending)
+                    note(i - 8)
+                pending = h
+            system.track_batch_complete(pending)
+            note(n_tour - 8)
+        else:
+            step = system.track if mode == "serial" else system.track_pipelined
+            lag = 0 if mode == "serial" else 1
+            for i, (ts, gray, depth) in enumerate(tour_frames):
+                if counted is None:
+                    step(ts, gray, depth)
+                else:
+                    counted_call(system, mode, lambda: step(ts, gray, depth), counted)
+                note(i - lag)
+            if mode == "ring":
+                system.track_pipelined_flush()
+                note(n_tour - 1)      # the flush completes the last frame
+        wall = 1000 * (time.perf_counter() - t0) / n_tour
+        system.finish()
+        ts_c, poses_c = system.camera_trajectory()
+        rmse, info = ate_rmse(ts_c, poses_c, tour.timestamps, tour.poses_twc)
+        check(info["pairs"] == n_tour and np.isfinite(poses_c).all(),
+              f"{v} {mode} seed {seed}: poses not finite")
+        check(st.failures <= 0.15 * n_tour, f"{v} {mode} seed {seed}: {st.failures} failures")
+        jax_ate = (JAX_FAMILY_ATE_BATCH8 if mode == "batch 8" else JAX_FAMILY_ATE)[(v, seed)]
+        log(f"[families] {v} {mode} seed {seed}: ATE {rmse:.5f} m (JAX package, "
+            f"{'batch 8' if mode == 'batch 8' else 'serial'}, CPU: {jax_ate}), {wall:.3f} "
+            f"ms/frame (host clock), keyframes {system.store.count}, "
+            f"BoW loops closed {system.loops_closed} (JAX: {JAX_FAMILY_LOOPS}), failures "
+            f"{st.failures} (frames {failed}), mean inliers {int(st.mean_inliers)} ({smi})")
+        if (v, seed, mode) not in HELD_BY_MEDIAN:
+            check(rmse <= 1.5 * jax_ate + 0.01, f"{v} {mode} seed {seed}: ATE {rmse:.5f} m "
+                  f"against the JAX package's {jax_ate} (bound {1.5 * jax_ate + 0.01:.5f})")
+        return {"system": system, "ate": rmse, "ms": wall, "poses": poses_c,
+                "kf": system.store.count, "loops": system.loops_closed,
+                "failures": st.failures, "failed": failed, "retried": retried,
+                "jax": jax_ate, "inliers": [fr.num_inliers for fr in system.tracker.trajectory]}
+
+    runs = {}
+    serial_syncs, ring_syncs, batch_syncs = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with plain_versions_forbidden(kernels):
+        for v in ("orb", "gftt", "star", "brisk", "freak", "latch", "sift", "surf",
+                  "svo_fast+subpixel"):
+            runs[(v, 0, "serial")] = run(v, 0, "serial")
+        # the budgets are counted on ORB seed 1 in each mode, after a run of
+        # the same configuration has made the process's first-use copies
+        tally = {"serial": serial_syncs, "ring": ring_syncs, "batch 8": batch_syncs}
+        for v in ("orb", "sift"):
+            for mode, seeds in (("serial", (1, 2)), ("ring", (0, 1, 2)), ("batch 8", (0, 1, 2))):
+                for sd in seeds:
+                    runs[(v, sd, mode)] = run(v, sd, mode,
+                                              tally[mode] if (v, sd) == ("orb", 1) else None)
+        # ADAPTIVE ORB in batches of 8 over the first 32 frames: the first
+        # dispatch reads once per host re-detection of its first frame, a later
+        # one never
+        a_sys = SlamSystem(SYNTHETIC, dataclasses.replace(config("orb"), adaptive=True),
+                           seed=0, device=dev)
+        a_sys.load_vocabulary(shipped_vocabulary("orb"))
+        a_syncs = []
+        for i in range(0, 32, 8):
+            batch = tuple(zip(*tour_frames[i:i + 8]))
+            n, msg, h = sync_calls(lambda: a_sys.track_batch_dispatch(*batch))
+            a_syncs.append((n, a_sys.tracker._extractor.reads))
+            a_sys.track_batch_complete(h)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+
+    check(a_syncs[0][0] == a_syncs[0][1] and all(n == 0 for n, _ in a_syncs[1:]),
+          f"ADAPTIVE ORB batch dispatches synchronised {a_syncs} (syncs, reads so far)")
+    # The ring draws frame i's hypotheses before it reads frame i-1's row:
+    # after a second-reference retry (serial draws it before frame i+1) the
+    # two runs' draws part, and a keyframe's backend lands a frame late (the
+    # JAX package's ring does the same, tracking.py:554-696). Every run is
+    # held frame by frame (the RANSAC inliers) up to the first retry in
+    # either mode, and a run without a failed frame in either as a whole.
+    n_equal = 0
+    for v in ("orb", "sift"):
+        for sd in (0, 1, 2):
+            s, r = runs[(v, sd, "serial")], runs[(v, sd, "ring")]
+            upto = min(s["retried"][:1] + r["retried"][:1] + [n_tour])
+            same = s["inliers"][:upto] == r["inliers"][:upto]
+            gap = float(np.linalg.norm(r["poses"][:, :3, 3] - s["poses"][:, :3, 3], axis=-1).max())
+            log(f"[families] {v} seed {sd}: ring against serial: retried frames "
+                f"{s['retried']} / {r['retried']}, inliers equal on frames 0-{upto - 1} "
+                f"{same}; keyframes {r['kf']} / {s['kf']}, loops {r['loops']} / "
+                f"{s['loops']}, failures {r['failures']} / {s['failures']}, largest position "
+                f"gap {gap:.5f} m")
+            check(upto > 8 and same, f"{v} seed {sd}: the ring's inliers differ from serial's "
+                  f"before frame {upto}")
+            if s["failures"] == 0 and r["failures"] == 0:
+                n_equal += 1
+                check(r["kf"] == s["kf"] and r["loops"] == s["loops"] and gap < 1e-3,
+                      f"{v} seed {sd}: the ring differs from serial, gap {gap:.5f} m")
+    check(n_equal >= 2, f"only {n_equal} orb / sift runs without a failed frame to hold the "
+          "ring to serial as a whole")
+    # orb and sift ran three seeds a mode: each mode's median is held to the
+    # JAX package's median as well, as phase 9 holds the noisy tour
+    for v in MULTI_SEED:
+        for mode in ("serial", "ring", "batch 8"):
+            ref = JAX_FAMILY_ATE_BATCH8 if mode == "batch 8" else JAX_FAMILY_ATE
+            jax_med = float(np.median([ref[(v, sd)] for sd in (0, 1, 2)]))
+            med = float(np.median([runs[(v, sd, mode)]["ate"] for sd in (0, 1, 2)]))
+            log(f"[families] {v} {mode}: median ATE over seeds 0-2 {med:.5f} m, the JAX "
+                f"package's (CPU, {'batch 8' if mode == 'batch 8' else 'serial'}) "
+                f"{jax_med:.5f} m, bound {1.5 * jax_med + 0.01:.5f} m")
+            check(med <= 1.5 * jax_med + 0.01, f"{v} {mode}: median ATE {med:.5f} m, bound "
+                  f"{1.5 * jax_med + 0.01:.5f} m")
+    log(f"[families] host synchronisations, ORB seed 1: serial per frame "
+        f"{sorted(set(serial_syncs))}, ring {sum(ring_syncs)} over {n_tour} frames, batch "
+        f"dispatches {sorted(set(batch_syncs))}; "
+        f"ADAPTIVE ORB batch dispatches (syncs, host detections so far) {a_syncs}")
+    check(launches["detect_score_map"] > 0, "the dense K1 was not launched on the families path")
+    n_orb_frames = sum(n_tour for (v, _, _) in runs if v == "orb")
+    log(f"[families] launches on the path {json.dumps(launches)} (batched "
+        f"{json.dumps(batched)}); the dense K1: {n_orb_frames} ORB frames x 8 + the subpixel "
+        f"run's {n_tour} x 4 + the ADAPTIVE run's")
+
+    # the dense K1 at the families path's shapes: the 8 x1.2 levels
+    def k1_kernel():
+        for lvl in x12_levels:
+            kernels.detect_score_map(lvl, t_dev)
+
+    def k1_plain():
+        for lvl in x12_levels:
+            kernels.detect_score_map_ref(lvl, ecfg.fast_threshold)
+
+    k1_ms = paired_ms(k1_kernel, k1_plain)
+    n_px = sum(lv.numel() for lv in x12_levels)
+    k1_bound = bound(n_px * 4 * 3, n_px * 170)
+    log(f"[families] dense K1 on the 8 x1.2 levels ({n_px} px): kernel {k1_ms[0]:.4f} ms, "
+        f"plain {k1_ms[1]:.4f} ms, bound {k1_bound[0]:.6f} ms by {k1_bound[1]} ({smi})")
+    log(f"[families] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, batched, {"timing": k1_ms, "bound": k1_bound, "err": k1_err,
+                               "build_ms": build_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1312,8 +1756,10 @@ def main() -> int:
                 mism_render += n_bad
             log(f"[kernels] K1 dense {kind} level {lvl} {tuple(img.shape)}: corners "
                 f"{int(kk.sum())}, keep-mask mismatches {n_bad}")
-    off_path = {"detect_score_map": kernels.LAUNCHES["detect_score_map"]}
-    check(off_path["detect_score_map"] == 2 * len(pyr), "dense K1 launches")
+    check(kernels.LAUNCHES["detect_score_map"] == 2 * len(pyr), "dense K1 launches")
+    # launches through a public entry that no main path reaches: K3's scorer
+    # alone and K5 (the dense K1 runs on the families path, phase 10)
+    off_path = {}
     results["detect_score_map"] = dict(max_abs_err=err, keep_mismatch_rendered=mism_render)
 
     def max_diff(outs_a, outs_b):
@@ -1322,6 +1768,7 @@ def main() -> int:
                          for a, b in zip(outs_a, outs_b)))
 
     detect_err = {"n": 0, "score": 0.0, "unequal": 0}
+    detect_images = []      # (tag, image, config): phase 10 holds the GFTT mode on them
 
     def check_detect(tag, gray, ecfg):
         """The whole detection on one image, held apart and all exact (the
@@ -1329,6 +1776,7 @@ def main() -> int:
         indices against the plain best-per-cell step, kernel B's keypoints
         against the plain merge and selection on kernel A's outputs, the
         whole against the whole plain version."""
+        detect_images.append((tag, gray, ecfg))
         levels = image.build_pyramid(gray, ecfg.num_levels)
         args = (ecfg.num_features, ecfg.cell_size, ecfg.fast_threshold, ecfg.min_response,
                 ecfg.min_border)
@@ -2463,20 +2911,32 @@ def main() -> int:
     launches_accuracy, batched_accuracy = accuracy_phase(
         dev, smi, kernels, tour, tour_frames, voc, dense_off)
 
+    # ---------------------------------------------------------------- 10
+    launches_families, batched_families, fam = families_phase(dev, smi, kernels,
+                                                             detect_images)
+    log(f"[times] detect_score_map at the sweep's 4 half-sample levels: kernel "
+        f"{timing['detect_score_map'][0]:.4f} ms, plain {timing['detect_score_map'][1]:.4f} ms "
+        f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
+    timing["detect_score_map"] = fam["timing"]
+    bounds["detect_score_map"] = fam["bound"]
+    results["detect_score_map"]["max_abs_err"] = max(results["detect_score_map"]["max_abs_err"],
+                                                     fam["err"])
+
     # launches per entry and main path (the sweep's pipeline, the tour
-    # through the serial, ring and batched modes), each path driven with the
-    # counts set to 0 just before it and read just after; an unbatched entry
-    # counts its wrapper's unbatched launches, the _b13 entry its batched
-    # ones. `off_path` holds the launches through a public entry that no main
-    # path reaches, counted in phase 3: the dense K1 (fast.masked_score_map),
-    # K3's scorer alone (mahal_hypothesis_scores) and K5
+    # through the serial, ring and batched modes, the disk, accuracy and
+    # families runs), each path driven with the counts set to 0 just before
+    # it and read just after; an unbatched entry counts its wrapper's
+    # unbatched launches, the _b13 entry its batched ones. `off_path` holds
+    # the launches through a public entry that no main path reaches, counted
+    # in phase 3: K3's scorer alone (mahal_hypothesis_scores) and K5
     # (icp.gicp_normal_equations). They are printed apart as
     # `launches_off_path`; an entry named here must show none on a main path,
     # every other entry must show some there.
     paths = {"sweep": (launches_sweep, {}), "tour": (launches_tour, batched_tour),
              "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch),
              "disk": (launches_disk, batched_disk),
-             "accuracy": (launches_accuracy, batched_accuracy)}
+             "accuracy": (launches_accuracy, batched_accuracy),
+             "families": (launches_families, batched_families)}
 
     def path_launches(wrapper, b13):
         out = {}
@@ -2529,7 +2989,11 @@ def main() -> int:
                   f"{entry['launches_off_path']} through its public entry")
         else:
             check(on_path > 0, f"{entry['name']} was launched on no main path")
-            for path in ("disk", "accuracy"):
+            # the dense K1 serves the families path alone (the x1.2 scale
+            # space, subpixel refinement)
+            required = (("families",) if entry["name"] == "detect_score_map"
+                        else ("disk", "accuracy", "families"))
+            for path in required:
                 check(entry[f"launches_{path}"] > 0,
                       f"{entry['name']} was not launched on the {path} path")
     log(json.dumps(line))

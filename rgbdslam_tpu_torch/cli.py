@@ -73,7 +73,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "a keyframe's backend completing one frame late")
     p.add_argument("--pipelined", type=int, default=0, metavar="B",
                    help="odometry-only pipeline: B frames per host round trip")
-    p.add_argument("--detector", default="svo_fast")
+    p.add_argument("--detector", default="svo_fast",
+                   choices=["svo_fast", "fast", "brief", "orb", "orb2", "gftt", "star",
+                            "brisk", "freak", "latch", "sift", "surf"],
+                   help="extractor variant (the reference factory's types, "
+                        "Features/Extractor.h:13-26)")
     p.add_argument("--adaptive", action="store_true",
                    help="ADAPTIVE detector threshold feedback")
     p.add_argument("--num-features", type=int, default=1024)

@@ -42,7 +42,8 @@ def config_from_jax(cfg) -> torch_config.SlamConfig:
 
 def frame_features_from_numpy(d: Dict[str, np.ndarray], device="cpu"):
     """FrameFeatures on `device` from a mapping of field name -> numpy array
-    (uint32 descriptor words are reinterpreted as int32)."""
+    (uint32 descriptor words are reinterpreted as int32; float descriptors
+    stay f32)."""
     import torch
 
     from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
@@ -50,18 +51,18 @@ def frame_features_from_numpy(d: Dict[str, np.ndarray], device="cpu"):
     fields = {}
     for name in FEATURE_FIELDS:
         a = np.asarray(d[name])
-        if name == "desc":
+        if name == "desc" and a.dtype.kind != "f":
             a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
         fields[name] = torch.as_tensor(np.array(a), device=device)
     return FrameFeatures(**fields)
 
 
 def frame_features_to_numpy(f) -> Dict[str, np.ndarray]:
-    """Field name -> numpy array (descriptor words as uint32)."""
+    """Field name -> numpy array (binary descriptor words as uint32)."""
     out = {}
     for name in FEATURE_FIELDS:
         a = getattr(f, name).detach().cpu().numpy()
-        if name == "desc":
+        if name == "desc" and a.dtype == np.int32:
             a = a.view(np.uint32)
         out[name] = a
     return out
@@ -69,16 +70,19 @@ def frame_features_to_numpy(f) -> Dict[str, np.ndarray]:
 
 def desc_words_from_numpy(a: np.ndarray, device="cpu"):
     """uint32 descriptor or vocabulary words (..., 8) as an int32 tensor of
-    the same bit patterns."""
+    the same bit patterns; float descriptors or words as f32."""
     import torch
 
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32),
                            device=device)
 
 
 def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cpu"):
-    """(words (V, 8) int32 bit patterns, idf (V,) f32) on `device` from the
-    JAX package's uint32 words and f32 idf."""
+    """(words (V, 8) int32 bit patterns or (V, D) f32, idf (V,) f32) on
+    `device` from the JAX package's uint32 or f32 words and f32 idf."""
     import torch
 
     return (desc_words_from_numpy(words, device),
@@ -88,7 +92,8 @@ def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cpu"):
 def bank_from_numpy(desc: np.ndarray, xyz: np.ndarray, valid: np.ndarray,
                     bow: np.ndarray, device="cpu"):
     """The device keyframe bank (D, X, V, B) of slam/system.py from host
-    arrays: desc (K, N, 8) uint32, xyz (K, N, 3) f32, valid (K, N) bool, bow
+    arrays: desc (K, N, 8) uint32 or (K, N, 128) f32, xyz (K, N, 3) f32,
+    valid (K, N) bool, bow
     (K, Vw) f32. The tensors are fresh copies (the bank is updated in place)."""
     import torch
 

@@ -20,7 +20,8 @@
 // Design. The tile computation is one device function, tile_scores, shared
 // by three kernels:
 //  * detect_kernel, the dense maps of one level (the TPU kernel's direct
-//    counterpart; the detection below does not use it);
+//    counterpart: the per-level detection of the x1.2 scale space and the
+//    raw maps of subpixel refinement);
 //  * detect_cells_kernel (kernel A), one launch over the tiles of every
 //    level: a flat block index is mapped to (level, tile) through a table of
 //    level pointers, sizes and first-block offsets passed by value. The FAST
@@ -67,8 +68,20 @@
 // then the -s neighbour), FAST-10 runs only on the 3-pixel interior with
 // wrap-around arcs, NMS is >= over the corner score with -inf outside. The
 // box radius (4) and the arc (10) are the tracking step's and are fixed here.
-// The Pallas kernel's GFTT mode (use_fast_gate=False) is not ported: nothing
-// on the tracking step uses it.
+// GFTT mode (use_fast_gate=False, the Pallas kernel's static flag): every
+// pixel of the level is a candidate (no FAST test, no 3-pixel interior), and
+// the NMS runs over the dense score with -inf outside the image, as
+// _detect_core does (pallas_kernels.py:253-265). Every kernel takes it as a
+// flag.
+// The dense kernel serves the ORB x1.2 scale space (one launch per level,
+// fast.detect_keypoints_level) and subpixel refinement (its raw map); it
+// reads the FAST threshold from device memory like kernel A, so a threshold
+// that the batched tracker evolves on the device is never read back.
+// Kernel B computes the final response gate from that same device threshold:
+// with the FAST gate, (thr * thr) * gate_scale, gate_scale = min_response *
+// (1 / cfg threshold)^2 in f32: what XLA compiles the JAX package's
+// min_response * (thr / cfg threshold)^2 into (frontend/frame.py:103-106);
+// without it, min_response.
 // Built with -fmad=false and written in the plain version's operation order,
 // so the maps round exactly like detect_score_map_ref and the keypoints
 // equal detect_keypoints_ref's bit for bit.
@@ -112,8 +125,8 @@ struct TileSmem {
 // dense score. For a thread outside the image masked is -inf and raw 0.
 // Called by all TW x TH threads of the block.
 __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h, int w,
-                                            float thr, int x0, int y0, TileSmem& s,
-                                            float& masked, float& raw) {
+                                            float thr, bool fast_gate, int x0, int y0,
+                                            TileSmem& s, float& masked, float& raw) {
   const int tid = threadIdx.y * TW + threadIdx.x;
   const int nthr = TW * TH;
   const float NEG_INF = -INFINITY;
@@ -177,8 +190,9 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
     const float score = 0.5f * (tr - sqrtf(v));
 
     const int gy = y0 - 1 + by, gx = x0 - 1 + bx;
-    bool corner = false;
-    if (gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3) {
+    // GFTT: every pixel of the image is a candidate, none outside it
+    bool corner = !fast_gate && gy >= 0 && gy < h && gx >= 0 && gx < w;
+    if (fast_gate && gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3) {
       const float center = s.img[by + 5][bx + 5];
       const float hi = center + thr, lo = center - thr;
       unsigned bmask = 0u, dmask = 0u;
@@ -218,14 +232,18 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
   }
 }
 
-// The dense (masked, raw) maps of one level.
+// The dense (masked, raw) maps of one level; the threshold from device memory.
 __global__ void __launch_bounds__(TW * TH)
-detect_kernel(const float* __restrict__ img, int h, int w, float thr,
+detect_kernel(const float* __restrict__ img, int h, int w,
+              const float* __restrict__ thr_ptr, int fast_gate,
               float* __restrict__ out, float* __restrict__ raw) {
   __shared__ TileSmem s;
+  __shared__ float s_thr;
+  if (threadIdx.x == 0 && threadIdx.y == 0) s_thr = *thr_ptr;
+  __syncthreads();
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   float m, r;
-  tile_scores(img, h, w, thr, x0, y0, s, m, r);
+  tile_scores(img, h, w, s_thr, fast_gate != 0, x0, y0, s, m, r);
   const int gx = x0 + threadIdx.x, gy = y0 + threadIdx.y;
   if (gx < w && gy < h) {
     out[gy * w + gx] = m;
@@ -251,8 +269,8 @@ struct LevelTable {
 };
 
 __global__ void __launch_bounds__(TW * TH)
-detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int cell_size,
-                    int grid_rows, int grid_cols, int min_border,
+detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_gate,
+                    int cell_size, int grid_rows, int grid_cols, int min_border,
                     float* __restrict__ cell_max, int* __restrict__ cell_arg) {
   __shared__ TileSmem s;
   __shared__ float s_out[TH][TW];     // gated masked scores of the tile
@@ -273,7 +291,7 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int cell_
   const int cell_l = cell_size >> lvl;
 
   float m, r;
-  tile_scores(tab.img[lvl], tab.h[lvl], tab.w[lvl], thr, x0, y0, s, m, r);
+  tile_scores(tab.img[lvl], tab.h[lvl], tab.w[lvl], thr, fast_gate != 0, x0, y0, s, m, r);
 
   // border gate in level-0 coordinates
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -335,7 +353,8 @@ constexpr int kNoCorner = 255;
 __global__ void __launch_bounds__(kSelThreads)
 detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__ cell_arg,
                      int n_levels, int n_cells, int grid_cols, int cell_size,
-                     float min_response, int num_features, float* __restrict__ uv,
+                     const float* __restrict__ thr_ptr, int scale_gate, float gate_scale,
+                     float min_response_cfg, int num_features, float* __restrict__ uv,
                      int* __restrict__ level_out, float* __restrict__ score_out,
                      unsigned char* __restrict__ valid_out) {
   // gated merged score per cell, padded with -inf to a multiple of 32 cells,
@@ -346,6 +365,12 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
   unsigned char* s_lvl = reinterpret_cast<unsigned char*>(s_sel + n_pad);
   const int tid = threadIdx.x;
   const int k = num_features < n_cells ? num_features : n_cells;
+  // the response gate, scaled with the device threshold under the FAST gate
+  float min_response = min_response_cfg;
+  if (scale_gate) {
+    const float t = *thr_ptr;
+    min_response = (t * t) * gate_scale;
+  }
 
   // every block merges and gates all cells (a few thousand L2 reads, a cell's
   // levels loaded together), then ranks its own 16
@@ -418,27 +443,31 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
 
 }  // namespace
 
-extern "C" int rgbd_detect_score_map(const void* img, int h, int w, float thr,
-                                     void* out, void* raw, void* stream) {
+// thr: the FAST threshold, one float in device memory (unread in GFTT mode).
+extern "C" int rgbd_detect_score_map(const void* img, int h, int w, const void* thr,
+                                     int fast_gate, void* out, void* raw, void* stream) {
   if (h <= 0 || w <= 0) return (int)cudaSuccess;
   dim3 block(TW, TH);
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
   detect_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)img, h, w, thr, (float*)out, (float*)raw);
+      (const float*)img, h, w, (const float*)thr, fast_gate, (float*)out, (float*)raw);
   return (int)cudaGetLastError();
 }
 
 // The whole detection on one stream: kernel A over the tiles that cover the
 // cells of each level, then kernel B. thr: the FAST threshold, one float in
-// device memory. imgs, hs, ws: host arrays of n_levels
+// device memory; fast_gate 0 for the GFTT mode; scale_gate 1 to gate by
+// thr^2 * gate_scale on the device instead of min_response. imgs, hs, ws: host
+// arrays of n_levels
 // entries, level l of hs[l] x ws[l] pixels holding at least grid_rows x
 // grid_cols cells of (cell_size >> l)^2 pixels, each a divisor of the tile.
 // cell_max, cell_arg: (n_levels, grid_rows * grid_cols); uv (num_features, 2),
 // level, score, valid (num_features,).
 extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, const int* ws,
                                      int n_levels, int cell_size, int grid_rows,
-                                     int grid_cols, const void* thr, int min_border,
-                                     float min_response, int num_features,
+                                     int grid_cols, const void* thr, int fast_gate,
+                                     int min_border, float min_response, int scale_gate,
+                                     float gate_scale, int num_features,
                                      void* cell_max, void* cell_arg, void* uv, void* level,
                                      void* score, void* valid, void* stream) {
   const int n_cells = grid_rows * grid_cols;
@@ -466,7 +495,8 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
     tab.h[l] = tab.w[l] = tab.tiles_x[l] = 0;
   }
   detect_cells_kernel<<<blocks, dim3(TW, TH), 0, st>>>(
-      tab, (const float*)thr, cell_size, grid_rows, grid_cols, min_border, (float*)cell_max,
+      tab, (const float*)thr, fast_gate, cell_size, grid_rows, grid_cols, min_border,
+      (float*)cell_max,
       (int*)cell_arg);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
@@ -478,7 +508,8 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
   }
   detect_select_kernel<<<(n_cells + kSelCells - 1) / kSelCells, kSelThreads, bytes, st>>>(
       (const float*)cell_max, (const int*)cell_arg, n_levels, n_cells, grid_cols, cell_size,
-      min_response, num_features, (float*)uv, (int*)level, (float*)score,
+      (const float*)thr, scale_gate, gate_scale, min_response, num_features, (float*)uv,
+      (int*)level, (float*)score,
       (unsigned char*)valid);
   return (int)cudaGetLastError();
 }

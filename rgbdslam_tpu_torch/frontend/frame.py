@@ -1,17 +1,21 @@
 """Per-frame feature build into a fixed-shape set of tensors (port of
 rgbdslam_tpu/frontend/frame.py; Core/Frame.cpp:34-122).
 
-pyramid -> FAST/Shi-Tomasi grid detection (K1 on CUDA) -> blur -> upright
-BRIEF-256 -> depth lookup/denoise -> undistortion -> unprojection -> depth
-patch covariances, under a fixed N-keypoint budget with validity masks.
-Only the default path is ported: the half-sample pyramid
-(scale_factor=2.0), the `fast_st` response and the `brief` descriptor.
+pyramid -> grid detection (K1 on CUDA) -> blur -> description -> depth
+lookup/denoise -> undistortion -> unprojection -> depth patch covariances,
+under a fixed N-keypoint budget with validity masks. Every variant of the
+extractor factory: the half-sample pyramid (scale_factor=2.0) or the ORB
+x1.2 scale space with per-level quotas, the `fast_st` response with or
+without the FAST gate (GFTT) or the star / DoG / Hessian responses, and the
+brief, orb, brisk, freak, latch (binary, (N, 8) int32) or sift (float,
+(N, 128) f32) descriptors, with optional subpixel refinement.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +24,7 @@ from rgbdslam_tpu_torch.geometry import camera as cam_mod
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.ops import fast as fast_ops
 from rgbdslam_tpu_torch.ops import image as image_ops
+from rgbdslam_tpu_torch.ops import descriptors as desc_ops
 from rgbdslam_tpu_torch.ops import orb as orb_ops
 from rgbdslam_tpu_torch.solvers.icp import depth_patch_covariances
 
@@ -32,7 +37,8 @@ class FrameFeatures:
     uv: torch.Tensor          # (N, 2) f32 detected (distorted) pixel coords
     uv_undist: torch.Tensor   # (N, 2) f32 undistorted pixel coords
     xyz: torch.Tensor         # (N, 3) f32 camera-frame 3D (z=0 when no depth)
-    desc: torch.Tensor        # (N, 8) int32 words of the 256-bit descriptor
+    desc: torch.Tensor        # (N, 8) int32 words of a 256-bit descriptor,
+                              # or (N, 128) f32 for the sift family
     score: torch.Tensor       # (N,) f32 detector response
     level: torch.Tensor       # (N,) i32 pyramid level
     valid: torch.Tensor       # (N,) bool detected slot
@@ -54,30 +60,90 @@ class FrameFeatures:
 def build_frame_features(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
                          cfg: ExtractorConfig = ExtractorConfig(),
                          descriptor: str = "brief",
-                         fast_threshold=None) -> FrameFeatures:
+                         fast_threshold=None,
+                         use_fast_gate: bool = True,
+                         response: str = "fast_st") -> FrameFeatures:
     """gray [H, W] f32 (0..255), depth [H, W] f32 meters -> FrameFeatures,
     on the tensors' device. `fast_threshold` overrides cfg.fast_threshold
     (the ADAPTIVE extractor's feedback): a float, or a 0-dim f32 tensor on
-    the frames' device, which is never read back to the host."""
+    the frames' device, which is never read back to the host. With the FAST
+    gate the final response gate scales with it (`fast.response_gate`).
+    `use_fast_gate=False` gives the GFTT detector; `response`: 'fast_st' |
+    'star' | 'dog' | 'hessian'; `descriptor`: 'brief' | 'orb' | 'brisk' |
+    'freak' | 'latch' | 'sift'. cfg.scale_factor != 2.0 selects the
+    fractional scale space."""
+    thr = cfg.fast_threshold if fast_threshold is None else fast_threshold
+    gate_thr = cfg.fast_threshold if (response == "fast_st" and use_fast_gate) else None
     if cfg.scale_factor != 2.0:
-        raise NotImplementedError("the x1.2 ORB scale space is not yet ported "
-                                  "(scale_factor must be 2.0)")
-    if descriptor != "brief":
-        raise NotImplementedError(f"descriptor {descriptor!r} is not yet ported")
-    if cfg.subpixel:
-        raise NotImplementedError("subpixel refinement is not yet ported")
-    pyramid = image_ops.build_pyramid(gray, cfg.num_levels)
-    kp = fast_ops.detect_keypoints(
-        pyramid,
-        num_features=cfg.num_features,
-        cell_size=cfg.cell_size,
-        fast_threshold=cfg.fast_threshold if fast_threshold is None else fast_threshold,
-        min_response=cfg.min_response,
-        min_border=cfg.min_border,
-    )
-    blurred = image_ops.gaussian_blur(gray, sigma=2.0, radius=3)
-    desc = orb_ops.brief_descriptors_dense(blurred, kp.uv, cfg.brief_patch_size)
+        kp, desc = _multiscale_detect_describe(gray, cfg, thr, gate_thr, use_fast_gate,
+                                               descriptor, response)
+    else:
+        pyramid = image_ops.build_pyramid(gray, cfg.num_levels)
+        kp = fast_ops.detect_keypoints(
+            pyramid,
+            num_features=cfg.num_features,
+            cell_size=cfg.cell_size,
+            fast_threshold=thr,
+            min_response=cfg.min_response,
+            min_border=cfg.min_border,
+            use_fast_gate=use_fast_gate,
+            subpixel=cfg.subpixel,
+            response=response,
+            gate_threshold=gate_thr,
+        )
+        blurred = image_ops.gaussian_blur(gray, sigma=2.0, radius=3)
+        desc = _describe(blurred, gray, kp.uv, cfg, descriptor)
     return _assemble_features(cam, gray, depth, kp, desc)
+
+
+def _describe(img_blurred, img_raw, uv, cfg: ExtractorConfig, descriptor: str):
+    """Descriptor dispatch at the given image and coordinates (the level-0
+    and the per-level paths share it)."""
+    if descriptor == "brief":
+        return orb_ops.brief_descriptors_dense(img_blurred, uv, cfg.brief_patch_size)
+    if descriptor == "orb":
+        return orb_ops.orb_descriptors_dense(img_blurred, img_raw, uv, cfg.brief_patch_size)[0]
+    if descriptor in ("brisk", "freak"):
+        return desc_ops.pattern_descriptors_dense(img_blurred, uv, descriptor,
+                                                  cfg.brief_patch_size)
+    if descriptor == "latch":
+        # 3x3 block means: XLA's product with the f32 reciprocal of 9
+        box3 = image_ops.box_filter_sum_xla(img_raw, 1) * float(fast_ops.f32_reciprocal(9.0))
+        return desc_ops.latch_descriptors_dense(box3, uv, cfg.brief_patch_size)
+    if descriptor == "sift":
+        return desc_ops.sift_descriptors_dense(img_blurred, uv)
+    raise ValueError(f"unknown descriptor {descriptor!r}")
+
+
+def _multiscale_detect_describe(gray, cfg: ExtractorConfig, thr, gate_thr, use_fast_gate: bool,
+                                descriptor: str, response: str):
+    """x`cfg.scale_factor` pyramid with per-level quotas (ORBextractor,
+    Features/ORBextractor.cpp:347-419, 773-797): detect and describe each
+    level at its own resolution (K1's dense kernel once per level on CUDA),
+    then scale the coordinates to level 0. The N slots are the levels'
+    quotas end to end."""
+    pyramid = image_ops.build_scaled_pyramid(gray, cfg.num_levels, cfg.scale_factor)
+    shapes = [tuple(p.shape) for p in pyramid]
+    quotas = fast_ops.level_quotas(cfg.num_features, cfg.num_levels, cfg.scale_factor,
+                                   cfg.cell_size, shapes)
+    min_response = fast_ops.response_gate(cfg.min_response, thr, gate_thr)
+    uvs, descs, scores, levels, valids = [], [], [], [], []
+    for lvl, img_l in enumerate(pyramid):
+        if quotas[lvl] <= 0:
+            continue
+        kp_l = fast_ops.detect_keypoints_level(
+            img_l, quotas[lvl], cfg.cell_size, thr, min_response,
+            min_border=max(cfg.min_border, cfg.brief_patch_size // 2 + 1),
+            use_fast_gate=use_fast_gate, response=response, subpixel=cfg.subpixel)
+        blurred_l = image_ops.gaussian_blur(img_l, sigma=2.0, radius=3)
+        descs.append(_describe(blurred_l, img_l, kp_l.uv, cfg, descriptor))
+        uvs.append(kp_l.uv * float(np.float32(cfg.scale_factor ** lvl)))
+        scores.append(kp_l.score)
+        levels.append(torch.full((quotas[lvl],), lvl, dtype=torch.int32, device=gray.device))
+        valids.append(kp_l.valid)
+    kp = fast_ops.Keypoints(uv=torch.cat(uvs), level=torch.cat(levels),
+                            score=torch.cat(scores), valid=torch.cat(valids))
+    return kp, torch.cat(descs)
 
 
 def _assemble_features(cam: Camera, gray, depth, kp, desc) -> FrameFeatures:
@@ -112,22 +178,46 @@ def _assemble_features(cam: Camera, gray, depth, kp, desc) -> FrameFeatures:
 
 
 def pack_features_for_host(f: FrameFeatures) -> torch.Tensor:
-    """Everything the host-side keyframe store needs as one (N, 16) f32
+    """Everything the host-side keyframe store needs as one (N, 8 + D) f32
     tensor, so the device-to-host copy is a single transfer. Layout:
-    [uv_undist(2) | xyz(3) | desc(8, bit patterns) | intensity(1) |
-    obs_valid(1) | smooth(1)]. The descriptor words cross as f32 bit
-    patterns (a copy is bit-exact; the host views them back as uint32)."""
+    [uv_undist(2) | xyz(3) | desc(D) | intensity(1) | obs_valid(1) |
+    smooth(1)]: D = 8 binary words crossing as f32 bit patterns (a copy is
+    bit-exact; the host views them back as uint32), or D = 128 floats."""
+    desc = f.desc if f.desc.dtype.is_floating_point else f.desc.view(torch.float32)
     return torch.cat(
         [
             f.uv_undist,
             f.xyz,
-            f.desc.view(torch.float32),
+            desc,
             f.intensity[:, None],
             f.obs_valid[:, None].to(torch.float32),
             f.smooth[:, None].to(torch.float32),
         ],
         dim=1,
     )
+
+
+def to_device_rows(desc: np.ndarray, device) -> torch.Tensor:
+    """Host descriptor rows (store, files, codebooks) as the device holds
+    them: uint32 words as int32 bit patterns, float rows as f32."""
+    from rgbdslam_tpu_torch.device import upload
+
+    desc = np.ascontiguousarray(desc)
+    if desc.dtype == np.uint32:
+        desc = desc.view(np.int32)
+    elif desc.dtype.kind == "f":
+        desc = desc.astype(np.float32, copy=False)
+    else:
+        raise ValueError(f"descriptor rows of dtype {desc.dtype}: expected uint32 or float")
+    return upload(desc, torch.device(device))
+
+
+def to_host_rows(desc: torch.Tensor) -> np.ndarray:
+    """Device descriptor rows on the host as the store and the files hold
+    them (the JAX package's dtypes): int32 bit patterns as uint32 words,
+    float rows as f32."""
+    a = desc.cpu().numpy()
+    return a.view(np.uint32) if a.dtype == np.int32 else a
 
 
 def pack_features_slim(f: FrameFeatures) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Descriptor matching with the reference Matcher's gates (port of
 rgbdslam_tpu/frontend/matcher.py; Features/Matcher.cpp:106-139).
 
-2-NN Hamming matching of frame-1 (query) against frame-2 (train)
-descriptors, Lowe ratio test, mutual-nearest train dedup, and validity
-gates. On CUDA the 2-NN and the column best come from kernel K2, which
-never builds the N x M distance matrix, and the gates from a second kernel.
+2-NN matching of frame-1 (query) against frame-2 (train) descriptors, Lowe
+ratio test, mutual-nearest train dedup, and validity gates. Binary
+descriptors use Hamming distance: on CUDA the 2-NN and the column best come
+from kernel K2, which never builds the N x M distance matrix, and the gates
+from a second kernel. Float (SIFT/SURF-class) descriptors use L2 distance
+as tensor code, as the reference picks NORM_L2 from the descriptor type
+(Features/Matcher.cpp:16).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 import torch
 
 from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
+from rgbdslam_tpu_torch.ops import image as image_ops
 from rgbdslam_tpu_torch.ops import kernels
 
 
@@ -22,7 +26,7 @@ class MatchResult:
     """Matches from frame1 (ref/query) into frame2 (cur/train), N1 slots."""
 
     idx2: torch.Tensor    # (N1,) i32 matched index in frame2
-    dist: torch.Tensor    # (N1,) i32 Hamming distance
+    dist: torch.Tensor    # (N1,) i32 Hamming distance (f32 L2 distance)
     valid: torch.Tensor   # (N1,) bool match survives all gates
 
     @property
@@ -40,9 +44,9 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     Kernel K2 and the gate kernel for CUDA tensors (two launches), their
     plain version for CPU tensors. The query side may carry a leading batch
     dimension ((B, N1, 8), (B, N1)) against one train set: the same two
-    launches for all."""
+    launches for all. Float descriptors take `match_descriptors_l2`."""
     if desc1.dtype.is_floating_point:
-        raise NotImplementedError("float (L2) descriptors are not yet ported")
+        return match_descriptors_l2(desc1, valid1, desc2, valid2, ratio)
     if kernels.on_cuda(desc1, desc2):
         idx2, dist, valid = kernels.match_gated(
             desc1.contiguous(), desc2.contiguous(), valid1.contiguous(),
@@ -50,6 +54,34 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     else:
         idx2, dist, valid = kernels.match_gated_ref(desc1, desc2, valid1, valid2, ratio)
     return MatchResult(idx2=idx2, dist=dist, valid=valid)
+
+
+def match_descriptors_l2(desc1: torch.Tensor, valid1: torch.Tensor,
+                         desc2: torch.Tensor, valid2: torch.Tensor,
+                         ratio: float = 0.9) -> MatchResult:
+    """L2 2-NN + ratio + mutual-nearest on float descriptors (JAX
+    matcher.py:84-112): squared distances |a|^2 + |b|^2 - 2 a.b (the product
+    by one matmul, the norms by pairwise-tree sums, square roots correctly
+    rounded), floored at 0, 1e12
+    where either end is invalid; the ratio test on distances (d < r * d2nd).
+    The query side may carry a leading batch dimension. dist is the L2
+    distance (f32)."""
+    big = 1e12
+    n1 = image_ops.tree_sum(desc1 * desc1)                   # (..., N1)
+    n2 = image_ops.tree_sum(desc2 * desc2)                   # (N2,)
+    cross = desc1 @ desc2.transpose(-1, -2)                  # (..., N1, N2)
+    d2 = torch.clamp_min(n1[..., :, None] + n2[..., None, :] - 2.0 * cross, 0.0)
+    d2 = torch.where(valid1[..., :, None] & valid2[..., None, :], d2, big)
+    best_idx = torch.argmin(d2, dim=-1)
+    best = torch.gather(d2, -1, best_idx[..., None])[..., 0]
+    cols = torch.arange(d2.shape[-1], device=d2.device)
+    second = torch.amin(torch.where(cols == best_idx[..., None], big, d2), dim=-1)
+    ratio_ok = image_ops.sqrt_rn(best) < ratio * image_ops.sqrt_rn(second)
+    col_best = torch.argmin(d2, dim=-2)                      # (..., N2)
+    rows = torch.arange(d2.shape[-2], device=d2.device)
+    mutual = torch.gather(col_best, -1, best_idx) == rows
+    valid = ratio_ok & mutual & valid1 & (best < big)
+    return MatchResult(idx2=best_idx.to(torch.int32), dist=image_ops.sqrt_rn(best), valid=valid)
 
 
 def match_frames(f1: FrameFeatures, f2: FrameFeatures, ratio: float = 0.9) -> MatchResult:

@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from rgbdslam_tpu_torch.config import LoopConfig
+from rgbdslam_tpu_torch.frontend.frame import to_device_rows
 from rgbdslam_tpu_torch.loop.bow import bow_scores, bow_vector
-from rgbdslam_tpu_torch.loop.codebook import train_codebook
+from rgbdslam_tpu_torch.loop.codebook import train_codebook, train_codebook_float
 
 
 class LoopDetector:
@@ -32,11 +33,11 @@ class LoopDetector:
         self.cfg = cfg
         self.train_after = train_after
         self.device = torch.device(device)
-        self.words: Optional[torch.Tensor] = None     # (V, 8) int32 on `device`
+        self.words: Optional[torch.Tensor] = None     # (V, 8) int32 or (V, D) f32
         self.idf: Optional[torch.Tensor] = None       # (V,) f32 on `device`
         self.bow_db = np.zeros((max_keyframes, cfg.vocab_size), dtype=np.float32)
         self.count = 0
-        self._pending: List[Tuple[np.ndarray, np.ndarray]] = []  # (desc u32, valid)
+        self._pending: List[Tuple[np.ndarray, np.ndarray]] = []  # (desc, valid)
         self._connections: List[Set[int]] = []
 
     # ------------------------------------------------------------------
@@ -49,10 +50,9 @@ class LoopDetector:
         return self.cfg.vocab_size
 
     def _bow_row(self, desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
-        d = torch.as_tensor(np.ascontiguousarray(desc, dtype=np.uint32).view(np.int32),
-                            device=self.device)
         v = torch.as_tensor(np.asarray(valid, dtype=bool), device=self.device)
-        return bow_vector(d, v, self.words, self.idf).cpu().numpy()
+        return bow_vector(to_device_rows(desc, self.device), v, self.words,
+                          self.idf).cpu().numpy()
 
     def _backfill(self) -> None:
         for k, (d, v) in enumerate(self._pending):
@@ -71,11 +71,12 @@ class LoopDetector:
     def _train(self) -> None:
         desc = np.concatenate([d for d, _ in self._pending], axis=0)
         valid = np.concatenate([v for _, v in self._pending], axis=0)
-        self.words, self.idf = train_codebook(
-            torch.as_tensor(np.ascontiguousarray(desc, dtype=np.uint32).view(np.int32),
-                            device=self.device),
-            torch.as_tensor(valid, device=self.device),
-            self.cfg.vocab_size, self.cfg.vocab_iters)
+        # binary families train a k-majority codebook, float (SIFT/SURF)
+        # families an L2 k-means one: every family keeps loop closure
+        train = train_codebook if desc.dtype == np.uint32 else train_codebook_float
+        self.words, self.idf = train(to_device_rows(desc, self.device),
+                                     torch.as_tensor(valid, device=self.device),
+                                     self.cfg.vocab_size, self.cfg.vocab_iters)
         self._backfill()
 
     def _ensure_capacity(self, k: int) -> None:
@@ -84,7 +85,7 @@ class LoopDetector:
             self.bow_db = np.concatenate([self.bow_db, np.zeros_like(self.bow_db)], axis=0)
 
     def add(self, desc: np.ndarray, valid: np.ndarray, connections: Set[int]) -> int:
-        """Register keyframe `count` (host descriptors as uint32 words) with
+        """Register keyframe `count` (host descriptors: uint32 words or f32) with
         its direct connections (LoopDetector::add + Frame::mspConnectedKFs)."""
         k = self.count
         self._ensure_capacity(k)

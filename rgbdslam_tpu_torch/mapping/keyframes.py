@@ -103,6 +103,13 @@ class KeyframeStore:
         self.obs_valid[k] = (flags & 1) > 0
         self.smooth[k] = (flags & 2) > 0
 
+    def hold_desc_rows(self, rows: np.ndarray) -> None:
+        """Reallocate the (empty) descriptor table for the family of `rows`,
+        one keyframe's (N, D) host rows: (N, 8) uint32 binary words or
+        (N, 128) f32 (SIFT/SURF-class)."""
+        if self.desc.shape[2:] != rows.shape[1:] or self.desc.dtype != rows.dtype:
+            self.desc = np.zeros((self.max_keyframes,) + rows.shape, dtype=rows.dtype)
+
     def fill_features(self, k: int, packed: np.ndarray, nd: int,
                       binary: bool) -> None:
         uv = packed[:, 0:2]
@@ -113,10 +120,8 @@ class KeyframeStore:
         intensity = packed[:, 5 + nd]
         obs_valid = packed[:, 6 + nd] > 0.5
         smooth = packed[:, 7 + nd] > 0.5
-        if k == 0 and (self.desc.shape[2:] != desc.shape[1:]
-                       or self.desc.dtype != desc.dtype):
-            self.desc = np.zeros((self.max_keyframes,) + desc.shape,
-                                 dtype=desc.dtype)
+        if k == 0:
+            self.hold_desc_rows(desc)
         self.desc[k] = desc
         self.xyz[k] = xyz
         self.obs_valid[k] = obs_valid

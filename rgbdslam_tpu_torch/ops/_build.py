@@ -40,12 +40,13 @@ _F = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
-    # img, h, w, thr, out, raw, stream
-    "rgbd_detect_score_map": (_P, _I, _I, _F, _P, _P, _P),
+    # img, h, w, thr (device pointer), fast_gate, out, raw, stream
+    "rgbd_detect_score_map": (_P, _I, _I, _P, _I, _P, _P, _P),
     # imgs, hs, ws (host arrays), n_levels, cell_size, grid_rows, grid_cols,
-    # thr (device pointer), min_border, min_response, num_features, cell_max,
-    # cell_arg, uv, level, score, valid, stream
-    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _F, _I,
+    # thr (device pointer), fast_gate, min_border, min_response, scale_gate,
+    # gate_scale, num_features, cell_max, cell_arg, uv, level, score, valid,
+    # stream
+    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _I, _F, _I,
                               _P, _P, _P, _P, _P, _P, _P),
     # d1, d2, v1, v2, n, m, batch, batched1, batched2, best_idx, best_dist,
     # second_dist, col_best_row, stream

@@ -4,7 +4,7 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
 |--------------------------|---------------------------------------|----------------------------|
-| detect.cu   (K1)         | detect_score_map, 320-397             | detect_score_map_ref       |
+| detect.cu   (K1, dense; GFTT mode too) | detect_score_map, 320-397 | detect_score_map_ref |
 | detect.cu   (K1, whole detection) | the same, with the rest of detect_keypoints | ops.fast.detect_keypoints_ref |
 | hamming.cu  (K2)         | hamming_match_2nn, 87-150             | hamming_match_2nn_ref      |
 | hamming.cu  (K2's gates) | the gates XLA fused behind it         | match_gates_ref            |
@@ -19,9 +19,10 @@ detection, two launches), `match_gated` (2-NN and gates, two launches),
 `ransac_se3_fused` (the whole RANSAC, two launches) and `gicp_refine_fused`
 (loop, gate and fallback, one launch) are what the main paths call.
 `hamming_match_2nn` stays as the first of `match_gated`'s two launches. The
-direct counterparts of the TPU kernels K1 and K3 (`detect_score_map`,
-`mahal_hypothesis_scores`) and K5 are reached through their public entries
-(`fast.masked_score_map`, `mahal_hypothesis_scores`,
+dense K1 (`detect_score_map`) serves the ORB x1.2 scale space (one launch per
+level, `fast.detect_keypoints_level`) and subpixel refinement's raw maps.
+The direct counterpart of K3 (`mahal_hypothesis_scores`) and K5 are reached
+through their public entries (`mahal_hypothesis_scores`,
 `icp.gicp_normal_equations`) and lie on no main path.
 
 K2 and K3 take an optional leading batch dimension (the same launches
@@ -118,29 +119,46 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 # ---------------------------------------------------------------------------
 
 
-def detect_score_map(img: torch.Tensor, fast_threshold: float
+def _threshold_on(fast_threshold, dev: torch.device) -> torch.Tensor:
+    """The FAST threshold as a 0-dim f32 tensor on `dev`: a tensor given
+    there is taken as it is, a float becomes a cached device scalar."""
+    if isinstance(fast_threshold, torch.Tensor):
+        _check(fast_threshold, "fast_threshold", torch.float32, ())
+        if fast_threshold.device != dev:
+            raise ValueError(f"fast_threshold on {fast_threshold.device}, image on {dev}")
+        return fast_threshold
+    return _device_scalar(float(fast_threshold), dev)
+
+
+def detect_score_map(img: torch.Tensor, fast_threshold, use_fast_gate: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(masked, raw) score maps of one pyramid level, by csrc/detect.cu.
 
     img: (H, W) f32 CUDA. masked is the Shi-Tomasi score (9x9 box) where the
-    pixel is a FAST-10 corner winning its 3x3 neighbourhood, -inf
-    elsewhere; raw is the dense Shi-Tomasi map."""
+    pixel is a FAST-10 corner (with `use_fast_gate`; every pixel in the GFTT
+    mode) winning its 3x3 neighbourhood, -inf elsewhere; raw is the dense
+    Shi-Tomasi map. fast_threshold: a float, or a 0-dim f32 tensor on the
+    image's device; the kernel reads it from device memory either way."""
     _check(img, "img", torch.float32, (None, None))
     h, w = img.shape
+    thr = _threshold_on(fast_threshold, img.device)
     out = torch.empty_like(img)
     raw = torch.empty_like(img)
-    _launch("rgbd_detect_score_map", img.device, _ptr(img), h, w,
-            float(fast_threshold), _ptr(out), _ptr(raw))
+    _launch("rgbd_detect_score_map", img.device, _ptr(img), h, w, _ptr(thr),
+            int(bool(use_fast_gate)), _ptr(out), _ptr(raw))
     LAUNCHES["detect_score_map"] += 1
     return out, raw
 
 
-def detect_score_map_ref(img: torch.Tensor, fast_threshold: float
+def detect_score_map_ref(img: torch.Tensor, fast_threshold, use_fast_gate: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: the fast_corner_mask / shi_tomasi_map / nms3x3
-    composition (rgbdslam_tpu/ops/fast.py:130-140)."""
-    corners = fast.fast_corner_mask(img, fast_threshold)
+    composition (rgbdslam_tpu/ops/fast.py:114-140); without the FAST gate
+    (GFTT) every pixel is a candidate."""
     score = fast.shi_tomasi_map(img)
+    if not use_fast_gate:
+        return torch.where(fast.nms3x3(score), score, float("-inf")), score
+    corners = fast.fast_corner_mask(img, fast_threshold)
     corner_score = torch.where(corners, score, float("-inf"))
     keep = corners & fast.nms3x3(corner_score)
     return torch.where(keep, score, float("-inf")), score
@@ -162,7 +180,8 @@ def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 
 def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
-                           fast_threshold, min_response: float, min_border: int):
+                           fast_threshold, min_response: float, min_border: int,
+                           use_fast_gate: bool = True, gate_threshold: Optional[float] = None):
     """The whole keypoint detection in two launches of csrc/detect.cu (see
     its header): kernel A finds the best corner of every grid cell on every
     pyramid level, kernel B merges the levels, gates by `min_response`, ranks
@@ -172,7 +191,11 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     each; levels whose cell (cell_size >> l) has no pixel are not read, as in
     the plain version. fast_threshold: a float, or a 0-dim f32 tensor on the
     pyramid's device (the batched tracker's device-evolved threshold); kernel
-    A reads it from device memory either way.
+    A reads it from device memory either way. use_fast_gate=False: the GFTT
+    mode (every pixel a candidate). gate_threshold: the configured FAST
+    threshold when the response gate scales with the threshold (kernel B
+    then gates by thr^2 * `fast.gate_scale` from the device threshold, as
+    `fast.response_gate`); None gates by min_response.
 
     Returns (`fast.Keypoints`, (cell_max (L, n_cells) f32, cell_arg (L,
     n_cells) int32)), what `fast.detect_select_ref` and `fast.detect_cells_ref`
@@ -203,13 +226,9 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
             raise ValueError(f"level {lvl}: {tuple(img.shape)} pixels do not hold "
                              f"{grid_rows}x{grid_cols} cells of {cell_l}x{cell_l}")
     dev = levels[0].device
-    if isinstance(fast_threshold, torch.Tensor):
-        _check(fast_threshold, "fast_threshold", torch.float32, ())
-        if fast_threshold.device != dev:
-            raise ValueError(f"fast_threshold on {fast_threshold.device}, pyramid on {dev}")
-        thr = fast_threshold
-    else:
-        thr = _device_scalar(float(fast_threshold), dev)
+    thr = _threshold_on(fast_threshold, dev)
+    scale_gate = gate_threshold is not None
+    k_gate = float(fast.gate_scale(min_response, gate_threshold)) if scale_gate else 0.0
     cell_max = torch.empty((L, n_cells), dtype=torch.float32, device=dev)
     cell_arg = torch.empty((L, n_cells), dtype=torch.int32, device=dev)
     uv = torch.empty((num_features, 2), dtype=torch.float32, device=dev)
@@ -220,7 +239,8 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     hs = (ctypes.c_int * L)(*[img.shape[0] for img in levels])
     ws = (ctypes.c_int * L)(*[img.shape[1] for img in levels])
     _launch("rgbd_detect_keypoints", dev, imgs, hs, ws, L, int(cell_size), grid_rows,
-            grid_cols, _ptr(thr), int(min_border), float(min_response),
+            grid_cols, _ptr(thr), int(bool(use_fast_gate)), int(min_border),
+            float(min_response), int(scale_gate), k_gate,
             int(num_features), _ptr(cell_max), _ptr(cell_arg),
             _ptr(uv), _ptr(level), _ptr(score), _ptr(valid))
     LAUNCHES["detect_keypoints_fused"] += 1

@@ -64,7 +64,8 @@ import torch
 from rgbdslam_tpu_torch.config import SlamConfig
 from rgbdslam_tpu_torch.device import resolve_device, upload
 from rgbdslam_tpu_torch.frontend.frame import (FrameFeatures, pack_features_for_host,
-                                               pack_features_slim)
+                                               pack_features_slim, to_device_rows,
+                                               to_host_rows)
 from rgbdslam_tpu_torch.frontend.matcher import correspondence_weights, match_descriptors
 from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
@@ -132,8 +133,8 @@ def kf_core(bank, f: FrameFeatures, meta: torch.Tensor, words, idf, cam: Camera,
             generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
     """All per-keyframe device work, ending in one f32 blob.
 
-    bank: (D (K, N, 8) int32, X (K, N, 3), V (K, N) bool, B (K, Vw) f32),
-    updated in place. meta: one (3 + C + 16,) f32 device array
+    bank: (D (K, N, 8) int32 or (K, N, 128) f32, X (K, N, 3), V (K, N)
+    bool, B (K, Vw) f32), updated in place. meta: one (3 + C + 16,) f32 device array
     [k, kprev, n_cands, idx (C), T21.ravel (16)], every host scalar of the
     step in one upload.
 
@@ -142,7 +143,7 @@ def kf_core(bank, f: FrameFeatures, meta: torch.Tensor, words, idf, cam: Camera,
     extension (N,) as idx2 + 4096 * ok, (C + L, 19) verification rows for
     the proximity candidates and the BoW loop candidates selected here, the
     L selected loop indices and their validity. Without bow_on the full
-    (N, 16) pack and (C, 19) rows, no loop section.
+    (N, 8 + D) pack and (C, 19) rows, no loop section.
 
     Loop candidates on the device (obtainCandidates semantics,
     PlaceRecognition/LoopDetector.cpp:28-84): floor = the minimum BoW score
@@ -327,12 +328,17 @@ class SlamSystem:
     def track_pipelined_flush(self):
         return self.tracker.track_pipelined_flush()
 
-    def _ensure_bank(self, n_feat: int):
+    def _ensure_bank(self, n_feat: int, desc_shape=None, desc_dtype=torch.int32):
+        """The device bank, made at the first keyframe: its descriptor rows
+        take the frame's shape and type ((N, 8) int32 words by default, or
+        (N, 128) f32 for the float families)."""
+        if desc_shape is None:
+            desc_shape = (n_feat, 8)
         if self._bank is None:
             K = self.cfg.keyframe.max_keyframes
             dev = self.device
             self._bank = (
-                torch.zeros((K, n_feat, 8), dtype=torch.int32, device=dev),
+                torch.zeros((K,) + tuple(desc_shape), dtype=desc_dtype, device=dev),
                 torch.zeros((K, n_feat, 3), dtype=torch.float32, device=dev),
                 torch.zeros((K, n_feat), dtype=torch.bool, device=dev),
                 # the BoW width follows the detector's codebook (a preloaded
@@ -368,8 +374,9 @@ class SlamSystem:
             return
         ks = np.asarray(sorted(self._lazy_rows), np.int64)
         idx = upload(ks, self.device)
-        desc_rows = self._bank[0][idx].cpu().numpy().view(np.uint32)
+        desc_rows = to_host_rows(self._bank[0][idx])
         bow_rows = self._bank[3][idx].cpu().numpy()
+        self.store.hold_desc_rows(desc_rows[0])
         ld = self.loop_detector
         w = min(bow_rows.shape[1], ld.bow_db.shape[1])
         for i, k in enumerate(ks):
@@ -386,7 +393,7 @@ class SlamSystem:
             return
         ld = self.loop_detector
         self._bank = (
-            upload(np.ascontiguousarray(self.store.desc).view(np.int32), self.device),
+            to_device_rows(self.store.desc, self.device),
             upload(self.store.xyz, self.device),
             upload(self.store.obs_valid, self.device),
             self._bow_table(self.store.max_keyframes),
@@ -439,7 +446,7 @@ class SlamSystem:
             f = feats_batch[batch_row]
         pg_cfg = self.cfg.pose_graph
         N = f.uv.shape[0]
-        self._ensure_bank(N)
+        self._ensure_bank(N, f.desc.shape, f.desc.dtype)
         if k >= self._bank[0].shape[0]:
             # budget doubling of the device bank
             self._bank = tuple(torch.cat([a, torch.zeros_like(a)], dim=0)
@@ -489,7 +496,9 @@ class SlamSystem:
             blob = kf_core(self._bank, f, meta_dev, words, idf, self.cam, self.cfg, bow_on,
                            self.generator)
         return {"k": k, "ts": timestamp, "f": f, "Tcw": Tcw, "cands": cands,
-                "connections": connections, "bow_on": bow_on, "N": N, "blob": blob,
+                "connections": connections, "bow_on": bow_on, "N": N,
+                "nd": f.desc.shape[-1], "binary": not f.desc.dtype.is_floating_point,
+                "blob": blob,
                 "ms": (time.perf_counter() - t0) * 1e3}
 
     def _kf_complete(self, h: dict, blob: np.ndarray):
@@ -500,7 +509,7 @@ class SlamSystem:
         t0 = time.perf_counter()
         k, Tcw, cands = h["k"], h["Tcw"], h["cands"]
         connections, bow_on, N = h["connections"], h["bow_on"], h["N"]
-        nd = 8
+        nd = h["nd"]
         pg_cfg = self.cfg.pose_graph
         C = pg_cfg.max_proximity_candidates
         L = self.cfg.loop.max_candidates
@@ -519,7 +528,7 @@ class SlamSystem:
             self.store.fill_features_slim(k, ps, self.cam)
             self._lazy_rows.add(k)            # desc + BoW row hydrate on demand
         else:
-            self.store.fill_features(k, ps, nd, True)
+            self.store.fill_features(k, ps, nd, h["binary"])
         self.kfs_since_loop += 1
 
         # proximity edges (createLocalEdges)

@@ -16,6 +16,8 @@ import json
 
 import numpy as np
 
+from rgbdslam_tpu_torch.frontend.frame import to_device_rows, to_host_rows
+
 
 def save_map(path: str, system) -> None:
     """Serialize a SlamSystem's persistent state to one .npz file."""
@@ -59,8 +61,8 @@ def save_map(path: str, system) -> None:
             json.dumps([sorted(c) for c in det._connections]).encode(), dtype=np.uint8),
     )
     if det.words is not None:
-        # descriptor words as uint32, the JAX package's dtype
-        arrays["vocab_words"] = det.words.cpu().numpy().view(np.uint32)
+        # binary words as uint32 (the JAX package's dtype), float words f32
+        arrays["vocab_words"] = to_host_rows(det.words)
         arrays["vocab_idf"] = det.idf.cpu().numpy()
         arrays["bow_db"] = det.bow_db[:K]
     np.savez_compressed(path, **arrays)
@@ -81,7 +83,9 @@ def load_map(path: str, system) -> None:
     E = meta["num_edges"]
 
     store = system.store
-    store.desc[:K] = data["kf_desc"]
+    kf_desc = data["kf_desc"]
+    store.hold_desc_rows(kf_desc[0])
+    store.desc[:K] = kf_desc
     store.xyz[:K] = data["kf_xyz"]
     store.obs_valid[:K] = data["kf_obs_valid"]
     store.uv[:K] = data["kf_uv"]
@@ -107,8 +111,7 @@ def load_map(path: str, system) -> None:
     det.count = K
     det._pending = [(store.desc[k].copy(), store.obs_valid[k].copy()) for k in range(K)]
     if "vocab_words" in data:
-        words = np.ascontiguousarray(data["vocab_words"], dtype=np.uint32).view(np.int32)
-        det.words = torch.as_tensor(words, device=system.device)
+        det.words = to_device_rows(data["vocab_words"], system.device)
         det.idf = torch.as_tensor(np.asarray(data["vocab_idf"], np.float32),
                                   device=system.device)
         if det.bow_db.shape[1] != det.vocab_width:

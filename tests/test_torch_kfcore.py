@@ -283,16 +283,22 @@ def test_unported_modes_raise():
 
     # the batched and ring modes (tests/test_torch_batch_ring.py), the
     # live export (tests/test_torch_disk_slam.py), dense ICP and bundle
-    # adjustment (tests/test_torch_accuracy_slam.py) run since they were
-    # ported; these still wait
-    for call in (lambda: SlamSystem(Camera(**CAM_ARGS),
-                                    dataclasses.replace(TCFG, distributed=True), device="cpu"),
-                 lambda: Tracker(Camera(**CAM_ARGS),
-                                 dataclasses.replace(TCFG, detector="orb"), device="cpu"),
-                 lambda: Tracker(Camera(**CAM_ARGS),
-                                 dataclasses.replace(TCFG, detector="sift"), device="cpu")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    # adjustment (tests/test_torch_accuracy_slam.py) and the extractor
+    # families (tests/test_torch_families_*.py) run since they were ported;
+    # the distributed backend still waits
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(TCFG, distributed=True),
+                   device="cpu")
+    from rgbdslam_tpu.frontend.extractor import Extractor as JExtractor
+
+    for detector in ("orb", "sift"):
+        tr = Tracker(Camera(**CAM_ARGS), dataclasses.replace(TCFG, detector=detector),
+                     device="cpu")
+        jx = JExtractor(JCamera(**CAM_ARGS), JCFG.extractor, detector=detector)
+        rt, rj = tr._extractor._resolved(), jx._resolved()
+        assert rt[:3] == rj[:3], detector
+        assert (rt[3].scale_factor, rt[3].num_levels, rt[3].min_response) == (
+            rj[3].scale_factor, rj[3].num_levels, rj[3].min_response), detector
     with pytest.raises(ValueError, match="4096"):
         SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(
             TCFG, extractor=dataclasses.replace(TCFG.extractor, num_features=8192)),

@@ -61,10 +61,15 @@ def test_vocabulary_load_and_save_roundtrip(tmp_path):
     w2, i2 = jvoc.load_vocabulary(p)                    # the JAX package reads it
     np.testing.assert_array_equal(np.asarray(w2), np.asarray(words_j)[:64])
     np.testing.assert_array_equal(np.asarray(i2), np.asarray(idf_j)[:64])
-    np.savez(str(tmp_path / "f.npz"), words=np.zeros((4, 128), np.float32),
-             idf=np.zeros(4, np.float32))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tvoc.load_vocabulary(str(tmp_path / "f.npz"))
+    # a float (SIFT/SURF-class) vocabulary loads as f32 rows, as in the JAX
+    # package
+    fw = np.random.default_rng(3).uniform(size=(4, 128)).astype(np.float32)
+    np.savez(str(tmp_path / "f.npz"), words=fw, idf=np.arange(4, dtype=np.float32))
+    wf, idf_f = tvoc.load_vocabulary(str(tmp_path / "f.npz"))
+    wj, ij = jvoc.load_vocabulary(str(tmp_path / "f.npz"))
+    assert wf.dtype == torch.float32
+    np.testing.assert_array_equal(wf.numpy(), np.asarray(wj))
+    np.testing.assert_array_equal(idf_f.numpy(), np.asarray(ij))
 
 
 @pytest.mark.parametrize("impl", ["popcount", "matmul"])
@@ -115,8 +120,14 @@ def test_quantize_and_bow_match(vocab):
     st = tbow.bow_scores(vtv, torch.from_numpy(db))
     np.testing.assert_allclose(st.numpy(), sj, rtol=0, atol=1e-6)
     assert int(st.argmax()) == 3
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcodebook.quantize(torch.zeros(4, 128), torch.zeros(8, 128))
+    # float descriptors against float words: squared L2, as the JAX package
+    fd = rng.uniform(size=(64, 128)).astype(np.float32)
+    fwords = rng.uniform(size=(16, 128)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tcodebook.quantize(torch.from_numpy(fd), torch.from_numpy(fwords),
+                           torch.from_numpy(valid[:64])).numpy(),
+        np.asarray(jcodebook.quantize(jnp.asarray(fd), jnp.asarray(fwords),
+                                      jnp.asarray(valid[:64]))))
 
 
 def test_train_codebook_matches():

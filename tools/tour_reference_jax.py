@@ -3,6 +3,8 @@ the CPU and print its accuracy record: ATE, keyframes, loops, failures.
 
   python tools/tour_reference_jax.py [--frames 128] [--seeds 0 1 2]
   python tools/tour_reference_jax.py --loops 1.15 --noise --config noise-robust
+  python tools/tour_reference_jax.py --loops 1.15 --detector sift --seeds 0
+  python tools/tour_reference_jax.py --loops 1.15 --detector orb --batch 8
 
 The configuration is the one chip_smoke.py drives through the PyTorch port
 on the GPU (640x480, default SlamConfig with the loop gates id_interval=12,
@@ -12,8 +14,12 @@ With `--noise` every frame carries the Kinect-class sensor noise of seed s
 (`kinect_noise_fields(s, i, ...)`) and applied by the port's
 `apply_sensor_noise` on the CPU, the same noisy pixels chip_smoke.py feeds
 the port on the card. `--config` adds the CLI's accuracy flags, joined by
-`+` (noise-robust = dense ICP; local-ba; global-ba). Only accuracy and counts
-are printed: a CPU run says nothing about speed.
+`+` (noise-robust = dense ICP; local-ba; global-ba). `--detector` picks an
+extractor variant of the factory (the vocabulary is then the shipped one of
+its descriptor family, or none: the codebook trains online), `--subpixel`
+turns on the detector's subpixel refinement, `--batch B` tracks in batches
+of B frames. Only accuracy and counts are printed (with the frames that
+failed and each frame's RANSAC inliers): a CPU run says nothing about speed.
 """
 
 from __future__ import annotations
@@ -69,36 +75,61 @@ def main() -> int:
                     help="Kinect-class sensor noise, seed = the run's seed")
     ap.add_argument("--config", default="base",
                     help="+-joined names of " + ", ".join(sorted(CONFIGS)))
+    ap.add_argument("--detector", default="svo_fast",
+                    help="extractor variant (Extractor.VARIANTS)")
+    ap.add_argument("--subpixel", action="store_true",
+                    help="subpixel refinement of the keypoints")
+    ap.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="track in batches of B frames (SlamSystem.track_batch) "
+                         "instead of frame by frame")
     args = ap.parse_args()
-    flags = {}
+    flags = {"detector": args.detector}
     for name in args.config.split("+"):
         flags.update(CONFIGS[name])
     cfg = dataclasses.replace(
         SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10)), **flags)
+    if args.subpixel:
+        cfg = dataclasses.replace(
+            cfg, extractor=dataclasses.replace(cfg.extractor, subpixel=True))
+    vocab = shipped_vocabulary(args.detector)
     ds = SyntheticDataset(n_frames=args.frames, cam=SYNTHETIC, trajectory="tour",
                           loops=args.loops)
     clean = [ds.grab(i) for i in range(args.frames)]
     for seed in args.seeds:
         frames = noisy(clean, seed) if args.noise else clean
         system = SlamSystem(SYNTHETIC, cfg, seed=seed)
-        system.load_vocabulary(shipped_vocabulary("svo_fast"))
-        for ts, gray, depth in frames:
-            system.track(ts, gray, depth)
+        if vocab:
+            system.load_vocabulary(vocab)
+        failed = []      # serial: the frames; batched: each failure's batch start
+        if args.batch:
+            for i in range(0, len(frames), args.batch):
+                before = system.tracker.stats.failures
+                system.track_batch(*zip(*frames[i:i + args.batch]))
+                failed += [i] * (system.tracker.stats.failures - before)
+        else:
+            for i, (ts, gray, depth) in enumerate(frames):
+                before = system.tracker.stats.failures
+                system.track(ts, gray, depth)
+                if system.tracker.stats.failures > before:
+                    failed.append(i)
         system.finish()
         ts_c, poses_c = system.camera_trajectory()
         rmse, info = ate_rmse(ts_c, poses_c, ds.timestamps, ds.poses_twc)
         print(json.dumps({
             "package": "rgbdslam_tpu (JAX, CPU)", "seed": seed,
             "frames": args.frames, "loops": args.loops, "noise": args.noise,
-            "config": args.config, "ate_rmse": round(float(rmse), 5),
+            "config": args.config, "detector": args.detector,
+            "subpixel": args.subpixel, "batch": args.batch, "ate_rmse": round(float(rmse), 5),
             "keyframes": int(system.store.count),
             "loops_closed": int(system.loops_closed),
             "failures": int(system.tracker.stats.failures),
+            "failed_frames": failed,
             "relocalizations": int(system.tracker.stats.relocalizations),
             "graph_vertices": int(system.graph.n_vertices),
             "graph_edges": int(system.graph.n_edges),
             "mean_inliers": int(system.tracker.stats.mean_inliers),
             "finite": bool(np.isfinite(poses_c).all()),
+            "inliers": [int(f.num_inliers) for f in system.tracker.trajectory],
         }), flush=True)
     return 0
 

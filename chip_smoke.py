@@ -72,9 +72,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                dense kernel and kernels A and B on phase 3's ten images), the
                dense K1 on the 8 levels of the x1.2 scale space of 5 tour
                frames at a float and a device-tensor threshold, the response
-               gate kernel B computes from the device threshold at cfg x
-               {0.5, 1, 1.5} and the subpixel offsets, all exact against the
-               plain versions; the builds of orb, orb2, gftt, star, brisk,
+               gate kernels B and C compute from the device threshold at cfg
+               x {0.5, 1, 1.5}, all exact against the plain versions; the
+               x1.2 detection and the subpixel detections on the card against
+               the port's CPU detection; the builds of orb, orb2, gftt, star, brisk,
                freak, latch, sift and surf on the card against the port's CPU
                build on 5 tour frames (keypoints exact, binary bits >= 99.9 %,
                float rows within 1e-5 outside counted bin flips); full SLAM on
@@ -89,13 +90,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                equal to serial on runs without a failed frame, host synchronisations to
                the budgets (ORB seed 1 serial, ring and batch; ADAPTIVE: the first
                dispatch reads once per host detection, a later one never);
-               build and frame times, launches, BoW loops beside JAX's.
+               no dense K1 launch on the path, 2 device launches per x1.2
+               detection and per subpixel detection (profiler); build and
+               frame times, launches, BoW loops beside JAX's; the x1.2
+               detection paired against the per-level route (the dense K1
+               per level and the plain per-level selection) and the ORB build through
+               both routes, on the same frame in the same call.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
 against the whole, all exact, on sweep frames, on tour frames (phase 6), at
 320x240 and on integer images, and with the threshold as a device tensor
-against the float), K2 and K3's scorer alone and with a batch of
+against the float), the whole x1.2 detection (kernel A's x1.2 mode and its
+offsets against the plain per-level cells, kernel C against the plain
+ranking on kernel A's outputs, the whole against the whole, all exact, on
+five frames of the families' tour, at a float and a device threshold,
+FAST-gated and GFTT, with and without offsets), K2 and K3's scorer alone and with a batch of
 13, the gated matcher against the tensor gates (exact), the fused RANSAC
 against the plain one, held apart (kernel A's poses against the plain fit,
 its counts against the plain scorer on its own poses, kernel B against the
@@ -105,8 +115,8 @@ on 13 tour candidates), the whole gicp_refine against the plain loop and
 gate on those five sweep pairs and (phase 6) on five tour pairs, and K5
 (reached through solvers.icp.gicp_normal_equations) against its plain
 version and against one round of K4. The kernels that lie on no main path
-(K3's scorer alone, K5) are driven through their public entries and counted
-apart as `launches_off_path`; the dense K1 runs on the families path.
+(the dense K1, K3's scorer alone, K5) are driven through their public
+entries and counted apart as `launches_off_path`.
 Phase 5 counts the device launches of one call with the profiler
 (detect_keypoints 2, gicp_refine 1, ransac_se3 at most 4, match_descriptors
 at most 2).
@@ -129,6 +139,9 @@ import torch
 
 ITERS_TIMING = 20
 DEVICE = "cuda"
+# the frames of the families' tour (tour_trajectory(128, loops=1.15)) on
+# which the x1.2 detection and the families' builds are held
+X12_PROBE = (0, 25, 50, 75, 100)
 
 
 def log(msg: str) -> None:
@@ -217,6 +230,26 @@ def check(cond: bool, msg: str) -> None:
 # (popcounts run at a quarter of that rate), so that bound is a loose one.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# K1's operations per pixel at the least known form of the function, not the
+# kernel's own algorithm (csrc/detect.cu sums the 9x9 boxes tap by tap and
+# tests the 16 arc positions one by one, ~273 a pixel): central differences 2;
+# the three products 3; the 9x9 box sums of three channels as running sums,
+# 3 channels x 2 passes x (add the entering tap, subtract the leaving one) 12;
+# the eigenvalue 13 (three scalings, trace, difference, square, 4 dxy^2 2,
+# add, clamp, sqrt, subtract, halve); FAST-10: centre +- threshold 2, 32 ring
+# comparisons, 32 bits set, and the arc test by doubling shifts, per polarity
+# the wrap 2, m &= m >> 1, 2, 4, 2 (8) and the test 1, and their or, 23; the
+# corner mask 1 and the 3x3 NMS as separable maxima 2 + 2 and the compare 1;
+# the border gate and the cell maximum 2
+DETECT_OPS_PER_PX = 2 + 3 + 12 + 13 + (2 + 32 + 32 + 2 * 11 + 1) + (1 + 5) + 2
+
+
+def rank_ops(n: int) -> int:
+    """Operations of a stable descending ranking of n cells at its least: a
+    comparison sort's n * ceil(log2 n) comparisons of 2 operations (the
+    score, then the cell index on a tie). Kernels B and C count ranks
+    instead, n^2 comparisons."""
+    return 2 * n * max(n - 1, 0).bit_length()
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -270,14 +303,17 @@ def poses_close(aT, pT, T64, p1, atol=5e-5, factor=10.0):
     return (factor * own > atol)[..., 0, 0], float(ratio.max())
 
 
-def device_launches(fn, reps: int = 4) -> int:
+def device_launches(fn, name: str, reps: int = 4) -> int:
     """Kernels, copies and fills the device ran for one fn(), counted by
     torch.profiler over `reps` calls. A window this short sometimes comes
-    back without a single device event (the tracer's buffers were not
-    flushed; once, three windows in a row); that is no reading, so it is
-    taken again over a window twice as long, at most six times."""
+    back without a single device event, or torn (once three windows in a
+    row came back empty; once the x1.2 detection's second window held 15
+    launches of 8 calls of 2, after an empty first); that is no reading, so
+    it is taken again over a window twice as long, at most six times. Each
+    reading set aside is logged under `name`."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()                                   # first-use set-up stays outside
+    readings = []
     for attempt in range(6):
         n = reps << attempt
         torch.cuda.synchronize()
@@ -287,10 +323,14 @@ def device_launches(fn, reps: int = 4) -> int:
             torch.cuda.synchronize()
         total = sum(evt.count for evt in prof.key_averages()
                     if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
-        if total:
-            check(total % n == 0, f"{total} device launches over {n} equal calls")
+        if total and total % n == 0:
+            if readings:
+                log(f"[profiler] {name}: readings set aside (device launches, calls) "
+                    f"{readings}, then {total} over {n}")
             return total // n
-    raise AssertionError("the profiler saw no device event in six windows")
+        readings.append((total, n))
+    raise AssertionError(f"{name}: the profiler gave no whole reading in six windows (device "
+                         f"launches, calls): {readings}")
 
 
 # how the profiler names the kernels of csrc/ (a template's name starts with
@@ -304,26 +344,42 @@ def own_kernel(key: str) -> bool:
     return key.startswith(OWN_KERNEL_PREFIXES) and "at::native" not in key
 
 
-def device_us_per_launch(fn, repeats: int = 10) -> dict:
+def device_us_per_launch(fn, expect: dict, repeats: int = 10) -> dict:
     """Device microseconds per launch of each of the port's own kernels
-    over `repeats` calls of fn(), from torch.profiler."""
+    over `repeats` calls of fn(), from torch.profiler: the mean over the
+    launches the tracer recorded. `expect` names the kernels and their
+    launches per call. The tracer drops records: often one launch of a
+    kernel in a window (9 of 10, in every window of a call), once none of
+    kernel A's ten and all of kernel C's. A window short of launches is logged;
+    one holding fewer than half of a kernel's is taken again, at most six
+    times."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(repeats):
-            fn()
+    readings = []
+    for _ in range(6):
         torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and own_kernel(evt.key)):
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            out[evt.key.split("(anonymous namespace)::")[1].split("(")[0]] = round(
-                dev_us / evt.count, 2)
-    return out
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        us, count = {}, {}
+        for evt in prof.key_averages():
+            if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and own_kernel(evt.key)):
+                dev_us = getattr(evt, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+                name = evt.key.split("(anonymous namespace)::")[1].split("(")[0]
+                us[name] = us.get(name, 0.0) + dev_us
+                count[name] = count.get(name, 0) + evt.count
+        readings.append(count)
+        if all(2 * count.get(k, 0) >= n * repeats for k, n in expect.items()):
+            if any(count.get(k, 0) != n * repeats for k, n in expect.items()):
+                log(f"[profiler] device us: launches recorded over {repeats} calls of "
+                    f"{expect}: {readings}")
+            return {k: round(us[k] / count[k], 2) for k in count}
+    raise AssertionError(f"the profiler missed over half of {expect} x {repeats} in six "
+                         f"windows: {readings}")
 
 
 def device_rows(prof) -> list:
@@ -958,7 +1014,7 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
     icp_ms = cuda_ms(one_icp)
     # one call a window: over four replays the tracer has dropped a few of
     # the graph's ~8,000 kernel records
-    icp_launches = device_launches(one_icp, reps=1)
+    icp_launches = device_launches(one_icp, "dense_icp", reps=1)
     n_icp_sync, msg, _ = sync_calls(one_icp)
     log(f"[accuracy] dense_icp 640x480, levels {base.dense_icp_levels}: {icp_ms:.4f} ms per "
         f"call back to back (CUDA events), {icp_launches} device launches per call, "
@@ -1225,7 +1281,7 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
                             edge_huber=system.graph.huber_delta)
 
         ms = cuda_ms(solve, iters=3, warmup=1)
-        n_launch = device_launches(solve, reps=1)
+        n_launch = device_launches(solve, tag, reps=1)
         n_sync, msg, _ = sync_calls(solve)
         log(f"[accuracy] {tag} alone, {problem.Tcw.shape[0]} keyframes x "
             f"{problem.Xw.shape[0]} landmark slots ({len(lm_ids)} used) x "
@@ -1236,7 +1292,8 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
 
     E, KF, R = tally["E"], tally["KF"], tally["R"]
     expect = {
-        "detect_score_map": 0, "detect_keypoints_fused": tally["frames"],
+        "detect_score_map": 0, "detect_keypoints_scaled": 0,
+        "detect_keypoints_fused": tally["frames"],
         "hamming_match_2nn": E + 2 * KF + R, "match_gates": E + 2 * KF + R,
         "mahal_hypothesis_scores": 0, "ransac_se3_fused": E + KF + R,
         "gicp_refine_fused": E, "gicp_gn_normal_equations": 0}
@@ -1311,7 +1368,7 @@ def families_phase(dev, smi, kernels, detect_images):
     tour = SyntheticDataset(n_frames=n_tour, cam=SYNTHETIC, trajectory="tour", loops=1.15,
                             device=dev)
     tour_frames = [tour.grab(i) for i in range(n_tour)]
-    probe = (0, 25, 50, 75, 100)
+    probe = X12_PROBE
     cpu_frames = {i: (tour_frames[i][1].cpu(), tour_frames[i][2].cpu()) for i in probe}
     k1_err = 0.0
 
@@ -1382,13 +1439,33 @@ def families_phase(dev, smi, kernels, detect_images):
             gate = fast.response_gate(ecfg_i.min_response, t, ecfg_i.fast_threshold)
             check(bool((ref.score[ref.valid] > gate).all()), f"F6 gate {tag} x{factor}")
             gate_log.append(f"x{factor}: gate {gate:.4f}, {int(ref.valid.sum())} valid")
-    log(f"[families] the response gate from the device threshold (kernel B) equals the "
-        f"plain gate, float and tensor thresholds, on 3 images: {'; '.join(gate_log[:3])}")
+    # kernel C under the same gate: the x1.2 detection of the first tour frame
+    border = max(ecfg.min_border, ecfg.brief_patch_size // 2 + 1)
+    x12_pyr = image.build_scaled_pyramid(tour_frames[probe[0]][1], 8, 1.2)
+    x12_q = fast.level_quotas(ecfg.num_features, 8, 1.2, ecfg.cell_size,
+                              [tuple(p.shape) for p in x12_pyr])
+    for factor in (0.5, 1.0, 1.5):
+        t = ecfg.fast_threshold * factor
+        ref = fast.detect_keypoints_scaled_ref(x12_pyr, x12_q, ecfg.cell_size, t,
+                                               ecfg.min_response, border, True,
+                                               ecfg.fast_threshold)
+        for thr in (t, torch.full((), t, dtype=torch.float32, device=dev)):
+            kp = kernels.detect_keypoints_scaled(x12_pyr, x12_q, ecfg.cell_size, thr,
+                                                 ecfg.min_response, border, True,
+                                                 ecfg.fast_threshold)[0]
+            for f in ("uv", "level", "score", "valid"):
+                same(getattr(kp, f), getattr(ref, f), f"F6 gate, x1.2 x{factor}: {f}")
+        gate_log.append(f"x1.2 x{factor}: {int(ref.valid.sum())} valid")
+    log(f"[families] the response gate from the device threshold (kernels B and C) equals "
+        f"the plain gate, float and tensor thresholds: {'; '.join(gate_log)}")
 
-    # ---- the dense K1 on the 8 levels of the x1.2 scale space of 5 tour
-    # frames, at a float and a device-tensor threshold; subpixel offsets
+    # ---- the x1.2 pyramid of 5 tour frames on the card against the CPU's;
+    # the dense K1 (through its public entry) on its 8 levels at a float and
+    # a device-tensor threshold; the x1.2 detection on the card against the
+    # port's CPU detection, with and without subpixel offsets, and the
+    # half-sample subpixel detection likewise
     t_dev = torch.full((), ecfg.fast_threshold, dtype=torch.float32, device=dev)
-    x12_levels = None
+    border = max(ecfg.min_border, ecfg.brief_patch_size // 2 + 1)
     for i in probe:
         pyr = image.build_scaled_pyramid(tour_frames[i][1], 8, 1.2)
         pyr_cpu = image.build_scaled_pyramid(cpu_frames[i][0], 8, 1.2)
@@ -1400,15 +1477,18 @@ def families_phase(dev, smi, kernels, detect_images):
                 maps_equal(km, pm, f"dense K1, x1.2 level {lvl} of tour frame {i}")
                 same(kr, pr, f"dense K1 raw, x1.2 level {lvl} of tour frame {i}")
                 k1_err = max(k1_err, float((kr - pr).abs().max()))
-            for fast_gate in (True, False):
-                a = fast.detect_keypoints_level(img, 128, ecfg.cell_size, ecfg.fast_threshold,
-                                                20.0, 16, fast_gate, subpixel=True)
-                b = fast.detect_keypoints_level(img_c, 128, ecfg.cell_size,
-                                                ecfg.fast_threshold, 20.0, 16, fast_gate,
-                                                subpixel=True)
-                same_keypoints(a, b, f"subpixel, x1.2 level {lvl} of tour frame {i}")
-        if x12_levels is None:
-            x12_levels = pyr
+        quotas = fast.level_quotas(ecfg.num_features, 8, 1.2, ecfg.cell_size,
+                                   [tuple(p.shape) for p in pyr])
+        for fast_gate in (True, False):
+            for subpixel in (False, True):
+                gthr = ecfg.fast_threshold if fast_gate else None
+                a = fast.detect_keypoints_scaled(pyr, quotas, ecfg.cell_size,
+                                                 ecfg.fast_threshold, ecfg.min_response, border,
+                                                 fast_gate, gthr, subpixel)
+                b = fast.detect_keypoints_scaled(pyr_cpu, quotas, ecfg.cell_size,
+                                                 ecfg.fast_threshold, ecfg.min_response, border,
+                                                 fast_gate, gthr, subpixel)
+                same_keypoints(a, b, f"x1.2 detection (subpixel {subpixel}), tour frame {i}")
     for tag, gray, ecfg_i in detect_images[:3]:
         levels = image.build_pyramid(gray, ecfg_i.num_levels)
         a = fast.detect_keypoints(levels, ecfg_i.num_features, ecfg_i.cell_size,
@@ -1420,10 +1500,11 @@ def families_phase(dev, smi, kernels, detect_images):
                                   ecfg_i.min_border, subpixel=True,
                                   gate_threshold=ecfg_i.fast_threshold)
         same_keypoints(a, b, f"subpixel {tag}")
-    log(f"[families] dense K1 on the 8 x1.2 levels of {len(probe)} tour frames (the card's "
-        f"pyramid equal to the CPU's bit for bit), float and device-tensor threshold, and "
-        f"the subpixel offsets of both pyramids: all equal to the plain versions; raw map "
-        f"max abs diff {k1_err:.3g}")
+    log(f"[families] {len(probe)} tour frames: the card's x1.2 pyramid equal to the CPU's bit "
+        f"for bit; the dense K1 on its 8 levels at a float and a device-tensor threshold "
+        f"equal to the plain version (raw map max abs diff {k1_err:.3g}); the x1.2 detection "
+        f"and the half-sample subpixel detection on the card equal to the port's CPU "
+        f"detection (positions, levels, validity; offsets within 1e-4 px)")
 
     # ---- each new variant's build: card against the port's CPU build
     build_ms, build_launches = {}, {}
@@ -1459,8 +1540,9 @@ def families_phase(dev, smi, kernels, detect_images):
         ex.build(gray, depth, ecfg.fast_threshold)
         build_launches[v] = {k: n for k, n in kernels.LAUNCHES.items() if n}
         if v.startswith("orb"):
-            check(build_launches[v].get("detect_score_map") == 8,
-                  f"{v}: the dense K1 ran {build_launches[v]} times in one build")
+            check(build_launches[v].get("detect_keypoints_scaled") == 1
+                  and "detect_score_map" not in build_launches[v],
+                  f"{v}: one build launched {build_launches[v]}")
         log(f"[families] {v} build, card = CPU on {len(probe)} tour frames: keypoints "
             f"equal; descriptor bits apart {bits_diff} of {bits}, float rows beyond 1e-5 "
             f"{flips} of {rows}; {build_ms[v]:.3f} ms a build (CUDA events), launches "
@@ -1615,14 +1697,15 @@ def families_phase(dev, smi, kernels, detect_images):
         for sd in (0, 1, 2):
             s, r = runs[(v, sd, "serial")], runs[(v, sd, "ring")]
             upto = min(s["retried"][:1] + r["retried"][:1] + [n_tour])
-            same = s["inliers"][:upto] == r["inliers"][:upto]
+            inliers_equal = s["inliers"][:upto] == r["inliers"][:upto]
             gap = float(np.linalg.norm(r["poses"][:, :3, 3] - s["poses"][:, :3, 3], axis=-1).max())
             log(f"[families] {v} seed {sd}: ring against serial: retried frames "
                 f"{s['retried']} / {r['retried']}, inliers equal on frames 0-{upto - 1} "
-                f"{same}; keyframes {r['kf']} / {s['kf']}, loops {r['loops']} / "
+                f"{inliers_equal}; keyframes {r['kf']} / {s['kf']}, loops {r['loops']} / "
                 f"{s['loops']}, failures {r['failures']} / {s['failures']}, largest position "
                 f"gap {gap:.5f} m")
-            check(upto > 8 and same, f"{v} seed {sd}: the ring's inliers differ from serial's "
+            check(upto > 8 and inliers_equal,
+                  f"{v} seed {sd}: the ring's inliers differ from serial's "
                   f"before frame {upto}")
             if s["failures"] == 0 and r["failures"] == 0:
                 n_equal += 1
@@ -1646,29 +1729,111 @@ def families_phase(dev, smi, kernels, detect_images):
         f"{sorted(set(serial_syncs))}, ring {sum(ring_syncs)} over {n_tour} frames, batch "
         f"dispatches {sorted(set(batch_syncs))}; "
         f"ADAPTIVE ORB batch dispatches (syncs, host detections so far) {a_syncs}")
-    check(launches["detect_score_map"] > 0, "the dense K1 was not launched on the families path")
+    # every ORB build is one x1.2 detection (two launches), the subpixel
+    # run's builds half-sample detections with offsets: no path launches the
+    # dense K1
     n_orb_frames = sum(n_tour for (v, _, _) in runs if v == "orb")
+    check(launches["detect_score_map"] == 0,
+          f"the dense K1 ran {launches['detect_score_map']} times on the families path")
+    check(launches["detect_keypoints_scaled"] >= n_orb_frames + 32,
+          f"the x1.2 detection ran {launches['detect_keypoints_scaled']} times for "
+          f"{n_orb_frames} ORB frames and the ADAPTIVE run's 32")
     log(f"[families] launches on the path {json.dumps(launches)} (batched "
-        f"{json.dumps(batched)}); the dense K1: {n_orb_frames} ORB frames x 8 + the subpixel "
-        f"run's {n_tour} x 4 + the ADAPTIVE run's")
+        f"{json.dumps(batched)}); the x1.2 detection: {n_orb_frames} ORB frames + the "
+        f"ADAPTIVE run's 32 and its host re-detections; the dense K1 none")
 
-    # the dense K1 at the families path's shapes: the 8 x1.2 levels
+    x12 = scaled_detection_timing(smi, kernels, *tour_frames[50][1:], ecfg)
+    log(f"[families] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, batched, dict(x12, err=k1_err, build_ms=build_ms)
+
+
+def scaled_detection_timing(smi, kernels, gray, depth, ecfg):
+    """The x1.2 detection of one 640x480 frame on the card: 2 device
+    launches (profiler), and so the half-sample detection with subpixel
+    offsets; the dense K1 on the 8 levels, the x1.2 detection against its
+    plain version and, paired in turns, against the per-level route (the dense K1
+    per level and the plain per-level selection: fast.detect_keypoints_level
+    on the card, equal slots), device us per launch of each, and the ORB
+    build through each route; bounds from this frame's shapes."""
+    from rgbdslam_tpu_torch.frontend import frame as frame_mod
+    from rgbdslam_tpu_torch.frontend.extractor import Extractor
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    t_dev = torch.full((), ecfg.fast_threshold, dtype=torch.float32, device=gray.device)
+    border = max(ecfg.min_border, ecfg.brief_patch_size // 2 + 1)
+    levels = image.build_scaled_pyramid(gray, 8, 1.2)
+    quotas = fast.level_quotas(ecfg.num_features, 8, 1.2, ecfg.cell_size,
+                               [tuple(p.shape) for p in levels])
+    sub_args = (image.build_pyramid(gray, ecfg.num_levels), ecfg.num_features, ecfg.cell_size,
+                t_dev, ecfg.min_response, ecfg.min_border)
+    scaled_args = (levels, quotas, ecfg.cell_size, t_dev, ecfg.min_response, border, True,
+                   ecfg.fast_threshold)
+    n_dev = {k: device_launches(fn, name=k) for k, fn in {
+        "x1.2 detection": lambda: fast.detect_keypoints_scaled(*scaled_args),
+        "subpixel detection": lambda: fast.detect_keypoints(
+            *sub_args, subpixel=True, gate_threshold=ecfg.fast_threshold)}.items()}
+    log(f"[families] device launches per call, by the profiler: {json.dumps(n_dev)}")
+    for k, n in n_dev.items():
+        check(n == 2, f"{k}: {n} device launches, not 2")
+
     def k1_kernel():
-        for lvl in x12_levels:
+        for lvl in levels:
             kernels.detect_score_map(lvl, t_dev)
 
     def k1_plain():
-        for lvl in x12_levels:
+        for lvl in levels:
             kernels.detect_score_map_ref(lvl, ecfg.fast_threshold)
 
+    per_level_route = frame_mod._detect_per_level     # fast.detect_keypoints_level a level
+    for a, b in zip(fast.detect_keypoints_scaled(*scaled_args), per_level_route(*scaled_args)):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              "the x1.2 detection differs from the per-level route")
     k1_ms = paired_ms(k1_kernel, k1_plain)
-    n_px = sum(lv.numel() for lv in x12_levels)
-    k1_bound = bound(n_px * 4 * 3, n_px * 170)
+    scaled_ms = paired_ms(lambda: fast.detect_keypoints_scaled(*scaled_args),
+                          lambda: fast.detect_keypoints_scaled_ref(*scaled_args))
+    route_ms = paired_ms(lambda: fast.detect_keypoints_scaled(*scaled_args),
+                         lambda: per_level_route(*scaled_args))
+    scaled_us = device_us_per_launch(lambda: fast.detect_keypoints_scaled(*scaled_args),
+                                     {"detect_cells_kernel": 1, "detect_rank_kernel": 1})
+    route_us = device_us_per_launch(lambda: per_level_route(*scaled_args),
+                                    {"detect_kernel": len(levels)})
+    orb = Extractor(SYNTHETIC, ecfg, detector="orb")
+    response, use_fast_gate, descriptor, orb_cfg = orb._resolved()
+
+    def orb_per_level():
+        """orb.build with the ORB detection taken level by level."""
+        kp, desc = frame_mod._multiscale_detect_describe(
+            gray, orb_cfg, t_dev, orb_cfg.fast_threshold, use_fast_gate, descriptor, response,
+            per_level=True)
+        return frame_mod._assemble_features(SYNTHETIC, gray, depth, kp, desc)
+
+    built, built_per_level = orb.build(gray, depth, t_dev), orb_per_level()
+    for k, a in vars(built).items():
+        check(torch.equal(a, getattr(built_per_level, k)),
+              f"the ORB build's {k} differs through the per-level route")
+    build_pair = paired_ms(lambda: orb.build(gray, depth, t_dev), orb_per_level)
+    n_px = sum(lv.numel() for lv in levels)
+    k1_bound = bound(n_px * 4 * 3, n_px * DETECT_OPS_PER_PX)
+    n_cells = [(h // ecfg.cell_size) * (w // ecfg.cell_size) for h, w in
+               (lv.shape for lv in levels)]
+    # the pyramid in, the slots out (uv, level, score, valid); the tile
+    # computation and each level's ranking
+    scaled_bound = bound(n_px * 4 + sum(quotas) * 17,
+                         n_px * DETECT_OPS_PER_PX + sum(rank_ops(n) for n in n_cells))
     log(f"[families] dense K1 on the 8 x1.2 levels ({n_px} px): kernel {k1_ms[0]:.4f} ms, "
         f"plain {k1_ms[1]:.4f} ms, bound {k1_bound[0]:.6f} ms by {k1_bound[1]} ({smi})")
-    log(f"[families] phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, batched, {"timing": k1_ms, "bound": k1_bound, "err": k1_err,
-                               "build_ms": build_ms}
+    log(f"[families] x1.2 detection (kernels A and C, {n_px} px, cells {n_cells}): "
+        f"{scaled_ms[0]:.4f} ms back to back, plain {scaled_ms[1]:.4f} ms, bound "
+        f"{scaled_bound[0]:.6f} ms by {scaled_bound[1]}; device us per launch "
+        f"{json.dumps(scaled_us)} ({smi})")
+    log(f"[families] paired against the per-level route (the dense K1 per level + the plain "
+        f"per-level selection), same frame, same call: x1.2 detection {route_ms[0]:.4f} ms, "
+        f"the per-level route {route_ms[1]:.4f} ms; device us per launch of the route's own "
+        f"kernels {json.dumps(route_us)}; the ORB build {build_pair[0]:.3f} ms, with the "
+        f"per-level route {build_pair[1]:.3f} ms (CUDA events) ({smi})")
+    return {"timing": k1_ms, "bound": k1_bound, "scaled_timing": scaled_ms,
+            "scaled_bound": scaled_bound, "route_ms": route_ms, "build_pair": build_pair}
 
 
 def main() -> int:
@@ -1739,7 +1904,7 @@ def main() -> int:
     for kind, levels in (("rendered", pyr), ("integer", ints)):
         for lvl, img in enumerate(levels):
             with plain_versions_forbidden(kernels):
-                km, kr = fast.masked_score_map(img, thr)
+                km, kr = kernels.detect_score_map(img, thr)
             pm, pr = kernels.detect_score_map_ref(img, thr)
             torch.cuda.synchronize()
             torch.testing.assert_close(kr, pr, rtol=1e-5, atol=1e-3)
@@ -1756,10 +1921,10 @@ def main() -> int:
                 mism_render += n_bad
             log(f"[kernels] K1 dense {kind} level {lvl} {tuple(img.shape)}: corners "
                 f"{int(kk.sum())}, keep-mask mismatches {n_bad}")
-    check(kernels.LAUNCHES["detect_score_map"] == 2 * len(pyr), "dense K1 launches")
-    # launches through a public entry that no main path reaches: K3's scorer
-    # alone and K5 (the dense K1 runs on the families path, phase 10)
-    off_path = {}
+    # launches through a public entry that no main path reaches: the dense
+    # K1, K3's scorer alone and K5
+    off_path = {"detect_score_map": kernels.LAUNCHES["detect_score_map"]}
+    check(off_path["detect_score_map"] == 2 * len(pyr), "dense K1 launches")
     results["detect_score_map"] = dict(max_abs_err=err, keep_mismatch_rendered=mism_render)
 
     def max_diff(outs_a, outs_b):
@@ -1828,6 +1993,58 @@ def main() -> int:
     ds_small = SyntheticDataset(n_frames=24, cam=cam_small, trajectory="sweep", device=dev)
     for i in (0, 11):
         check_detect(f"320x240 sweep frame {i}", ds_small.grab(i)[1], ecfg_small)
+
+    # K1 as the whole x1.2 detection (kernel A's x1.2 mode, its offsets,
+    # kernel C) on the 8 levels of five frames of the families' tour, at a
+    # float and a device threshold, FAST-gated and in the GFTT mode, with and
+    # without subpixel offsets: kernel A against the plain per-level cells,
+    # kernel C against the plain ranking on kernel A's outputs, the whole
+    # against the whole, all exact
+    x12 = SyntheticDataset(n_frames=128, cam=SYNTHETIC, trajectory="tour", loops=1.15,
+                           device=dev)
+    x12_frames = [x12.grab(i)[1] for i in X12_PROBE]
+    scaled_err = {"n": 0, "score": 0.0}
+    e_orb = cfg.extractor
+    border = max(e_orb.min_border, e_orb.brief_patch_size // 2 + 1)
+    for i, gray in zip(X12_PROBE, x12_frames):
+        x12_pyr = image.build_scaled_pyramid(gray, 8, 1.2)
+        shapes = [tuple(p.shape) for p in x12_pyr]
+        quotas = fast.level_quotas(e_orb.num_features, 8, 1.2, e_orb.cell_size, shapes)
+        n_valid = []
+        for fast_gate in (True, False):
+            gate_thr = e_orb.fast_threshold if fast_gate else None
+            gate = fast.response_gate(e_orb.min_response, e_orb.fast_threshold, gate_thr)
+            for subpixel in (False, True):
+                args = (x12_pyr, quotas, e_orb.cell_size)
+                tail = (e_orb.min_response, border, fast_gate, gate_thr, subpixel)
+                whole = fast.detect_keypoints_scaled_ref(*args, e_orb.fast_threshold, *tail)
+                p_cells = fast.detect_scaled_cells_ref(*args, e_orb.fast_threshold, border,
+                                                       fast_gate, subpixel)
+                for t in (e_orb.fast_threshold,
+                          torch.full((), e_orb.fast_threshold, device=dev)):
+                    kp, cells = kernels.detect_keypoints_scaled(*args, t, *tail)
+                    torch.cuda.synchronize()
+                    for what, a_, b_ in zip(("maxima", "arguments", "offsets"), cells, p_cells):
+                        check((a_ is None and b_ is None) or torch.equal(a_, b_),
+                              f"x1.2 detection, tour frame {i}: kernel A's {what} differ")
+                    part = fast.detect_scaled_select_ref(*cells, shapes, quotas,
+                                                         e_orb.cell_size, gate)
+                    for what, ref in (("kernel C", part), ("whole", whole)):
+                        for f in ("uv", "level", "score", "valid"):
+                            a_, b_ = getattr(kp, f), getattr(ref, f)
+                            check(a_.dtype == b_.dtype and a_.shape == b_.shape
+                                  and torch.equal(a_, b_),
+                                  f"x1.2 detection, tour frame {i}, {what}: {f} differs")
+                    scaled_err["score"] = max(scaled_err["score"],
+                                              float((kp.score - whole.score).abs().max()))
+                n_valid.append(int(kp.valid.sum()))
+                check(n_valid[-1] > 300, f"x1.2 detection, tour frame {i}: {n_valid[-1]} "
+                      "keypoints")
+        scaled_err["n"] += 1
+        log(f"[kernels] x1.2 detection, tour frame {i}: 8 levels {shapes[0]}..{shapes[-1]}, "
+            f"quotas {quotas}: kernel A's maxima, arguments and offsets, kernel C's and the "
+            f"whole's uv, level, score, valid all equal, at a float and a device threshold, "
+            f"FAST-gated and GFTT, with and without offsets; valid {n_valid}")
 
     # real matched pair of frames 0 and 1 for K2-K4
     f0 = odo.features(frames[0][1], frames[0][2])
@@ -2145,7 +2362,7 @@ def main() -> int:
     check(float(np.median(ates)) < 0.05,
           f"median ATE over seeds {seeds}: {float(np.median(ates))} m >= 0.05 m")
     pairs = n_frames - 1
-    expect = {"detect_score_map": 0,
+    expect = {"detect_score_map": 0, "detect_keypoints_scaled": 0,
               "detect_keypoints_fused": n_frames * len(seeds),
               "hamming_match_2nn": pairs * len(seeds),
               "match_gates": pairs * len(seeds),
@@ -2258,7 +2475,7 @@ def main() -> int:
     # extension match and one batched verification), R = relocalization
     # verifications
     expect_tour = {
-        "detect_score_map": 0,
+        "detect_score_map": 0, "detect_keypoints_scaled": 0,
         "detect_keypoints_fused": n_tour * len(slam_seeds),
         "hamming_match_2nn": E_all + 2 * KF_all + R_all,
         "match_gates": E_all + 2 * KF_all + R_all,
@@ -2719,21 +2936,18 @@ def main() -> int:
     det_args = (ecfg.num_features, ecfg.cell_size, ecfg.fast_threshold, ecfg.min_response,
                 ecfg.min_border)
     k4_call = dict(C1=k4_args[3], C2=k4_args[4])
-    n_launch = {
-        "detect_keypoints": device_launches(lambda: fast.detect_keypoints(pyr, *det_args)),
-        "gicp_refine": device_launches(lambda: gicp_refine(
-            k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)),
-        "build_frame_features": device_launches(
-            lambda: odo.features(frames[0][1], frames[0][2])),
-        "ransac_se3": device_launches(
-            lambda: ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac)),
-        "ransac_se3 batch 13": device_launches(
-            lambda: ransac_se3(Xb, p2b, wb, vb, odo.generator, cfg.ransac)),
-        "match_descriptors": device_launches(
-            lambda: match_descriptors(f0.desc, v1, f1.desc, v2, cfg.matcher.nn_ratio)),
-        "match_descriptors batch 13": device_launches(
-            lambda: match_descriptors(Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio)),
-    }
+    n_launch = {k: device_launches(fn, name=k) for k, fn in {
+        "detect_keypoints": lambda: fast.detect_keypoints(pyr, *det_args),
+        "gicp_refine": lambda: gicp_refine(
+            k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call),
+        "build_frame_features": lambda: odo.features(frames[0][1], frames[0][2]),
+        "ransac_se3": lambda: ransac_se3(p1, p2, w, valid, odo.generator, cfg.ransac),
+        "ransac_se3 batch 13": lambda: ransac_se3(Xb, p2b, wb, vb, odo.generator, cfg.ransac),
+        "match_descriptors": lambda: match_descriptors(
+            f0.desc, v1, f1.desc, v2, cfg.matcher.nn_ratio),
+        "match_descriptors batch 13": lambda: match_descriptors(
+            Db, Vb, f1.desc, v2, cfg.matcher.nn_ratio),
+    }.items()}
     log(f"[times] device launches per call, by the profiler: {json.dumps(n_launch)}")
     check(n_launch["detect_keypoints"] == 2, "detect_keypoints: not 2 device launches")
     check(n_launch["gicp_refine"] == 1, "gicp_refine: not 1 device launch")
@@ -2784,9 +2998,12 @@ def main() -> int:
         gicp_refine(k4_args[1], k4_args[2], k4_args[5], k4_args[0], icp, **k4_call)
 
     dev_us = {}
-    for fn in (lambda: fast.detect_keypoints(pyr, *det_args), k4_whole,
-               lambda: [fast.masked_score_map(lvl, thr) for lvl in pyr]):
-        dev_us.update(device_us_per_launch(fn))
+    for fn, expect in ((lambda: fast.detect_keypoints(pyr, *det_args),
+                        {"detect_cells_kernel": 1, "detect_select_kernel": 1}),
+                       (k4_whole, {"gicp_refine_kernel": 1}),
+                       (lambda: [fast.masked_score_map(lvl, thr) for lvl in pyr],
+                        {"detect_kernel": len(pyr)})):
+        dev_us.update(device_us_per_launch(fn, expect))
     log(f"[times] device microseconds per launch, isolated calls: {json.dumps(dev_us)} "
         f"(detect_kernel: mean of the {len(pyr)} levels) ({smi})")
 
@@ -2874,8 +3091,8 @@ def main() -> int:
         return bound(b * (N * (24 + 4 + 1) + H * S * 4 + 64 + N + 9), b * ops)
 
     bounds = {
-        # Sobel + 3 products + separable 9x9 boxes + eigenvalue + FAST arc + NMS: ~170/px
-        "detect_score_map": bound(n_px * 4 * 3, n_px * 170),
+        # the image in, two maps out; DETECT_OPS_PER_PX a pixel
+        "detect_score_map": bound(n_px * 4 * 3, n_px * DETECT_OPS_PER_PX),
         "hamming_match_2nn": k2_bound(1),
         "hamming_match_2nn_b13": k2_bound(13),
         "mahal_hypothesis_scores": k3_bound(1),
@@ -2884,11 +3101,11 @@ def main() -> int:
         "match_gated_b13": gated_bound(13),
         "ransac_se3_fused": ransac_bound(1),
         "ransac_se3_fused_b13": ransac_bound(13),
-        # the pyramid in, the keypoint slots out; the dense kernel's ~170/px, the
-        # merge and the rank's comparisons (n_cells^2)
+        # the pyramid in, the keypoint slots out; DETECT_OPS_PER_PX a pixel, the
+        # merge (4 a level and cell) and the ranking of the cells
         "detect_keypoints_fused": bound(
             n_px * 4 + ecfg.num_features * 17,
-            n_px * 170 + n_det_cells * (n_det_cells + 4 * len(pyr))),
+            n_px * DETECT_OPS_PER_PX + 4 * n_det_cells * len(pyr) + rank_ops(n_det_cells)),
         # ~300 float operations per correspondence and round, ~20 for the gate
         "gicp_refine_fused": bound(gicp_bytes + 64 + 5, N * (300 * icp.max_iterations + 20)),
         "gicp_gn_normal_equations": bound(gicp_bytes + 116, N * 300),
@@ -2919,6 +3136,8 @@ def main() -> int:
         f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
     timing["detect_score_map"] = fam["timing"]
     bounds["detect_score_map"] = fam["bound"]
+    timing["detect_keypoints_scaled"] = fam["scaled_timing"]
+    bounds["detect_keypoints_scaled"] = fam["scaled_bound"]
     results["detect_score_map"]["max_abs_err"] = max(results["detect_score_map"]["max_abs_err"],
                                                      fam["err"])
 
@@ -2950,6 +3169,9 @@ def main() -> int:
         f"images: score max abs diff {detect_err['score']:.3g}, "
         f"{detect_err['unequal']} unequal uv, level or valid entries")
     results["detect_keypoints_fused"] = dict(max_abs_err=detect_err["score"])
+    check(scaled_err["n"] == len(X12_PROBE),
+          f"the x1.2 detection was held on {scaled_err['n']} frames")
+    results["detect_keypoints_scaled"] = dict(max_abs_err=scaled_err["score"])
     results["ransac_se3_fused"] = dict(max_abs_err=fused_err["ransac_se3_fused"])
     results["ransac_se3_fused_b13"] = dict(max_abs_err=fused_err["ransac_se3_fused_b13"])
     pallas = "rgbdslam_tpu/ops/pallas_kernels.py"
@@ -2957,6 +3179,7 @@ def main() -> int:
     meta = {
         "detect_score_map": ("detect.cu", f"{pallas}:320", "detect_score_map"),
         "detect_keypoints_fused": ("detect.cu", f"{pallas}:320", "detect_keypoints_fused"),
+        "detect_keypoints_scaled": ("detect.cu", f"{pallas}:320", "detect_keypoints_scaled"),
         "hamming_match_2nn": ("hamming.cu", f"{pallas}:87", "hamming_match_2nn"),
         "hamming_match_2nn_b13": ("hamming.cu", f"{pallas}:87", "hamming_match_2nn"),
         "match_gated": ("hamming.cu", f"{pallas}:87", "match_gates"),
@@ -2989,9 +3212,9 @@ def main() -> int:
                   f"{entry['launches_off_path']} through its public entry")
         else:
             check(on_path > 0, f"{entry['name']} was launched on no main path")
-            # the dense K1 serves the families path alone (the x1.2 scale
-            # space, subpixel refinement)
-            required = (("families",) if entry["name"] == "detect_score_map"
+            # the x1.2 detection serves the families path alone (the ORB
+            # scale space)
+            required = (("families",) if entry["name"] == "detect_keypoints_scaled"
                         else ("disk", "accuracy", "families"))
             for path in required:
                 check(entry[f"launches_{path}"] > 0,

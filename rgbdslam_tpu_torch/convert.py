@@ -6,7 +6,9 @@ features the next frame is matched against, the vocabulary, the keyframe
 bank, pose-graph edges and bundle-adjustment problems (the per-keyframe
 result blob is one f32 array:
 `torch.from_numpy` / `.numpy()` carry it). Descriptor words cross as uint32
-bits viewed as int32.
+bits viewed as int32. The `*_from_numpy` functions put what they build on
+the card unless the caller asks for the CPU (`device="cpu"`); a CUDA request
+without a card raises.
 """
 
 from __future__ import annotations
@@ -40,10 +42,19 @@ def config_from_jax(cfg) -> torch_config.SlamConfig:
     return _convert(cfg, torch_config.SlamConfig)
 
 
-def frame_features_from_numpy(d: Dict[str, np.ndarray], device="cpu"):
+def _on(device):
+    """`device` as a torch.device: a CUDA request without a card raises
+    (device.resolve_device; imported here, as torch is, on first use)."""
+    from rgbdslam_tpu_torch.device import resolve_device
+
+    return resolve_device(device)
+
+
+def frame_features_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
     """FrameFeatures on `device` from a mapping of field name -> numpy array
     (uint32 descriptor words are reinterpreted as int32; float descriptors
     stay f32)."""
+    device = _on(device)
     import torch
 
     from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
@@ -68,9 +79,10 @@ def frame_features_to_numpy(f) -> Dict[str, np.ndarray]:
     return out
 
 
-def desc_words_from_numpy(a: np.ndarray, device="cpu"):
+def desc_words_from_numpy(a: np.ndarray, device="cuda"):
     """uint32 descriptor or vocabulary words (..., 8) as an int32 tensor of
     the same bit patterns; float descriptors or words as f32."""
+    device = _on(device)
     import torch
 
     a = np.asarray(a)
@@ -80,9 +92,10 @@ def desc_words_from_numpy(a: np.ndarray, device="cpu"):
                            device=device)
 
 
-def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cpu"):
+def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cuda"):
     """(words (V, 8) int32 bit patterns or (V, D) f32, idf (V,) f32) on
     `device` from the JAX package's uint32 or f32 words and f32 idf."""
+    device = _on(device)
     import torch
 
     return (desc_words_from_numpy(words, device),
@@ -90,11 +103,12 @@ def vocabulary_from_numpy(words: np.ndarray, idf: np.ndarray, device="cpu"):
 
 
 def bank_from_numpy(desc: np.ndarray, xyz: np.ndarray, valid: np.ndarray,
-                    bow: np.ndarray, device="cpu"):
+                    bow: np.ndarray, device="cuda"):
     """The device keyframe bank (D, X, V, B) of slam/system.py from host
     arrays: desc (K, N, 8) uint32 or (K, N, 128) f32, xyz (K, N, 3) f32,
     valid (K, N) bool, bow
     (K, Vw) f32. The tensors are fresh copies (the bank is updated in place)."""
+    device = _on(device)
     import torch
 
     return (desc_words_from_numpy(desc, device).clone(),
@@ -103,9 +117,10 @@ def bank_from_numpy(desc: np.ndarray, xyz: np.ndarray, valid: np.ndarray,
             torch.tensor(np.asarray(bow, dtype=np.float32), device=device))
 
 
-def pose_graph_edges_from_numpy(a, b, Z, weight, device="cpu"):
+def pose_graph_edges_from_numpy(a, b, Z, weight, device="cuda"):
     """solvers.pose_graph.PoseGraphEdges from the JAX package's edge arrays
     (int32 indices become int64)."""
+    device = _on(device)
     import torch
 
     from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
@@ -122,10 +137,11 @@ _BA_DTYPES = {"Tcw": np.float32, "Xw": np.float32, "lm_valid": bool, "obs_kf": n
               "obs_uv": np.float32, "obs_valid": bool, "obs_z": np.float32}
 
 
-def ba_problem_from_numpy(p, device="cpu"):
+def ba_problem_from_numpy(p, device="cuda"):
     """solvers.ba.BAProblem on `device` from the JAX package's BAProblem
     (or any mapping or object with its fields) as host arrays; int32
     observation indices become int64."""
+    device = _on(device)
     import torch
 
     from rgbdslam_tpu_torch.solvers.ba import BAProblem
@@ -144,9 +160,10 @@ def ba_problem_to_numpy(p) -> Dict[str, np.ndarray]:
     return out
 
 
-def ba_edges_from_numpy(a, b, Z, w, device="cpu"):
+def ba_edges_from_numpy(a, b, Z, w, device="cuda"):
     """solvers.ba.BAEdges from the JAX package's edge arrays (int32 vertex
     indices become int64)."""
+    device = _on(device)
     import torch
 
     from rgbdslam_tpu_torch.solvers.ba import BAEdges

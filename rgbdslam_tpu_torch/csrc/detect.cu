@@ -1,53 +1,69 @@
 // K1: fused FAST segment test + Shi-Tomasi score + 3x3 NMS, and around it
-// the whole keypoint detection: best corner per grid cell over all pyramid
-// levels, the response gate and the top-N cells, in two launches.
+// the whole keypoint detection in two launches: of the half-sample pyramid
+// (best corner per grid cell over all levels, the response gate, the top-N
+// cells) and of the x1.2 scale space (per level the best corner per cell,
+// the top cells of each level's quota, the gate marking slots valid), with
+// subpixel offsets on request.
 //
 // Replaces: rgbdslam_tpu/ops/pallas_kernels.py detect_score_map (320-397),
 // body _detect_core (190-266), and the code XLA fused around it in
-// rgbdslam_tpu/ops/fast.py detect_keypoints (186-236): border gate, best
-// per cell, merge over levels, top-k.
+// rgbdslam_tpu/ops/fast.py detect_keypoints (152-264: border gate, best per
+// cell, merge over levels, top-k, subpixel refinement) and
+// detect_keypoints_level (285-357) as frontend/frame.py
+// _multiscale_detect_describe (166-207) calls it once a level.
 //
 // What bounds it on an H100: a 640x480 level is 1.2 MB in, well under a
-// microsecond of HBM traffic; the work is ~250 flops and ~40 shared-memory
-// reads per pixel (gradients, three 9x9 box sums, the 16-pixel ring, the 3x3
-// neighbourhood), so the tile computation is bound by shared-memory traffic.
-// What bounded the detection as a whole was its boundary: the dense kernel
-// wrote two maps a level (4.9 MB a frame) and ~40 small tensor ops a level
-// read them back (gate, tile copy, amax, argmax, coordinates, merge), then a
-// sort and five gathers: ~160 launches for what one tile already holds in
-// shared memory.
+// microsecond of HBM traffic; the work is ~270 operations and ~40
+// shared-memory reads per pixel (gradients, three 9x9 box sums, the 16-pixel
+// ring and its arcs, the 3x3 neighbourhood), so the tile computation is
+// bound by shared-memory traffic. What bounded the detection as a whole was
+// its boundary: a dense kernel wrote two maps a level (4.9 MB a half-sample
+// frame, 7.6 MB an x1.2 one) and ~40 small tensor ops a level read them back
+// (gate, tile copy, amax, argmax, coordinates, merge or sort, gathers,
+// padding), and subpixel refinement read raw maps again: ~160 launches a
+// half-sample detection, ~340 an x1.2 one, for what one tile already holds
+// in shared memory.
 //
 // Design. The tile computation is one device function, tile_scores, shared
-// by three kernels:
-//  * detect_kernel, the dense maps of one level (the TPU kernel's direct
-//    counterpart: the per-level detection of the x1.2 scale space and the
-//    raw maps of subpixel refinement);
+// by four kernels:
+//  * detect_kernel, the dense maps of one level: the TPU kernel's direct
+//    counterpart, behind its public entry (kernels.detect_score_map) and the
+//    per-level detection of fast.detect_keypoints_level; no main path
+//    launches it.
 //  * detect_cells_kernel (kernel A), one launch over the tiles of every
-//    level: a flat block index is mapped to (level, tile) through a table of
-//    level pointers, sizes and first-block offsets passed by value. The FAST
+//    level: a flat block index is mapped to (level, tile) through a table
+//    passed by value (LevelTable), which gives each level its image, its
+//    cell size in its own pixels, its grid, its first entry in the output and
+//    its border frame. The half-sample pyramid: cell_size >> level, the
+//    level-0 grid, the border in level-0 coordinates; the x1.2 scale space:
+//    cell_size on every level, the level's own grid and border. The FAST
 //    threshold is a device scalar, read once per block (the TPU kernel's
 //    thr_ref): a threshold that the batched tracker evolves on the device
-//    costs no host read. After
-//    tile_scores it applies the border gate in level-0 coordinates and, for
-//    each cell_l x cell_l cell of the tile (cell_l = cell_size >> level; the
-//    32x16 tile must be a whole number of cells), finds the maximum and its
-//    first index in the cell's row-major order (strict >, so an all -inf cell
-//    gives index 0, as argmax does). A cell lies in exactly one tile, so each
-//    (level, cell) entry is written by one block, without atomics. Pixels
-//    beyond grid_rows*cell_l x grid_cols*cell_l belong to no cell. No dense
-//    map is written. The masked map holds no NaN (a NaN score never passes
-//    the >= of the NMS), so neither do the cell maxima.
-//  * detect_select_kernel (kernel B), blocks of 16 cells: every block
-//    merges the cell maxima of all levels in level order with strict > (the
-//    lower level keeps ties; a cell with no corner keeps u = v = 0, level 0),
-//    applies score > min_response (else -inf) and keeps the gated scores and
-//    the winning levels in shared memory (5 bytes a cell); then a warp ranks
-//    one cell as a stable descending sort does (rank = cells with a greater
-//    score + cells with an equal score and a lower index; the lanes stride
-//    over the scores four a load, without a branch, and add their counts) and,
-//    if the rank is below k = min(num_features, n_cells), writes that
-//    keypoint slot; block 0 zeroes the padding above k. Ranks are distinct,
-//    so every slot has one writer.
+//    costs no host read. After tile_scores it applies the border gate and,
+//    for each cell of the tile (the 32x16 tile must be a whole number of
+//    cells), finds the maximum and its first index in the cell's row-major
+//    order (strict >, so an all -inf cell gives index 0, as argmax does). A
+//    cell lies in exactly one tile, so each (level, cell) entry is written by
+//    one block, without atomics. Pixels beyond rows*cell x cols*cell belong
+//    to no cell. No dense map is written. The masked map holds no NaN (a NaN
+//    score never passes the >= of the NMS), so neither do the cell maxima.
+//    With subpixel offsets the same thread writes the parabola offsets at
+//    the cell's winning pixel from the raw scores still in shared memory
+//    (the tile keeps a 1-pixel halo; neighbours clamped into the level).
+//    The half-sample merge puts a cell with no corner at pixel (0, 0) of
+//    level 0, so the block holding that pixel writes its offsets too.
+//  * detect_select_kernel (kernel B, half-sample), blocks of 16 cells: every
+//    block merges the cell maxima of all levels in level order with strict >
+//    (the lower level keeps ties; a cell with no corner keeps u = v = 0,
+//    level 0), applies score > min_response (else -inf) and keeps the gated
+//    scores and the winning levels in shared memory (5 bytes a cell); then a
+//    warp ranks one cell as a stable descending sort does (rank = cells with
+//    a greater score + cells with an equal score and a lower index; the
+//    lanes stride over the scores four a load, without a branch, and add
+//    their counts) and, if the rank is below k = min(num_features, n_cells),
+//    writes that keypoint slot, moved by its winning level's offsets scaled
+//    by 1 << level when asked; block 0 zeroes the padding above k. Ranks are
+//    distinct, so every slot has one writer.
 //    Counting is n_cells^2 comparisons (1.4 M at 640x480) of ~4 operations:
 //    ~25 us of one SM's time, so it is spread over 75 blocks; each
 //    pays the merge (three L2 round trips) again. One block of 1,024 threads
@@ -56,6 +72,14 @@
 //    NaN: a NaN maximum never wins the merge (NaN > x is false, in the plain
 //    version too), so the cell keeps what the other levels gave it and the
 //    ranking never sees a NaN.
+//  * detect_rank_kernel (kernel C, x1.2), blocks of 16 cells of one level:
+//    the block loads the level's ungated cell maxima, a warp ranks one cell
+//    among them by the same count and, below the level's quota, writes slot
+//    first_slot + rank in level pixels (with the offsets), valid where the
+//    maximum is finite and above the gate. Counting is the sum of the
+//    levels' n_l^2, 2.7 M comparisons at 640x480, over 230 blocks. The
+//    levels' slots come out in level order; the caller scales each slot to
+//    level 0 by its level's f32(1.2^l).
 //
 // One tile shape serves every level: the whole-image / row-tiled split of
 // the Pallas version existed only for the TPU's VMEM.
@@ -73,18 +97,14 @@
 // the NMS runs over the dense score with -inf outside the image, as
 // _detect_core does (pallas_kernels.py:253-265). Every kernel takes it as a
 // flag.
-// The dense kernel serves the ORB x1.2 scale space (one launch per level,
-// fast.detect_keypoints_level) and subpixel refinement (its raw map); it
-// reads the FAST threshold from device memory like kernel A, so a threshold
-// that the batched tracker evolves on the device is never read back.
-// Kernel B computes the final response gate from that same device threshold:
-// with the FAST gate, (thr * thr) * gate_scale, gate_scale = min_response *
-// (1 / cfg threshold)^2 in f32: what XLA compiles the JAX package's
-// min_response * (thr / cfg threshold)^2 into (frontend/frame.py:103-106);
-// without it, min_response.
-// Built with -fmad=false and written in the plain version's operation order,
-// so the maps round exactly like detect_score_map_ref and the keypoints
-// equal detect_keypoints_ref's bit for bit.
+// Kernels B and C compute the final response gate from the device
+// threshold: with the FAST gate, (thr * thr) * gate_scale, gate_scale =
+// min_response * (1 / cfg threshold)^2 in f32: what XLA compiles the JAX
+// package's min_response * (thr / cfg threshold)^2 into
+// (frontend/frame.py:103-106); without it, min_response.
+// Built with -fmad=false and written in the plain versions' operation order,
+// so the maps, the offsets and the keypoints round exactly like
+// detect_score_map_ref, detect_keypoints_ref and detect_keypoints_scaled_ref.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -257,21 +277,67 @@ detect_kernel(const float* __restrict__ img, int h, int w,
 
 constexpr int kMaxLevels = 8;
 
-// Level l covers blocks first_block[l] .. first_block[l + 1] - 1, tiles_x[l]
-// tiles a row.
+// Level l: an h x w image whose cells of cell x cell pixels form a rows x cols
+// grid, written at entries first_cell[l] .. first_cell[l + 1] - 1 by kernel A's
+// blocks first_block[l] .. first_block[l + 1] - 1 (tiles_x tiles a row).
+// Border gate: pixel (x, y) takes part iff (x << bshift, y << bshift) lies at
+// least min_border inside a bh x bw frame. The half-sample pyramid: cell =
+// cell_size >> l, the level-0 grid, bshift = l and the level-0 frame; the x1.2
+// scale space: cell = cell_size, the level's own grid, bshift = 0 and its own
+// frame. Kernel C ranks level l's cells into slots first_slot[l] ..
+// first_slot[l] + quota[l] - 1 with blocks first_rank_block[l] .. .
 struct LevelTable {
   const float* img[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
+  int cell[kMaxLevels];
+  int rows[kMaxLevels];
+  int cols[kMaxLevels];
   int tiles_x[kMaxLevels];
+  int bshift[kMaxLevels];
+  int bh[kMaxLevels];
+  int bw[kMaxLevels];
+  int quota[kMaxLevels];
+  int first_slot[kMaxLevels];
+  int first_cell[kMaxLevels + 1];
   int first_block[kMaxLevels + 1];
+  int first_rank_block[kMaxLevels + 1];
   int n_levels;
+  int zero_pair;   // also write the offsets of pixel (0, 0) of level 0 at entry first_cell[n_levels]
 };
+
+// The level whose range of `first` holds block b (levels without blocks are
+// passed over).
+__device__ __forceinline__ int level_of(const int* first, int n_levels, int b) {
+  int lvl = 0;
+  while (lvl + 1 < n_levels && b >= first[lvl + 1]) ++lvl;
+  return lvl;
+}
+
+// 1-D quadratic-peak offset in [-0.5, 0.5] from three samples, in the plain
+// version's operation order (fast._parabola_offset); a NaN passes through.
+__device__ __forceinline__ float parabola_offset(float sm, float sc, float sp) {
+  const float denom = sm + sp - 2.0f * sc;
+  const float off = fabsf(denom) > 1e-12f ? 0.5f * (sm - sp) / denom : 0.0f;
+  return off < -0.5f ? -0.5f : (off > 0.5f ? 0.5f : off);
+}
+
+// (ox, oy) at pixel (px, py) of an h x w level from the raw scores of the
+// tile at (x0, y0) (1-pixel halo), neighbours clamped into the level.
+__device__ __forceinline__ float2 tile_offsets(const TileSmem& s, int px, int py, int h,
+                                               int w, int x0, int y0) {
+  const int um = px - 1 < 0 ? 0 : px - 1, up = px + 1 > w - 1 ? w - 1 : px + 1;
+  const int vm = py - 1 < 0 ? 0 : py - 1, vp = py + 1 > h - 1 ? h - 1 : py + 1;
+  const int bx = px - x0 + 1, by = py - y0 + 1;
+  const float c = s.score[by][bx];
+  return make_float2(parabola_offset(s.score[by][um - x0 + 1], c, s.score[by][up - x0 + 1]),
+                     parabola_offset(s.score[vm - y0 + 1][bx], c, s.score[vp - y0 + 1][bx]));
+}
 
 __global__ void __launch_bounds__(TW * TH)
 detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_gate,
-                    int cell_size, int grid_rows, int grid_cols, int min_border,
-                    float* __restrict__ cell_max, int* __restrict__ cell_arg) {
+                    int min_border, float* __restrict__ cell_max, int* __restrict__ cell_arg,
+                    float2* __restrict__ cell_off) {
   __shared__ TileSmem s;
   __shared__ float s_out[TH][TW];     // gated masked scores of the tile
   __shared__ float s_rmax[TH][TW];    // [row][cell column]: best of the cell's row
@@ -282,22 +348,22 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_
   __syncthreads();
   const float thr = s_thr;
 
-  int lvl = 0;
-  while (lvl + 1 < tab.n_levels && (int)blockIdx.x >= tab.first_block[lvl + 1]) ++lvl;
+  const int lvl = level_of(tab.first_block, tab.n_levels, blockIdx.x);
   const int tile = blockIdx.x - tab.first_block[lvl];
   const int x0 = (tile % tab.tiles_x[lvl]) * TW;
   const int y0 = (tile / tab.tiles_x[lvl]) * TH;
-  const int w0 = tab.w[0], h0 = tab.h[0];
-  const int cell_l = cell_size >> lvl;
+  const int h = tab.h[lvl], w = tab.w[lvl];
+  const int cell_l = tab.cell[lvl];
 
   float m, r;
-  tile_scores(tab.img[lvl], tab.h[lvl], tab.w[lvl], thr, fast_gate != 0, x0, y0, s, m, r);
+  tile_scores(tab.img[lvl], h, w, thr, fast_gate != 0, x0, y0, s, m, r);
 
-  // border gate in level-0 coordinates
+  // border gate in the level's frame
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int X = (x0 + tx) << lvl, Y = (y0 + ty) << lvl;
-  const bool inb = X >= min_border && X < w0 - min_border
-                && Y >= min_border && Y < h0 - min_border;
+  const int bs = tab.bshift[lvl];
+  const int X = (x0 + tx) << bs, Y = (y0 + ty) << bs;
+  const bool inb = X >= min_border && X < tab.bw[lvl] - min_border
+                && Y >= min_border && Y < tab.bh[lvl] - min_border;
   s_out[ty][tx] = inb ? m : -INFINITY;
   __syncthreads();
 
@@ -334,12 +400,21 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_
       }
     }
     const int cy = y0 / cell_l + cyl, cx = x0 / cell_l + cxl;
-    if (cy < grid_rows && cx < grid_cols) {
-      const int idx = lvl * grid_rows * grid_cols + cy * grid_cols + cx;
+    if (cy < tab.rows[lvl] && cx < tab.cols[lvl]) {
+      const int idx = tab.first_cell[lvl] + cy * tab.cols[lvl] + cx;
       cell_max[idx] = best;
       cell_arg[idx] = arg;
+      // the parabola offsets at the winning pixel (the cell's first pixel
+      // for a cell with no corner), on the raw map still in shared memory
+      if (cell_off != nullptr)
+        cell_off[idx] = tile_offsets(s, cx * cell_l + arg % cell_l, cy * cell_l + arg / cell_l,
+                                     h, w, x0, y0);
     }
   }
+  // the half-sample merge puts a cell with no corner on any level at pixel
+  // (0, 0) of level 0: the block holding that pixel writes its offsets too
+  if (cell_off != nullptr && tab.zero_pair && lvl == 0 && tile == 0 && tid == 0)
+    cell_off[tab.first_cell[tab.n_levels]] = tile_offsets(s, 0, 0, h, w, 0, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -350,13 +425,44 @@ constexpr int kSelThreads = 512;
 constexpr int kSelCells = kSelThreads / 32;           // cells a block ranks: a warp each
 constexpr int kNoCorner = 255;
 
+// The rank of score si at index i among the n_pad scores in shared memory
+// (padded with -inf to a multiple of 32) as a stable descending sort places
+// it: the scores greater, plus the equal ones at a lower index. Called by
+// a whole warp; every lane returns the rank. The lanes stride over the
+// scores four a load, without a branch (the -inf padding lies above every
+// index and counts for nobody).
+__device__ __forceinline__ int stable_rank(const float* s_scores, int n_pad, float si, int i) {
+  const float4* scores = reinterpret_cast<const float4*>(s_scores);
+  const int lane = threadIdx.x & 31;
+  int rank = 0;
+#pragma unroll 2
+  for (int q = lane; q < n_pad / 4; q += 32) {
+    const float4 v = scores[q];
+    const int j = 4 * q;
+    rank += (int)(v.x > si) + ((int)(v.x == si) & (int)(j < i));
+    rank += (int)(v.y > si) + ((int)(v.y == si) & (int)(j + 1 < i));
+    rank += (int)(v.z > si) + ((int)(v.z == si) & (int)(j + 2 < i));
+    rank += (int)(v.w > si) + ((int)(v.w == si) & (int)(j + 3 < i));
+  }
+  return __reduce_add_sync(0xffffffffu, rank);
+}
+
+// The final response gate: scaled with the device threshold under the FAST
+// gate, else min_response.
+__device__ __forceinline__ float final_gate(const float* thr_ptr, int scale_gate,
+                                            float gate_scale, float min_response) {
+  if (!scale_gate) return min_response;
+  const float t = *thr_ptr;
+  return (t * t) * gate_scale;
+}
+
 __global__ void __launch_bounds__(kSelThreads)
 detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__ cell_arg,
-                     int n_levels, int n_cells, int grid_cols, int cell_size,
-                     const float* __restrict__ thr_ptr, int scale_gate, float gate_scale,
-                     float min_response_cfg, int num_features, float* __restrict__ uv,
-                     int* __restrict__ level_out, float* __restrict__ score_out,
-                     unsigned char* __restrict__ valid_out) {
+                     const float2* __restrict__ cell_off, int n_levels, int n_cells,
+                     int grid_cols, int cell_size, const float* __restrict__ thr_ptr,
+                     int scale_gate, float gate_scale, float min_response_cfg,
+                     int num_features, float* __restrict__ uv, int* __restrict__ level_out,
+                     float* __restrict__ score_out, unsigned char* __restrict__ valid_out) {
   // gated merged score per cell, padded with -inf to a multiple of 32 cells,
   // then the winning level per cell
   extern __shared__ float4 s_mem[];
@@ -365,12 +471,7 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
   unsigned char* s_lvl = reinterpret_cast<unsigned char*>(s_sel + n_pad);
   const int tid = threadIdx.x;
   const int k = num_features < n_cells ? num_features : n_cells;
-  // the response gate, scaled with the device threshold under the FAST gate
-  float min_response = min_response_cfg;
-  if (scale_gate) {
-    const float t = *thr_ptr;
-    min_response = (t * t) * gate_scale;
-  }
+  const float min_response = final_gate(thr_ptr, scale_gate, gate_scale, min_response_cfg);
 
   // every block merges and gates all cells (a few thousand L2 reads, a cell's
   // levels loaded together), then ranks its own 16
@@ -400,45 +501,145 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
     }
   __syncthreads();
 
-  // rank among all cells: a greater score, or an equal one at a lower index;
-  // a warp ranks one cell, its lanes striding over the (padded) scores four a
-  // load (the -inf padding lies above every index and counts for nobody)
+  // a warp ranks one cell among all cells
   const int i = blockIdx.x * kSelCells + (tid >> 5);
-  const int lane = tid & 31;
   if (i >= n_cells) return;                  // whole warps leave
   const float si = s_sel[i];
-  const float4* scores = reinterpret_cast<const float4*>(s_sel);
-  int rank = 0;
-#pragma unroll 2
-  for (int q = lane; q < n_pad / 4; q += 32) {
-    const float4 v = scores[q];
-    const int j = 4 * q;
-    rank += (int)(v.x > si) + ((int)(v.x == si) & (int)(j < i));
-    rank += (int)(v.y > si) + ((int)(v.y == si) & (int)(j + 1 < i));
-    rank += (int)(v.z > si) + ((int)(v.z == si) & (int)(j + 2 < i));
-    rank += (int)(v.w > si) + ((int)(v.w == si) & (int)(j + 3 < i));
-  }
-  rank = __reduce_add_sync(0xffffffffu, rank);
-  if (lane != 0 || rank >= k) return;
+  const int rank = stable_rank(s_sel, n_pad, si, i);
+  if ((tid & 31) != 0 || rank >= k) return;
 
   // the winner of cell i, in level-0 pixel coordinates; a cell with no
-  // corner keeps u = v = 0 and level 0
+  // corner keeps u = v = 0 and level 0. With offsets, the winner moves by
+  // its level's, scaled to level 0 (the no-corner cell by those of pixel
+  // (0, 0) of level 0, kernel A's extra entry).
   int level = s_lvl[i];
   int u = 0, v = 0;
+  float2 off = make_float2(0.0f, 0.0f);
   if (level == kNoCorner) {
     level = 0;
+    if (cell_off != nullptr) off = cell_off[n_levels * n_cells];
   } else {
     const int cell_l = cell_size >> level;
     const int arg = cell_arg[level * n_cells + i];
     u = ((i % grid_cols) * cell_l + arg % cell_l) << level;
     v = ((i / grid_cols) * cell_l + arg / cell_l) << level;
+    if (cell_off != nullptr) off = cell_off[level * n_cells + i];
   }
   const bool ok = si > min_response;         // -inf where the cell failed the gate
-  uv[2 * rank] = (float)u;
-  uv[2 * rank + 1] = (float)v;
+  float fu = (float)u, fv = (float)v;
+  if (cell_off != nullptr) {
+    const float scale = (float)(1 << level);
+    fu = fu + off.x * scale;
+    fv = fv + off.y * scale;
+  }
+  uv[2 * rank] = fu;
+  uv[2 * rank + 1] = fv;
   level_out[rank] = level;
   score_out[rank] = ok ? si : 0.0f;
   valid_out[rank] = ok ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// kernel C: the per-level selection of the x1.2 scale space
+// ---------------------------------------------------------------------------
+
+// Blocks of 16 cells of one level: the block loads the level's cell maxima
+// (ungated, padded with -inf), a warp ranks one cell among them as a stable
+// descending sort does and, below the level's quota, writes slot
+// first_slot + rank: uv in level pixels (plus the offsets), valid = finite
+// and above the gate, score = valid ? maximum : 0, level l. The level's
+// first block zeroes its slots from n_l to the quota (invalid, level l). An
+// -inf cell ranks by its index and keeps its cell's first pixel.
+__global__ void __launch_bounds__(kSelThreads)
+detect_rank_kernel(LevelTable tab, const float* __restrict__ cell_max,
+                   const int* __restrict__ cell_arg, const float2* __restrict__ cell_off,
+                   const float* __restrict__ thr_ptr, int scale_gate, float gate_scale,
+                   float min_response_cfg, float* __restrict__ uv,
+                   int* __restrict__ level_out, float* __restrict__ score_out,
+                   unsigned char* __restrict__ valid_out) {
+  extern __shared__ float4 s_mem[];
+  float* s_max = reinterpret_cast<float*>(s_mem);
+  const int tid = threadIdx.x;
+  const int lvl = level_of(tab.first_rank_block, tab.n_levels, blockIdx.x);
+  const int chunk = blockIdx.x - tab.first_rank_block[lvl];
+  const int n = tab.rows[lvl] * tab.cols[lvl];
+  const int n_pad = (n + 31) & ~31;
+  const int quota = tab.quota[lvl];
+  const int slot0 = tab.first_slot[lvl];
+  const int first = tab.first_cell[lvl];
+  const float min_response = final_gate(thr_ptr, scale_gate, gate_scale, min_response_cfg);
+
+  for (int i = tid; i < n_pad; i += kSelThreads)
+    s_max[i] = i < n ? cell_max[first + i] : -INFINITY;
+  if (chunk == 0)
+    for (int r = n + tid; r < quota; r += kSelThreads) {        // padding slots
+      const int slot = slot0 + r;
+      uv[2 * slot] = 0.0f;
+      uv[2 * slot + 1] = 0.0f;
+      level_out[slot] = lvl;
+      score_out[slot] = 0.0f;
+      valid_out[slot] = 0;
+    }
+  __syncthreads();
+
+  const int i = chunk * kSelCells + (tid >> 5);
+  if (i >= n) return;                        // whole warps leave
+  const float si = s_max[i];
+  const int rank = stable_rank(s_max, n_pad, si, i);
+  if ((tid & 31) != 0 || rank >= quota) return;
+
+  const int cell = tab.cell[lvl], cols = tab.cols[lvl];
+  const int arg = cell_arg[first + i];
+  float fu = (float)((i % cols) * cell + arg % cell);
+  float fv = (float)((i / cols) * cell + arg / cell);
+  if (cell_off != nullptr) {
+    const float2 off = cell_off[first + i];
+    fu = fu + off.x;
+    fv = fv + off.y;
+  }
+  const bool ok = isfinite(si) && si > min_response;
+  const int slot = slot0 + rank;
+  uv[2 * slot] = fu;
+  uv[2 * slot + 1] = fv;
+  level_out[slot] = lvl;
+  score_out[slot] = ok ? si : 0.0f;
+  valid_out[slot] = ok ? 1 : 0;
+}
+
+// Kernel A's blocks and the table's entries from each level's cell and grid;
+// false where a level's cells are not whole in the tile or its grid does not
+// fit its image.
+bool plan_tiles(LevelTable& tab) {
+  int blocks = 0, cells = 0;
+  for (int l = 0; l < tab.n_levels; ++l) {
+    const int c = tab.cell[l];
+    const bool empty = tab.rows[l] == 0 || tab.cols[l] == 0;
+    if (!empty && (c < 1 || TW % c != 0 || TH % c != 0 || tab.h[l] < tab.rows[l] * c ||
+                   tab.w[l] < tab.cols[l] * c))
+      return false;
+    tab.tiles_x[l] = empty ? 0 : (tab.cols[l] * c + TW - 1) / TW;
+    tab.first_block[l] = blocks;
+    tab.first_cell[l] = cells;
+    blocks += empty ? 0 : tab.tiles_x[l] * ((tab.rows[l] * c + TH - 1) / TH);
+    cells += tab.rows[l] * tab.cols[l];
+  }
+  for (int l = tab.n_levels; l <= kMaxLevels; ++l) {
+    tab.first_block[l] = blocks;
+    tab.first_cell[l] = cells;
+  }
+  for (int l = tab.n_levels; l < kMaxLevels; ++l) {
+    tab.img[l] = nullptr;
+    tab.h[l] = tab.w[l] = tab.cell[l] = tab.rows[l] = tab.cols[l] = tab.tiles_x[l] = 0;
+    tab.bshift[l] = tab.bh[l] = tab.bw[l] = tab.quota[l] = tab.first_slot[l] = 0;
+  }
+  return true;
+}
+
+// Dynamic shared memory of a ranking block beyond 48 KB needs the attribute.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -454,62 +655,118 @@ extern "C" int rgbd_detect_score_map(const void* img, int h, int w, const void* 
   return (int)cudaGetLastError();
 }
 
-// The whole detection on one stream: kernel A over the tiles that cover the
-// cells of each level, then kernel B. thr: the FAST threshold, one float in
-// device memory; fast_gate 0 for the GFTT mode; scale_gate 1 to gate by
-// thr^2 * gate_scale on the device instead of min_response. imgs, hs, ws: host
-// arrays of n_levels
-// entries, level l of hs[l] x ws[l] pixels holding at least grid_rows x
-// grid_cols cells of (cell_size >> l)^2 pixels, each a divisor of the tile.
-// cell_max, cell_arg: (n_levels, grid_rows * grid_cols); uv (num_features, 2),
-// level, score, valid (num_features,).
+// The whole detection of the half-sample pyramid on one stream: kernel A over
+// the tiles that cover the cells of each level, then kernel B. thr: the FAST
+// threshold, one float in device memory; fast_gate 0 for the GFTT mode;
+// scale_gate 1 to gate by thr^2 * gate_scale on the device instead of
+// min_response. imgs, hs, ws: host arrays of n_levels entries, level l of
+// hs[l] x ws[l] pixels holding at least grid_rows x grid_cols cells of
+// (cell_size >> l)^2 pixels, each a divisor of the tile. cell_max, cell_arg:
+// (n_levels, grid_rows * grid_cols); cell_off (n_levels * grid_rows *
+// grid_cols + 1, 2) f32 with `subpixel`, else unused (null): the winners then
+// move by their level's parabola offsets. uv (num_features, 2), level,
+// score, valid (num_features,).
 extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, const int* ws,
                                      int n_levels, int cell_size, int grid_rows,
                                      int grid_cols, const void* thr, int fast_gate,
                                      int min_border, float min_response, int scale_gate,
-                                     float gate_scale, int num_features,
-                                     void* cell_max, void* cell_arg, void* uv, void* level,
-                                     void* score, void* valid, void* stream) {
+                                     float gate_scale, int num_features, int subpixel,
+                                     void* cell_max, void* cell_arg, void* cell_off, void* uv,
+                                     void* level, void* score, void* valid, void* stream) {
   const int n_cells = grid_rows * grid_cols;
   if (n_levels < 1 || n_levels > kMaxLevels || n_cells < 1 || num_features < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   LevelTable tab;
   tab.n_levels = n_levels;
-  int blocks = 0;
+  tab.zero_pair = subpixel ? 1 : 0;
   for (int l = 0; l < n_levels; ++l) {
-    const int cell_l = cell_size >> l;
-    if (cell_l < 1 || TW % cell_l != 0 || TH % cell_l != 0 ||
-        hs[l] < grid_rows * cell_l || ws[l] < grid_cols * cell_l)
-      return (int)cudaErrorInvalidValue;
     tab.img[l] = (const float*)imgs[l];
     tab.h[l] = hs[l];
     tab.w[l] = ws[l];
-    tab.tiles_x[l] = (grid_cols * cell_l + TW - 1) / TW;
-    tab.first_block[l] = blocks;
-    blocks += tab.tiles_x[l] * ((grid_rows * cell_l + TH - 1) / TH);
+    tab.cell[l] = cell_size >> l;
+    tab.rows[l] = grid_rows;
+    tab.cols[l] = grid_cols;
+    tab.bshift[l] = l;
+    tab.bh[l] = hs[0];
+    tab.bw[l] = ws[0];
+    tab.quota[l] = tab.first_slot[l] = 0;
+    if (tab.cell[l] < 1) return (int)cudaErrorInvalidValue;
   }
-  for (int l = n_levels; l <= kMaxLevels; ++l) tab.first_block[l] = blocks;
-  for (int l = n_levels; l < kMaxLevels; ++l) {
-    tab.img[l] = nullptr;
-    tab.h[l] = tab.w[l] = tab.tiles_x[l] = 0;
-  }
-  detect_cells_kernel<<<blocks, dim3(TW, TH), 0, st>>>(
-      tab, (const float*)thr, fast_gate, cell_size, grid_rows, grid_cols, min_border,
-      (float*)cell_max,
-      (int*)cell_arg);
+  if (!plan_tiles(tab)) return (int)cudaErrorInvalidValue;
+  float2* off = subpixel ? (float2*)cell_off : nullptr;
+  detect_cells_kernel<<<tab.first_block[kMaxLevels], dim3(TW, TH), 0, st>>>(
+      tab, (const float*)thr, fast_gate, min_border, (float*)cell_max, (int*)cell_arg, off);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
   const int bytes = ((n_cells + 31) & ~31) * (int)sizeof(float) + n_cells;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        detect_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(detect_select_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
   detect_select_kernel<<<(n_cells + kSelCells - 1) / kSelCells, kSelThreads, bytes, st>>>(
-      (const float*)cell_max, (const int*)cell_arg, n_levels, n_cells, grid_cols, cell_size,
-      (const float*)thr, scale_gate, gate_scale, min_response, num_features, (float*)uv,
-      (int*)level, (float*)score,
+      (const float*)cell_max, (const int*)cell_arg, off, n_levels, n_cells, grid_cols,
+      cell_size, (const float*)thr, scale_gate, gate_scale, min_response, num_features,
+      (float*)uv, (int*)level, (float*)score, (unsigned char*)valid);
+  return (int)cudaGetLastError();
+}
+
+// The whole detection of the x1.2 scale space on one stream: kernel A over
+// the tiles of every level (each level's own grid of cell_size cells and its
+// own border), then kernel C, each level's cells ranked into its quota of
+// slots. imgs, hs, ws, quotas: host arrays of n_levels entries; a level with
+// quota <= 0 is not read and has no slots. thr, fast_gate, scale_gate,
+// gate_scale, min_response: as rgbd_detect_keypoints. cell_max, cell_arg:
+// (sum of the levels' cells,) in level order; cell_off (that, 2) f32 with
+// `subpixel`, else unused (null). uv (N, 2) in level pixels, level, score,
+// valid (N,), N = the sum of the positive quotas, the levels' slots in
+// level order.
+extern "C" int rgbd_detect_scaled(const void* const* imgs, const int* hs, const int* ws,
+                                  const int* quotas, int n_levels, int cell_size,
+                                  const void* thr, int fast_gate, int min_border,
+                                  float min_response, int scale_gate, float gate_scale,
+                                  int subpixel, void* cell_max, void* cell_arg,
+                                  void* cell_off, void* uv, void* level, void* score,
+                                  void* valid, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || cell_size < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  LevelTable tab;
+  tab.n_levels = n_levels;
+  tab.zero_pair = 0;
+  int slots = 0, rank_blocks = 0, max_cells = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    const bool on = quotas[l] > 0;
+    tab.img[l] = (const float*)imgs[l];
+    tab.h[l] = hs[l];
+    tab.w[l] = ws[l];
+    tab.cell[l] = cell_size;
+    tab.rows[l] = on ? hs[l] / cell_size : 0;
+    tab.cols[l] = on ? ws[l] / cell_size : 0;
+    tab.bshift[l] = 0;
+    tab.bh[l] = hs[l];
+    tab.bw[l] = ws[l];
+    tab.quota[l] = on ? quotas[l] : 0;
+    tab.first_slot[l] = slots;
+    tab.first_rank_block[l] = rank_blocks;
+    const int n = tab.rows[l] * tab.cols[l];
+    slots += tab.quota[l];
+    rank_blocks += on ? (n > kSelCells ? (n + kSelCells - 1) / kSelCells : 1) : 0;
+    max_cells = n > max_cells ? n : max_cells;
+  }
+  for (int l = n_levels; l <= kMaxLevels; ++l) tab.first_rank_block[l] = rank_blocks;
+  if (slots < 1 || !plan_tiles(tab)) return (int)cudaErrorInvalidValue;
+  float2* off = subpixel ? (float2*)cell_off : nullptr;
+  if (tab.first_block[kMaxLevels] > 0) {
+    detect_cells_kernel<<<tab.first_block[kMaxLevels], dim3(TW, TH), 0, st>>>(
+        tab, (const float*)thr, fast_gate, min_border, (float*)cell_max, (int*)cell_arg, off);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
+  }
+  const int bytes = ((max_cells + 31) & ~31) * (int)sizeof(float);
+  const cudaError_t e = allow_smem(detect_rank_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  detect_rank_kernel<<<rank_blocks, kSelThreads, bytes, st>>>(
+      tab, (const float*)cell_max, (const int*)cell_arg, off, (const float*)thr, scale_gate,
+      gate_scale, min_response, (float*)uv, (int*)level, (float*)score,
       (unsigned char*)valid);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from rgbdslam_tpu_torch.device import resolve_device
 from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC, Camera, undistort_normalized
 
 ROOM_HALF = (3.0, 2.0, 3.0)           # box half-extents (x, y, z)
@@ -69,14 +70,15 @@ def texture(p: torch.Tensor) -> torch.Tensor:
             + 0.18 * _blocky_noise(p, 11.0, 3) + 0.07 * _blocky_noise(p, 23.0, 4))
 
 
-def render_frame(cam: Camera, Twc, device="cpu", room_half=None, boxes=None
+def render_frame(cam: Camera, Twc, device="cuda", room_half=None, boxes=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ray-cast one frame of the box room: (gray [H, W] f32 in [0, 255],
-    depth [H, W] f32 meters along camera z) on `device`. Twc:
+    depth [H, W] f32 meters along camera z) on `device` (the card unless
+    the caller asks for the CPU; a CUDA request without a card raises). Twc:
     camera-to-world (4, 4). room_half: shell half-extents (default
     ROOM_HALF); boxes: optional (Nb, 2, 3) solid boxes [min, max] inside the
     shell (the multi-room world)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     Twc = torch.as_tensor(np.asarray(Twc, dtype=np.float32), device=dev)
     h, w = cam.height, cam.width
     vv, uu = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
@@ -235,7 +237,8 @@ def apply_sensor_noise(cam: Camera, gray: torch.Tensor, depth: torch.Tensor,
 
 class SyntheticDataset:
     """Dataset over the renderer: grab(i) -> (timestamp, gray [H,W] f32,
-    depth [H,W] f32 meters) as tensors on `device`; ground truth in
+    depth [H,W] f32 meters) as tensors on `device` (the card unless the
+    caller asks for the CPU); ground truth in
     `.poses_twc`. With `noise`, frames carry the Kinect-class noise of
     `apply_sensor_noise`, drawn from a generator seeded by (seed, i): the
     same frame is the same noisy frame on every call."""
@@ -244,12 +247,12 @@ class SyntheticDataset:
 
     def __init__(self, n_frames: int = 120, cam: Camera = SYNTHETIC,
                  trajectory: str = "orbit", fps: float = 30.0,
-                 loops: float = 1.0, noise: bool = False, seed: int = 0, device="cpu"):
+                 loops: float = 1.0, noise: bool = False, seed: int = 0, device="cuda"):
         self.cam = cam
         self.fps = fps
         self.noise = noise
         self._seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._room_half = None
         self._boxes = None
         if trajectory == "orbit":

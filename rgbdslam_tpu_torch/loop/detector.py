@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from rgbdslam_tpu_torch.config import LoopConfig
+from rgbdslam_tpu_torch.device import resolve_device
 from rgbdslam_tpu_torch.frontend.frame import to_device_rows
 from rgbdslam_tpu_torch.loop.bow import bow_scores, bow_vector
 from rgbdslam_tpu_torch.loop.codebook import train_codebook, train_codebook_float
@@ -28,11 +29,11 @@ from rgbdslam_tpu_torch.loop.codebook import train_codebook, train_codebook_floa
 
 class LoopDetector:
     def __init__(self, cfg: LoopConfig = LoopConfig(), max_keyframes: int = 512,
-                 train_after: int = 5, seed: int = 0, device="cpu"):
+                 train_after: int = 5, seed: int = 0, device="cuda"):
         # `seed` kept for API parity; codebook training is deterministic
         self.cfg = cfg
         self.train_after = train_after
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.words: Optional[torch.Tensor] = None     # (V, 8) int32 or (V, D) f32
         self.idf: Optional[torch.Tensor] = None       # (V,) f32 on `device`
         self.bow_db = np.zeros((max_keyframes, cfg.vocab_size), dtype=np.float32)

@@ -49,9 +49,11 @@ def save_vocabulary(path: str, words, idf) -> None:
                         idf=torch.as_tensor(idf).cpu().numpy())
 
 
-def load_vocabulary(path: str, device="cpu"):
-    """(words, idf (V,) f32) on `device`: words (V, 8) int32 bit patterns of
-    a binary vocabulary, or (V, D) f32 of a float one."""
+def load_vocabulary(path: str, device="cuda"):
+    """(words, idf (V,) f32) on `device` (the card unless the caller asks
+    for the CPU): words (V, 8) int32 bit patterns of a binary vocabulary, or
+    (V, D) f32 of a float one."""
+    device = resolve_device(device)
     with np.load(path) as d:
         words, idf = np.asarray(d["words"]), np.asarray(d["idf"], dtype=np.float32)
     return to_device_rows(words, device), torch.as_tensor(idf, device=device)

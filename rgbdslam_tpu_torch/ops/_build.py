@@ -44,10 +44,15 @@ SIGNATURES = {
     "rgbd_detect_score_map": (_P, _I, _I, _P, _I, _P, _P, _P),
     # imgs, hs, ws (host arrays), n_levels, cell_size, grid_rows, grid_cols,
     # thr (device pointer), fast_gate, min_border, min_response, scale_gate,
-    # gate_scale, num_features, cell_max, cell_arg, uv, level, score, valid,
-    # stream
-    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _I, _F, _I,
-                              _P, _P, _P, _P, _P, _P, _P),
+    # gate_scale, num_features, subpixel, cell_max, cell_arg, cell_off, uv,
+    # level, score, valid, stream
+    "rgbd_detect_keypoints": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _I, _F, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P, _P),
+    # imgs, hs, ws, quotas (host arrays), n_levels, cell_size, thr (device
+    # pointer), fast_gate, min_border, min_response, scale_gate, gate_scale,
+    # subpixel, cell_max, cell_arg, cell_off, uv, level, score, valid, stream
+    "rgbd_detect_scaled": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _I, _F, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P),
     # d1, d2, v1, v2, n, m, batch, batched1, batched2, best_idx, best_dist,
     # second_dist, col_best_row, stream
     "rgbd_hamming_match_2nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -5,7 +5,8 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
 |--------------------------|---------------------------------------|----------------------------|
 | detect.cu   (K1, dense; GFTT mode too) | detect_score_map, 320-397 | detect_score_map_ref |
-| detect.cu   (K1, whole detection) | the same, with the rest of detect_keypoints | ops.fast.detect_keypoints_ref |
+| detect.cu   (K1, whole half-sample detection) | the same, with the rest of detect_keypoints | ops.fast.detect_keypoints_ref |
+| detect.cu   (K1, whole x1.2 detection) | the same, with detect_keypoints_level on every level | ops.fast.detect_keypoints_scaled_ref |
 | hamming.cu  (K2)         | hamming_match_2nn, 87-150             | hamming_match_2nn_ref      |
 | hamming.cu  (K2's gates) | the gates XLA fused behind it         | match_gates_ref            |
 | mahal.cu    (K3)         | mahal_hypothesis_scores, 480-526      | mahal_hypothesis_scores_ref|
@@ -15,15 +16,16 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 
 The TPU kernels sat inside programs XLA fused around them; eager PyTorch
 launches every op, so on this card `detect_keypoints_fused` (the whole
-detection, two launches), `match_gated` (2-NN and gates, two launches),
+half-sample detection, subpixel offsets included, two launches),
+`detect_keypoints_scaled` (the whole x1.2 scale-space detection, every
+level, two launches), `match_gated` (2-NN and gates, two launches),
 `ransac_se3_fused` (the whole RANSAC, two launches) and `gicp_refine_fused`
 (loop, gate and fallback, one launch) are what the main paths call.
 `hamming_match_2nn` stays as the first of `match_gated`'s two launches. The
-dense K1 (`detect_score_map`) serves the ORB x1.2 scale space (one launch per
-level, `fast.detect_keypoints_level`) and subpixel refinement's raw maps.
-The direct counterpart of K3 (`mahal_hypothesis_scores`) and K5 are reached
-through their public entries (`mahal_hypothesis_scores`,
-`icp.gicp_normal_equations`) and lie on no main path.
+direct counterparts of K1 (`detect_score_map`, the dense maps of one level;
+also behind `fast.detect_keypoints_level`), of K3
+(`mahal_hypothesis_scores`) and K5 are reached through their public entries
+(those, `icp.gicp_normal_equations`) and lie on no main path.
 
 K2 and K3 take an optional leading batch dimension (the same launches
 whatever the batch): the keyframe backend verifies all its candidate
@@ -55,6 +57,7 @@ BIG = hamming.BIG_DIST
 LAUNCHES = {
     "detect_score_map": 0,
     "detect_keypoints_fused": 0,
+    "detect_keypoints_scaled": 0,
     "hamming_match_2nn": 0,
     "match_gates": 0,
     "mahal_hypothesis_scores": 0,
@@ -110,8 +113,8 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with cudaError {err}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +182,41 @@ def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
+def _detect_level_checks(entry: str, levels: List[torch.Tensor], cells) -> None:
+    """A detection's pyramid against the level table of csrc/detect.cu:
+    each level's cells whole in the 32x16 tile and its grid inside its image
+    (checked before the device), then f32 CUDA images."""
+    for lvl, (img, (cell_l, rows, cols)) in enumerate(zip(levels, cells)):
+        if cell_l < 1 or 32 % cell_l or 16 % cell_l:
+            raise ValueError(f"{entry}, level {lvl}: the 32x16 tile is not a whole number "
+                             f"of {cell_l}x{cell_l} cells")
+        if img.shape[0] < rows * cell_l or img.shape[1] < cols * cell_l:
+            raise ValueError(f"{entry}, level {lvl}: {tuple(img.shape)} pixels do not hold "
+                             f"{rows}x{cols} cells of {cell_l}x{cell_l}")
+    for lvl, img in enumerate(levels):
+        _check(img, f"pyramid[{lvl}]", torch.float32, (None, None))
+
+
+def _whole(entry: str, cell_size, min_border) -> None:
+    if int(cell_size) != cell_size or int(min_border) != min_border or cell_size < 1:
+        raise ValueError(f"{entry} takes a whole cell_size >= 1 and a whole min_border")
+
+
+def _level_count(entry: str, n_levels: int) -> None:
+    if n_levels > _DETECT_MAX_LEVELS:
+        raise ValueError(f"{entry} takes at most {_DETECT_MAX_LEVELS} pyramid levels, got "
+                         f"{n_levels}")
+
+
 def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
                            fast_threshold, min_response: float, min_border: int,
-                           use_fast_gate: bool = True, gate_threshold: Optional[float] = None):
-    """The whole keypoint detection in two launches of csrc/detect.cu (see
-    its header): kernel A finds the best corner of every grid cell on every
-    pyramid level, kernel B merges the levels, gates by `min_response`, ranks
-    the cells and writes the `num_features` keypoint slots.
+                           use_fast_gate: bool = True, gate_threshold: Optional[float] = None,
+                           subpixel: bool = False):
+    """The whole keypoint detection of the half-sample pyramid in two
+    launches of csrc/detect.cu (see its header): kernel A finds the best
+    corner of every grid cell on every pyramid level, kernel B merges the
+    levels, gates by `min_response`, ranks the cells and writes the
+    `num_features` keypoint slots.
 
     pyramid: the levels `build_pyramid` returns, (H >> l, W >> l) f32 CUDA
     each; levels whose cell (cell_size >> l) has no pixel are not read, as in
@@ -195,42 +226,36 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     mode (every pixel a candidate). gate_threshold: the configured FAST
     threshold when the response gate scales with the threshold (kernel B
     then gates by thr^2 * `fast.gate_scale` from the device threshold, as
-    `fast.response_gate`); None gates by min_response.
+    `fast.response_gate`); None gates by min_response. subpixel: kernel A
+    also writes the parabola offsets at every cell's winner, and kernel B
+    moves each slot by its winning level's, scaled to level 0.
 
     Returns (`fast.Keypoints`, (cell_max (L, n_cells) f32, cell_arg (L,
-    n_cells) int32)), what `fast.detect_select_ref` and `fast.detect_cells_ref`
-    return."""
-    if int(cell_size) != cell_size or int(min_border) != min_border or cell_size < 1:
-        raise ValueError("detect_keypoints_fused takes a whole cell_size >= 1 and a "
-                         "whole min_border")
+    n_cells) int32[, cell_off (L * n_cells + 1, 2) f32 with subpixel])), what
+    `fast.detect_select_ref` and `fast.detect_cells_ref` return."""
+    entry = "detect_keypoints_fused"
+    _whole(entry, cell_size, min_border)
     if num_features < 1 or not pyramid:
-        raise ValueError("detect_keypoints_fused needs at least one level and one slot")
+        raise ValueError(f"{entry} needs at least one level and one slot")
+    levels = pyramid[:fast.used_levels(len(pyramid), cell_size)]
+    L = len(levels)
+    _level_count(entry, L)
     h0, w0 = pyramid[0].shape
     grid_rows, grid_cols = h0 // cell_size, w0 // cell_size
     n_cells = grid_rows * grid_cols
-    levels = pyramid[:fast.used_levels(len(pyramid), cell_size)]
-    L = len(levels)
-    if L > _DETECT_MAX_LEVELS:
-        raise ValueError(f"detect_keypoints_fused takes at most {_DETECT_MAX_LEVELS} "
-                         f"pyramid levels, got {L}")
     if not 1 <= n_cells <= _DETECT_MAX_CELLS:
-        raise ValueError(f"detect_keypoints_fused ranks 1 to {_DETECT_MAX_CELLS} cells in "
-                         f"shared memory, got {n_cells}")
-    for lvl, img in enumerate(levels):
-        _check(img, f"pyramid[{lvl}]", torch.float32, (None, None))
-        cell_l = cell_size >> lvl
-        if 32 % cell_l or 16 % cell_l:
-            raise ValueError(f"level {lvl}: the 32x16 tile is not a whole number of "
-                             f"{cell_l}x{cell_l} cells")
-        if img.shape[0] < grid_rows * cell_l or img.shape[1] < grid_cols * cell_l:
-            raise ValueError(f"level {lvl}: {tuple(img.shape)} pixels do not hold "
-                             f"{grid_rows}x{grid_cols} cells of {cell_l}x{cell_l}")
+        raise ValueError(f"{entry} ranks 1 to {_DETECT_MAX_CELLS} cells in shared memory, "
+                         f"got {n_cells}")
+    _detect_level_checks(entry, levels, [(cell_size >> lvl, grid_rows, grid_cols)
+                                         for lvl in range(L)])
     dev = levels[0].device
     thr = _threshold_on(fast_threshold, dev)
     scale_gate = gate_threshold is not None
     k_gate = float(fast.gate_scale(min_response, gate_threshold)) if scale_gate else 0.0
     cell_max = torch.empty((L, n_cells), dtype=torch.float32, device=dev)
     cell_arg = torch.empty((L, n_cells), dtype=torch.int32, device=dev)
+    cell_off = (torch.empty((L * n_cells + 1, 2), dtype=torch.float32, device=dev)
+                if subpixel else None)
     uv = torch.empty((num_features, 2), dtype=torch.float32, device=dev)
     level = torch.empty((num_features,), dtype=torch.int32, device=dev)
     score = torch.empty((num_features,), dtype=torch.float32, device=dev)
@@ -240,11 +265,75 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     ws = (ctypes.c_int * L)(*[img.shape[1] for img in levels])
     _launch("rgbd_detect_keypoints", dev, imgs, hs, ws, L, int(cell_size), grid_rows,
             grid_cols, _ptr(thr), int(bool(use_fast_gate)), int(min_border),
-            float(min_response), int(scale_gate), k_gate,
-            int(num_features), _ptr(cell_max), _ptr(cell_arg),
-            _ptr(uv), _ptr(level), _ptr(score), _ptr(valid))
+            float(min_response), int(scale_gate), k_gate, int(num_features), int(subpixel),
+            _ptr(cell_max), _ptr(cell_arg), _ptr(cell_off), _ptr(uv), _ptr(level),
+            _ptr(score), _ptr(valid))
     LAUNCHES["detect_keypoints_fused"] += 1
-    return fast.Keypoints(uv=uv, level=level, score=score, valid=valid), (cell_max, cell_arg)
+    cells = (cell_max, cell_arg) + ((cell_off,) if subpixel else ())
+    return fast.Keypoints(uv=uv, level=level, score=score, valid=valid), cells
+
+
+def detect_keypoints_scaled(pyramid: List[torch.Tensor], quotas: List[int], cell_size: int,
+                            fast_threshold, min_response: float, min_border: int,
+                            use_fast_gate: bool = True, gate_threshold: Optional[float] = None,
+                            subpixel: bool = False):
+    """The whole detection of the x1.2 scale space in two launches of
+    csrc/detect.cu (see its header): kernel A in its x1.2 mode finds the
+    best corner of every cell_size cell of each level's own grid (the border
+    in the level's pixels; with `subpixel` the parabola offsets at the
+    winners), kernel C ranks each level's cells by their ungated maxima into
+    its `quotas[l]` slots and marks a slot valid where its maximum is finite
+    and above the gate.
+
+    pyramid: the levels `build_scaled_pyramid` returns, f32 CUDA; quotas:
+    `fast.level_quotas`, one per level (a level with quota <= 0 is not read
+    and has no slots). fast_threshold, use_fast_gate, gate_threshold: as
+    `detect_keypoints_fused`.
+
+    Returns (`fast.Keypoints` with the slots of the levels in level order,
+    uv in level pixels, (cell_max (C,) f32, cell_arg (C,) int32, cell_off
+    (C, 2) f32 or None)), what `fast.detect_scaled_select_ref` and
+    `fast.detect_scaled_cells_ref` return."""
+    entry = "detect_keypoints_scaled"
+    _whole(entry, cell_size, min_border)
+    _level_count(entry, len(pyramid))
+    if len(quotas) != len(pyramid):
+        raise ValueError(f"{entry}: {len(quotas)} quotas for {len(pyramid)} levels")
+    n_slots = sum(max(int(q), 0) for q in quotas)
+    if n_slots < 1:
+        raise ValueError(f"{entry} needs at least one slot")
+    grids = [(h // cell_size, w // cell_size) if q > 0 else (0, 0)
+             for (h, w), q in zip((p.shape for p in pyramid), quotas)]
+    n_max = max(r * c for r, c in grids)
+    if n_max > _DETECT_MAX_CELLS:
+        raise ValueError(f"{entry} ranks at most {_DETECT_MAX_CELLS} cells of a level in "
+                         f"shared memory, got {n_max}")
+    _detect_level_checks(entry, pyramid, [(int(cell_size), r, c) for r, c in grids])
+    L = len(pyramid)
+    dev = pyramid[0].device
+    thr = _threshold_on(fast_threshold, dev)
+    scale_gate = gate_threshold is not None
+    k_gate = float(fast.gate_scale(min_response, gate_threshold)) if scale_gate else 0.0
+    n_cells = sum(r * c for r, c in grids)
+    cell_max = torch.empty((n_cells,), dtype=torch.float32, device=dev)
+    cell_arg = torch.empty((n_cells,), dtype=torch.int32, device=dev)
+    cell_off = (torch.empty((n_cells, 2), dtype=torch.float32, device=dev)
+                if subpixel else None)
+    uv = torch.empty((n_slots, 2), dtype=torch.float32, device=dev)
+    level = torch.empty((n_slots,), dtype=torch.int32, device=dev)
+    score = torch.empty((n_slots,), dtype=torch.float32, device=dev)
+    valid = torch.empty((n_slots,), dtype=torch.bool, device=dev)
+    imgs = (ctypes.c_void_p * L)(*[img.data_ptr() for img in pyramid])
+    hs = (ctypes.c_int * L)(*[img.shape[0] for img in pyramid])
+    ws = (ctypes.c_int * L)(*[img.shape[1] for img in pyramid])
+    qs = (ctypes.c_int * L)(*[int(q) for q in quotas])
+    _launch("rgbd_detect_scaled", dev, imgs, hs, ws, qs, L, int(cell_size), _ptr(thr),
+            int(bool(use_fast_gate)), int(min_border), float(min_response), int(scale_gate),
+            k_gate, int(subpixel), _ptr(cell_max), _ptr(cell_arg), _ptr(cell_off), _ptr(uv),
+            _ptr(level), _ptr(score), _ptr(valid))
+    LAUNCHES["detect_keypoints_scaled"] += 1
+    return (fast.Keypoints(uv=uv, level=level, score=score, valid=valid),
+            (cell_max, cell_arg, cell_off))
 
 
 # ---------------------------------------------------------------------------

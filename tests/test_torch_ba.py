@@ -64,10 +64,10 @@ def test_local_ba_matches_jax(adaptive, with_edges):
         a, b, Z, w = _edges(Tcw_gt)
         j_edges = jba.BAEdges(a=jnp.asarray(a), b=jnp.asarray(b), Z=jnp.asarray(Z),
                               w=jnp.asarray(w))
-        t_edges = convert.ba_edges_from_numpy(a, b, Z, w)
+        t_edges = convert.ba_edges_from_numpy(a, b, Z, w, device="cpu")
     Tj, Xj, cj = jba.local_ba(JCAM, problem, jnp.asarray(fixed), 5, edges=j_edges,
                               adaptive=adaptive)
-    Tt, Xt, ct = tba.local_ba(TCAM, convert.ba_problem_from_numpy(problem),
+    Tt, Xt, ct = tba.local_ba(TCAM, convert.ba_problem_from_numpy(problem, device="cpu"),
                               torch.from_numpy(fixed), 5, edges=t_edges, adaptive=adaptive)
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0, atol=2e-5)
     np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=0, atol=5e-5)
@@ -104,7 +104,7 @@ def test_edge_residual_jacobians_match_jax():
 
 def test_reprojection_jacobians_match_jax():
     problem, _, _ = make_problem(np.random.default_rng(1))
-    tp = convert.ba_problem_from_numpy(problem)
+    tp = convert.ba_problem_from_numpy(problem, device="cpu")
     uj, Jcj, Jlj, sj = jba._reproj_jacobians(JCAM, problem.Tcw[problem.obs_kf],
                                              problem.Xw[:, None, :])
     ut, Jct, Jlt, st = tba._reproj_jacobians(TCAM, tp.Tcw[tp.obs_kf], tp.Xw[:, None, :])
@@ -126,7 +126,8 @@ def test_padded_keyframes_and_invalid_observations_stay_put():
     fixed[K:] = True
     jp = jba.BAProblem(**{n: jnp.asarray(v) for n, v in d.items()})
     Tj, Xj, _ = jba.local_ba(JCAM, jp, jnp.asarray(fixed), 4)
-    Tt, Xt, _ = tba.local_ba(TCAM, convert.ba_problem_from_numpy(d), torch.from_numpy(fixed), 4)
+    Tt, Xt, _ = tba.local_ba(TCAM, convert.ba_problem_from_numpy(d, device="cpu"),
+                             torch.from_numpy(fixed), 4)
     np.testing.assert_array_equal(Tt.numpy()[K:], np.tile(np.eye(4, dtype=np.float32),
                                                           (pad - K, 1, 1)))
     np.testing.assert_array_equal(Xt.numpy()[:5], d["Xw"][:5])
@@ -160,11 +161,11 @@ def test_ba_state_round_trip():
     """JAX BAProblem -> numpy -> the port -> numpy: the arrays come back
     equal; edges carry across with int64 indices."""
     problem, Tcw_gt, _ = make_problem(np.random.default_rng(3))
-    back = convert.ba_problem_to_numpy(convert.ba_problem_from_numpy(problem))
+    back = convert.ba_problem_to_numpy(convert.ba_problem_from_numpy(problem, device="cpu"))
     for name in convert.BA_PROBLEM_FIELDS:
         np.testing.assert_array_equal(back[name], np.asarray(getattr(problem, name)))
     a, b, Z, w = _edges(Tcw_gt)
-    e = convert.ba_edges_from_numpy(a, b, Z, w)
+    e = convert.ba_edges_from_numpy(a, b, Z, w, device="cpu")
     assert e.a.dtype == torch.int64 and e.w.dtype == torch.float32
     for t, n in zip(e, (a, b, Z, w)):
         np.testing.assert_array_equal(t.numpy(), n)

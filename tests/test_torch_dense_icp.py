@@ -179,7 +179,7 @@ def test_noisy_dataset_is_deterministic_per_frame():
     frames and seeds differ; the host fields replay through the same
     function."""
     kw = dict(n_frames=8, cam=Camera(40.0, 40.0, 31.5, 23.5, width=64, height=48),
-              trajectory="tour", loops=1.15)
+              trajectory="tour", loops=1.15, device="cpu")
     clean = SyntheticDataset(**kw)
     a, b = SyntheticDataset(noise=True, seed=3, **kw), SyntheticDataset(noise=True, seed=4, **kw)
     _, g1, d1 = a.grab(2)

@@ -250,7 +250,7 @@ def test_vocabularies_cross_load(tmp_path, sift_rows):
     pt, pj = tvoc.shipped_vocabulary("orb"), jvoc.shipped_vocabulary("orb")
     assert pt != pj and open(pt, "rb").read() == open(pj, "rb").read()
     assert tvoc.shipped_vocabulary("orb2") == pt and tvoc.shipped_vocabulary("sift") is None
-    wt, it = tvoc.load_vocabulary(pt)
+    wt, it = tvoc.load_vocabulary(pt, device="cpu")
     wj, ij = jvoc.load_vocabulary(pj)
     assert wt.dtype == torch.int32 and wt.shape == (4096, 8)
     np.testing.assert_array_equal(wt.numpy().view(np.uint32), np.asarray(wj))
@@ -264,7 +264,7 @@ def test_vocabularies_cross_load(tmp_path, sift_rows):
     np.testing.assert_array_equal(np.asarray(i), idf)
     p2 = str(tmp_path / "jax.npz")
     jvoc.save_vocabulary(p2, jnp.asarray(d1[64:128]), jnp.asarray(idf))
-    w, i = tvoc.load_vocabulary(p2)
+    w, i = tvoc.load_vocabulary(p2, device="cpu")
     assert w.dtype == torch.float32
     np.testing.assert_array_equal(w.numpy(), d1[64:128])
     np.testing.assert_array_equal(i.numpy(), idf)
@@ -312,6 +312,6 @@ def test_train_vocabulary_from_dataset_on_the_cpu(tmp_path):
     assert tvoc.main(["--dataset", "synthetic:orbit", "--out", out, "--vocab-size", "32",
                       "--detector", "brisk", "--frames", "2", "--stride", "4",
                       "--width", "160", "--height", "120", "--device", "cpu"]) == 0
-    w, i = tvoc.load_vocabulary(out)
+    w, i = tvoc.load_vocabulary(out, device="cpu")
     torch.testing.assert_close(words, w, rtol=0, atol=0)
     torch.testing.assert_close(idf, i, rtol=0, atol=0)

@@ -39,7 +39,7 @@ def _two_torch_threads():
 
 @pytest.fixture(scope="module")
 def frames():
-    ds = SyntheticDataset(n_frames=128, cam=CAM, trajectory="tour", loops=1.15)
+    ds = SyntheticDataset(n_frames=128, cam=CAM, trajectory="tour", loops=1.15, device="cpu")
     return ds, [ds.grab(i) for i in range(N_FRAMES)]
 
 

@@ -70,7 +70,7 @@ def test_frame_features_numpy_round_trip(frames):
     gray, depth = frames[0]
     ft = t_build(TCamera(**CAM_ARGS), torch.from_numpy(gray), torch.from_numpy(depth),
                  ExtractorConfig(**EX))
-    back = frame_features_from_numpy(frame_features_to_numpy(ft))
+    back = frame_features_from_numpy(frame_features_to_numpy(ft), device="cpu")
     for k in ("uv", "xyz", "desc", "valid", "surf_cov", "level"):
         assert torch.equal(getattr(back, k), getattr(ft, k)), k
 
@@ -103,7 +103,7 @@ def test_build_frame_features_rejects_unported_paths(frames):
 def test_renderer_matches_jax(trajectory, index):
     cam = dict(CAM_ARGS)
     dj = jsyn.SyntheticDataset(n_frames=24, cam=JCamera(**cam), trajectory=trajectory)
-    dt = tsyn.SyntheticDataset(n_frames=24, cam=TCamera(**cam), trajectory=trajectory)
+    dt = tsyn.SyntheticDataset(n_frames=24, cam=TCamera(**cam), trajectory=trajectory, device="cpu")
     np.testing.assert_array_equal(dt.poses_twc, dj.poses_twc)
     np.testing.assert_array_equal(dt.timestamps, dj.timestamps)
     _, gj, zj = (np.asarray(x) if not isinstance(x, float) else x for x in dj.grab(index))

@@ -158,6 +158,7 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
     ts, poses, st = PipelinedOdometry(cam, cfg, batch=8, device=dev).run(
         ds.grab(i) for i in range(len(ds)))
     assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": 24,
+                                "detect_keypoints_scaled": 0,
                                 "hamming_match_2nn": 23,
                                 "match_gates": 23, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": 23, "gicp_refine_fused": 23,
@@ -319,6 +320,7 @@ def test_slam_system_on_card_uses_only_kernels(dev, kernels):
     system.finish()
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
     assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": 60,
+                                "detect_keypoints_scaled": 0,
                                 "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
@@ -851,6 +853,7 @@ def test_batch_on_card_within_sync_budget(dev, kernels):
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
     assert E == len(frames) - 1
     assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": len(frames),
+                                "detect_keypoints_scaled": 0,
                                 "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,

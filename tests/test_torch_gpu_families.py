@@ -42,7 +42,7 @@ def tour_frames():
     from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
 
     cam = Camera(fx=262.5, fy=262.5, cx=159.5, cy=119.5, width=320, height=240)
-    ds = SyntheticDataset(n_frames=128, cam=cam, trajectory="tour", loops=1.15)
+    ds = SyntheticDataset(n_frames=128, cam=cam, trajectory="tour", loops=1.15, device="cpu")
     return cam, [ds.grab(i)[1:] for i in (0, 40, 90)]
 
 
@@ -149,8 +149,9 @@ def test_family_build_card_matches_cpu(dev, kernels, tour_frames, variant):
     for gray, depth in frames:
         kernels.reset_launch_counts()
         fc = ex.build(gray.to(dev), depth.to(dev), 15.0)
-        if variant == "orb":          # the x1.2 scale space: the dense K1 once a level
-            assert kernels.LAUNCHES["detect_score_map"] == 8
+        if variant == "orb":          # the x1.2 scale space: one detection, no dense K1
+            assert kernels.LAUNCHES["detect_keypoints_scaled"] == 1
+            assert kernels.LAUNCHES["detect_score_map"] == 0
         f = ex.build(gray, depth, 15.0)
         _same_keypoints(fc, f)
         a, b = fc.desc.cpu().numpy(), f.desc.numpy()

@@ -129,9 +129,9 @@ def test_kf_core_blob_matches_jax_fused_program(frames):
                                       max(int(nm), 1)))
         for kk, nm in zip(jax.random.split(sub, C + L), ver_j[:, 18])])
 
-    bank = convert.bank_from_numpy(D, X, V, B)
-    wt, it = convert.vocabulary_from_numpy(words, idf)
-    ft = convert.frame_features_from_numpy(_features_numpy(feats[-1]))
+    bank = convert.bank_from_numpy(D, X, V, B, device="cpu")
+    wt, it = convert.vocabulary_from_numpy(words, idf, device="cpu")
+    ft = convert.frame_features_from_numpy(_features_numpy(feats[-1]), device="cpu")
     blob_t = tsystem.kf_core(bank, ft, torch.from_numpy(meta), wt, it, camt, cfg_t, True,
                              draws=torch.from_numpy(draws)).numpy()
     assert blob_t.shape == blob_j.shape == (N * 5 + (C + L) * 19 + 2 * L,)

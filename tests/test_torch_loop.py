@@ -52,7 +52,7 @@ def test_vocabulary_copy_is_byte_equal():
 
 def test_vocabulary_load_and_save_roundtrip(tmp_path):
     words_j, idf_j = jvoc.load_vocabulary(jvoc.shipped_vocabulary("svo_fast"))
-    words_t, idf_t = tvoc.load_vocabulary(tvoc.shipped_vocabulary("svo_fast"))
+    words_t, idf_t = tvoc.load_vocabulary(tvoc.shipped_vocabulary("svo_fast"), device="cpu")
     assert words_t.dtype == torch.int32 and words_t.shape == (4096, 8)
     np.testing.assert_array_equal(words_t.numpy().view(np.uint32), np.asarray(words_j))
     np.testing.assert_array_equal(idf_t.numpy(), np.asarray(idf_j))
@@ -65,7 +65,7 @@ def test_vocabulary_load_and_save_roundtrip(tmp_path):
     # package
     fw = np.random.default_rng(3).uniform(size=(4, 128)).astype(np.float32)
     np.savez(str(tmp_path / "f.npz"), words=fw, idf=np.arange(4, dtype=np.float32))
-    wf, idf_f = tvoc.load_vocabulary(str(tmp_path / "f.npz"))
+    wf, idf_f = tvoc.load_vocabulary(str(tmp_path / "f.npz"), device="cpu")
     wj, ij = jvoc.load_vocabulary(str(tmp_path / "f.npz"))
     assert wf.dtype == torch.float32
     np.testing.assert_array_equal(wf.numpy(), np.asarray(wj))
@@ -78,8 +78,9 @@ def test_hamming_matrix_forms_match(impl):
     d1 = _clustered_descriptors(rng, 70)
     d2 = _clustered_descriptors(rng, 50)
     ref = np.asarray(jhamming_matrix(d1, d2))
-    out = thamming.hamming_distance_matrix(convert.desc_words_from_numpy(d1),
-                                           convert.desc_words_from_numpy(d2), impl=impl)
+    out = thamming.hamming_distance_matrix(convert.desc_words_from_numpy(d1, device="cpu"),
+                                           convert.desc_words_from_numpy(d2, device="cpu"),
+                                           impl=impl)
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
@@ -102,8 +103,8 @@ def test_quantize_and_bow_match(vocab):
         idf = rng.uniform(0.0, 3.0, 128).astype(np.float32)
         desc = _clustered_descriptors(rng, 512)
     valid = rng.uniform(size=len(desc)) > 0.15
-    wt, it = convert.vocabulary_from_numpy(words, idf)
-    dt, vt = convert.desc_words_from_numpy(desc), torch.from_numpy(valid)
+    wt, it = convert.vocabulary_from_numpy(words, idf, device="cpu")
+    dt, vt = convert.desc_words_from_numpy(desc, device="cpu"), torch.from_numpy(valid)
     aj = np.asarray(jcodebook.quantize(jnp.asarray(desc), jnp.asarray(words), jnp.asarray(valid)))
     at = tcodebook.quantize(dt, wt, vt)
     assert at.dtype == torch.int32
@@ -137,7 +138,7 @@ def test_train_codebook_matches():
     desc = _clustered_descriptors(rng, 600, centers=20)
     valid = rng.uniform(size=600) > 0.1
     wj, ij = jcodebook.train_codebook(jnp.asarray(desc), jnp.asarray(valid), 32, 4)
-    wt, it = tcodebook.train_codebook(convert.desc_words_from_numpy(desc),
+    wt, it = tcodebook.train_codebook(convert.desc_words_from_numpy(desc, device="cpu"),
                                       torch.from_numpy(valid), 32, 4)
     np.testing.assert_array_equal(wt.numpy().view(np.uint32), np.asarray(wj))
     np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=1e-6, atol=1e-6)

@@ -47,7 +47,7 @@ def _features(rng, n=N):
 
 def _both(d):
     fj = jframe.FrameFeatures(**{k: jnp.asarray(v) for k, v in d.items()})
-    return fj, convert.frame_features_from_numpy(d)
+    return fj, convert.frame_features_from_numpy(d, device="cpu")
 
 
 def test_packed_feature_layouts_match():

@@ -89,7 +89,7 @@ def test_match_frames_and_gather_match_jax():
     ds = SyntheticDataset(n_frames=24, cam=cam, trajectory="sweep")
     fj = [build_frame_features(cam, *ds.grab(i)[1:], ex) for i in (4, 5)]
     ft = [frame_features_from_numpy({k: np.asarray(getattr(f, k))
-                                     for k in f.__dataclass_fields__}) for f in fj]
+                                     for k in f.__dataclass_fields__}, device="cpu") for f in fj]
     mj = jmatch.match_frames(fj[0], fj[1], 0.9)
     mt = tmatch.match_frames(ft[0], ft[1], 0.9)
     np.testing.assert_array_equal(mt.valid.numpy(), np.asarray(mj.valid))

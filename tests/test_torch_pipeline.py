@@ -55,7 +55,7 @@ def runs():
     fj = j_build(JCamera(**CAM_ARGS), jnp.asarray(frames[0][1]), jnp.asarray(frames[0][2]),
                  JCFG.extractor)
     f_ref = frame_features_from_numpy({k: np.asarray(getattr(fj, k))
-                                       for k in fj.__dataclass_fields__})
+                                       for k in fj.__dataclass_fields__}, device="cpu")
     kernels.reset_launch_counts()
     odo = PipelinedOdometry(TCamera(**CAM_ARGS), config_from_jax(JCFG), batch=8, seed=0,
                             device="cpu")

@@ -52,7 +52,7 @@ def _ring(seed, K=24, noise=0.04, extra=3):
 def _edges(a, b, Z, w):
     je = jpg.PoseGraphEdges(jnp.asarray(a.astype(np.int32)), jnp.asarray(b.astype(np.int32)),
                             jnp.asarray(Z), jnp.asarray(w))
-    return je, convert.pose_graph_edges_from_numpy(a, b, Z, w)
+    return je, convert.pose_graph_edges_from_numpy(a, b, Z, w, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["inverse", "log", "log_smooth", "so3_log",

@@ -59,11 +59,12 @@ def test_tour_renders_occlusion():
     """The solids occlude: the tour has frames with strong depth steps and
     the boxes shorten the shell's depth somewhere."""
     cam = TCamera(**CAM_ARGS)
-    ds = tsyn.SyntheticDataset(n_frames=24, cam=cam, trajectory="tour")
+    ds = tsyn.SyntheticDataset(n_frames=24, cam=cam, trajectory="tour", device="cpu")
     max_jump, shorter = 0.0, False
     for i in range(0, 24, 6):
         _, _, depth = ds.grab(i)
-        _, shell = tsyn.render_frame(cam, ds.poses_twc[i], room_half=tsyn.MULTIROOM_HALF)
+        _, shell = tsyn.render_frame(cam, ds.poses_twc[i], room_half=tsyn.MULTIROOM_HALF,
+                                     device="cpu")
         shorter |= bool((depth < shell - 0.1).any())
         assert bool((depth <= shell + 1e-5).all())
         max_jump = max(max_jump, float(np.abs(np.diff(depth.numpy(), axis=1)).max()))
@@ -72,8 +73,51 @@ def test_tour_renders_occlusion():
 
 def test_unknown_dataset_or_trajectory_raises():
     with pytest.raises(ValueError, match="unknown trajectory"):
-        tsyn.SyntheticDataset(n_frames=4, trajectory="spiral")
+        tsyn.SyntheticDataset(n_frames=4, trajectory="spiral", device="cpu")
     # a directory is a disk dataset since they were ported
     # (tests/test_torch_datasets.py): one without associations.txt raises
     with pytest.raises(FileNotFoundError, match="associations.txt"):
         open_dataset("/data/rgbd_dataset_freiburg1_xyz")
+
+
+def test_entry_points_default_to_the_card():
+    """render_frame, SyntheticDataset, LoopDetector, load_vocabulary and the
+    convert module's *_from_numpy put what they make on the card unless the
+    caller asks for the CPU: without a card the default raises, as the CLI
+    and SlamSystem do; device="cpu" gives the CPU tensors of the same
+    values."""
+    from rgbdslam_tpu_torch import convert
+    from rgbdslam_tpu_torch.config import LoopConfig
+    from rgbdslam_tpu_torch.loop import vocabulary as tvoc
+    from rgbdslam_tpu_torch.loop.detector import LoopDetector
+
+    cam = TCamera(**CAM_ARGS)
+    voc = tvoc.shipped_vocabulary("svo_fast")
+    words = np.random.default_rng(0).integers(0, 2**32, (3, 8), dtype=np.uint64).astype(np.uint32)
+    defaults = [
+        lambda: tsyn.render_frame(cam, tsyn.tour_trajectory(4)[1]),
+        lambda: tsyn.SyntheticDataset(n_frames=4, cam=cam, trajectory="tour"),
+        lambda: LoopDetector(LoopConfig()),
+        lambda: tvoc.load_vocabulary(voc),
+        lambda: convert.desc_words_from_numpy(words),
+        lambda: convert.vocabulary_from_numpy(words, np.ones(3, np.float32)),
+        lambda: convert.pose_graph_edges_from_numpy([0], [1], np.eye(4)[None], [1.0]),
+    ]
+    if torch.cuda.is_available():
+        assert tsyn.SyntheticDataset(n_frames=4, cam=cam).grab(1)[1].is_cuda
+    else:
+        for make in defaults:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    gray, depth = tsyn.render_frame(cam, tsyn.tour_trajectory(4)[1], device="cpu",
+                                    room_half=tsyn.MULTIROOM_HALF, boxes=tsyn.MULTIROOM_BOXES)
+    _, g_ds, d_ds = tsyn.SyntheticDataset(n_frames=4, cam=cam, trajectory="tour",
+                                          device="cpu").grab(1)
+    assert gray.device.type == "cpu" and torch.equal(g_ds, gray) and torch.equal(d_ds, depth)
+    assert LoopDetector(LoopConfig(), device="cpu").device == torch.device("cpu")
+    w, idf = tvoc.load_vocabulary(voc, device="cpu")
+    with np.load(voc) as d:
+        np.testing.assert_array_equal(w.numpy().view(np.uint32), d["words"])
+        np.testing.assert_array_equal(idf.numpy(), d["idf"])
+    t = convert.desc_words_from_numpy(words, device="cpu")
+    assert t.device.type == "cpu" and np.array_equal(t.numpy().view(np.uint32), words)

@@ -1,15 +1,17 @@
 """Count the tensor ops the port's feature build runs for one frame.
 
-  python tools/count_torch_ops.py [--width 640 --height 480]
+  python tools/count_torch_ops.py [--width 640 --height 480] [--detector orb]
 
-Runs `build_frame_features` of rgbdslam_tpu_torch once on the CPU on a
-rendered sweep frame under a dispatch counter and prints, per part of the
-build (pyramid, detection, blur, BRIEF, depth_patch_covariances, the rest of
-the feature table), how many ops reached the dispatcher; views (ops whose
-result aliases an input) are left out, since they launch nothing on a card.
-On a CUDA tensor each counted op is at least one kernel launch, except in the
-detection, which is two launches there. The counts say where the launches
-of a frame come from; they are not times.
+Runs the feature build of rgbdslam_tpu_torch (`Extractor.build` of the
+detector's variant, svo_fast by default) once on the CPU on a rendered sweep
+frame under a dispatch counter and prints, per part of the build (pyramid,
+detection, blur, description, depth_patch_covariances, the rest of the
+feature table), how many ops reached the dispatcher; views (ops whose result
+aliases an input) are left out, since they launch nothing on a card. On a
+CUDA tensor each counted op is at least one kernel launch, except in the
+`fast_st` detection (the half-sample `detect_keypoints`, the x1.2
+`detect_keypoints_scaled`), which is two launches there. The counts say
+where the launches of a frame come from; they are not times.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from rgbdslam_tpu_torch.config import ExtractorConfig  # noqa: E402
 from rgbdslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
+from rgbdslam_tpu_torch.frontend.extractor import Extractor  # noqa: E402
 from rgbdslam_tpu_torch.geometry.camera import Camera  # noqa: E402
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset  # noqa: E402
 
@@ -73,6 +76,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--detector", default="svo_fast", choices=Extractor.DETECTORS)
     a = ap.parse_args()
     f = 400.0 * a.width / 640
     cam = Camera(f, f, (a.width - 1) / 2, (a.height - 1) / 2, width=a.width, height=a.height)
@@ -80,20 +84,24 @@ def main() -> None:
                                       device="cpu").grab(3)
     counter = OpCounter()
     parts = [(frame_mod.image_ops, "build_pyramid", "pyramid"),
+             (frame_mod.image_ops, "build_scaled_pyramid", "x1.2 pyramid"),
              (frame_mod.fast_ops, "detect_keypoints", "detect_keypoints (plain version)"),
+             (frame_mod.fast_ops, "detect_keypoints_scaled",
+              "detect_keypoints_scaled (plain version)"),
              (frame_mod.image_ops, "gaussian_blur", "gaussian_blur"),
-             (frame_mod.orb_ops, "brief_descriptors_dense", "brief_descriptors_dense"),
+             (frame_mod, "_describe", "description"),
              (frame_mod, "depth_patch_covariances", "depth_patch_covariances")]
+    ex = Extractor(cam, ExtractorConfig(), detector=a.detector)
     saved = [(m, n, labelled(counter, m, n, label)) for m, n, label in parts]
     try:
         with counter, counter.part("rest of the feature table"):
-            frame_mod.build_frame_features(cam, gray, depth, ExtractorConfig())
+            ex.build(gray, depth, ExtractorConfig().fast_threshold)
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
     counts = dict(counter.counts)
     counts["total"] = sum(counts.values())
-    print(json.dumps({"frame": [a.height, a.width], "ops": counts}))
+    print(json.dumps({"frame": [a.height, a.width], "detector": a.detector, "ops": counts}))
 
 
 if __name__ == "__main__":

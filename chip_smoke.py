@@ -15,8 +15,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                proving each kernel ran on the main path;
   5. times   — three rounds of (the pipeline's wall time, then a stage
                loop timed per stage by CUDA events and by the host clock),
-               a profile of the device's busy share, and each kernel beside
-               its plain version and its bound;
+               a profile of the device's busy share, the device
+               microseconds per launch of isolated calls (the detections,
+               K4, the dense K1, K3's scorer alone unbatched and batched,
+               K5), and each kernel beside its plain version and its bound;
   6. slam    — the 128-frame 640x480 multi-room tour rendered on the card
                through SlamSystem(device="cuda") (keyframes, proximity
                edges, BoW loop closure with the shipped vocabulary, pose-graph
@@ -244,6 +246,27 @@ PEAK_OPS_PER_S = 67e12
 DETECT_OPS_PER_PX = 2 + 3 + 12 + 13 + (2 + 32 + 32 + 2 * 11 + 1) + (1 + 5) + 2
 
 
+# K3's operations per (hypothesis, valid correspondence) at the least known
+# form of the function: d = R p1 + t - p2 (9 mul, 6 + 3 add, 3 sub) 21; the
+# six entries of C = R diag(s1) R^T + diag(s2) from the hypothesis's products
+# R_ik R_jk (3 mul, 2 add each; 3 diagonal adds) 33; m^2 = d^T C^-1 d by
+# LDL^T: the factors (3 div, 4 mul, 4 sub) 11, the forward solve (3 mul, 3
+# sub) 6, the weighted squares (3 mul, 3 div, 2 add) 8; max(m^2, 0) 1; the
+# threshold test 1. The kernel forms the adjugate and the determinant in the
+# Pallas kernel's order (~120), since the inlier counts must be exact.
+MAHAL_OPS_PER_PAIR = 21 + 33 + (11 + 6 + 8) + 1 + 1
+# K5's operations at their least: every pair's q = R p1 + t (9 mul, 9 add),
+# r = q - p2 (3), and the gate |r|^2 < d^2 on a valid slot (3 mul, 2 add,
+# compare, and) 28; each gated pair's S = R C1 R^T + C2 (M = R C1 with C1
+# symmetric 9 x 5, S's upper triangle from M 6 x 5, + C2 6) 81, W = S^-1 by
+# adjugate (cofactors 18, determinant 5, reciprocal 1, 6 scalings) 30,
+# W hat(q) (9 x 3) 27 and hat(q)^T W hat(q) (6 x 3) 18 (the blocks of
+# J^T W J; the translation block is W), W r 15, b's rotation part q x W r 9,
+# the cost r . W r 5, the 29 sums 29. The kernel does ~300 a pair.
+GN_OPS_PER_POINT = 18 + 3 + 7
+GN_OPS_PER_GATED = 81 + 30 + 27 + 18 + 15 + 9 + 5 + 29
+
+
 def rank_ops(n: int) -> int:
     """Operations of a stable descending ranking of n cells at its least: a
     comparison sort's n * ceil(log2 n) comparisons of 2 operations (the
@@ -369,7 +392,8 @@ def device_us_per_launch(fn, expect: dict, repeats: int = 10) -> dict:
                 dev_us = getattr(evt, "self_device_time_total", None)
                 if dev_us is None:
                     dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-                name = evt.key.split("(anonymous namespace)::")[1].split("(")[0]
+                # a template's arguments (the scorer's group) are left out
+                name = evt.key.split("(anonymous namespace)::")[1].split("(")[0].split("<")[0]
                 us[name] = us.get(name, 0.0) + dev_us
                 count[name] = count.get(name, 0) + evt.count
         readings.append(count)
@@ -2259,6 +2283,7 @@ def main() -> int:
         check(dH <= 1e-4 * scale and db <= 1e-4 * scale,
               f"K5 pair {i}: H {dH}, b {db} against max|H| {scale}")
         check(float(kcnt) == float(pcnt), f"K5 pair {i}: count {kcnt} vs {pcnt}")
+        check(torch.equal(kH, kH.T), f"K5 pair {i}: H is not symmetric bit for bit")
         torch.testing.assert_close(kcost, pcost, rtol=1e-4, atol=1e-6)
         # one round of K4 = this build, the damped solve, the exp-compose
         xi = torch.linalg.solve(
@@ -3004,6 +3029,17 @@ def main() -> int:
                        (lambda: [fast.masked_score_map(lvl, thr) for lvl in pyr],
                         {"detect_kernel": len(pyr)})):
         dev_us.update(device_us_per_launch(fn, expect))
+    # the off-path entries, each one launch a call: K3's scorer alone
+    # (unbatched and with the batch of 13) and K5
+    for tag, fn, expect in (
+            ("", lambda: kernels.mahal_hypothesis_scores(T_h, p1, p2, s1, s2, valid, th),
+             {"mahal_scores_kernel": 1}),
+            ("_b13", lambda: kernels.mahal_hypothesis_scores(T_hb, Xb, p2b, s1b, s2b, vb, th),
+             {"mahal_scores_kernel": 1}),
+            ("", lambda: kernels.gicp_gn_normal_equations(*k4_args,
+                                                          icp.max_correspondence_dist),
+             {"gicp_gn_kernel": 1})):
+        dev_us.update({k + tag: v for k, v in device_us_per_launch(fn, expect).items()})
     log(f"[times] device microseconds per launch, isolated calls: {json.dumps(dev_us)} "
         f"(detect_kernel: mean of the {len(pyr)} levels) ({smi})")
 
@@ -3071,8 +3107,14 @@ def main() -> int:
     def k2_bound(b):       # 8 words x (xor, popcount, add) per descriptor pair
         return bound(b * N * 33 + M * 33 + b * (3 * N + M) * 4 + b * M * 8, b * N * M * 8 * 3)
 
-    def k3_bound(b):       # ~100 float operations per (hypothesis, correspondence)
-        return bound(b * (H * 64 + N * 49 + H * 8), b * H * N * 100)
+    def k3_bound(valid_mask, counts):
+        """The scorer at its least on this run's data: only valid slots are
+        scored, MAHAL_OPS_PER_PAIR each against each hypothesis, plus the
+        hypothesis's 18 products R_ik R_jk and 2 (count, sum) per inlier."""
+        b = counts.numel() // H
+        return bound(b * (H * 64 + N * 49 + H * 8),
+                     int(valid_mask.sum()) * H * MAHAL_OPS_PER_PAIR + b * H * 18
+                     + 2 * int(counts.sum()))
 
     def gated_bound(b):    # K2's work, the gates' five operations and one flag per query
         return bound(b * N * 33 + M * 33 + b * N * 9, b * N * M * 8 * 3 + b * N * 5)
@@ -3095,8 +3137,8 @@ def main() -> int:
         "detect_score_map": bound(n_px * 4 * 3, n_px * DETECT_OPS_PER_PX),
         "hamming_match_2nn": k2_bound(1),
         "hamming_match_2nn_b13": k2_bound(13),
-        "mahal_hypothesis_scores": k3_bound(1),
-        "mahal_hypothesis_scores_b13": k3_bound(13),
+        "mahal_hypothesis_scores": k3_bound(valid, kc),
+        "mahal_hypothesis_scores_b13": k3_bound(vb, kcb),
         "match_gated": gated_bound(1),
         "match_gated_b13": gated_bound(13),
         "ransac_se3_fused": ransac_bound(1),
@@ -3108,7 +3150,11 @@ def main() -> int:
             n_px * DETECT_OPS_PER_PX + 4 * n_det_cells * len(pyr) + rank_ops(n_det_cells)),
         # ~300 float operations per correspondence and round, ~20 for the gate
         "gicp_refine_fused": bound(gicp_bytes + 64 + 5, N * (300 * icp.max_iterations + 20)),
-        "gicp_gn_normal_equations": bound(gicp_bytes + 116, N * 300),
+        # every pair's residual and gate, the build on the gated pairs of
+        # this run (K5's count on the timed pair); H, b, cost, count out
+        "gicp_gn_normal_equations": bound(
+            gicp_bytes + 44 * 4,
+            N * GN_OPS_PER_POINT + int(k5_out[0][3]) * GN_OPS_PER_GATED),
     }
     for k, (kms, pms) in timing.items():
         log(f"[times] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "

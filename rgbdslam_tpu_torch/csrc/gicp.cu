@@ -43,9 +43,11 @@
 // index is dynamic), exp-composes and publishes R and t through shared
 // memory: two barriers a round. The finish is one more pass over the planes
 // and one integer reduction. K5 is the same block doing one build from global
-// memory at the given pose and writing the 29 sums (21 upper-triangular H
-// entries, 6 of b, cost, gated count). The TPU kernel's (24*8, N/8) planes
-// and (32, 128) output tile are VMEM tiling and are not carried over.
+// memory at the given pose and writing the whole result, H (both triangles),
+// b, cost and gated count, as one 44-float buffer that the wrapper returns
+// views of: one launch and no other device op a call. The TPU kernel's
+// (24*8, N/8) planes and (32, 128) output tile are VMEM tiling and are not
+// carried over.
 //
 // The per-point arithmetic is _gicp_iteration's (pallas_kernels.py:559-632)
 // in its operation order, with the products by the Jacobian's constant 0 and
@@ -494,7 +496,19 @@ gicp_refine_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
   }
 }
 
-// K5: the 29 sums of one build at pose T0, no solve.
+// The sum (of the 29) that word w of K5's 44-float result holds: H row-major
+// from its upper triangle, then b, cost and count.
+__device__ __forceinline__ int gn_source(int w) {
+  if (w >= 36) return 21 + (w - 36);
+  const int i = w / 6, j = w % 6;
+  return i <= j ? tri6(i, j) : tri6(j, i);
+}
+
+// K5: one build at pose T0, no solve, written whole into out (44 floats):
+// [0:36] H row-major, both triangles from the same 21 sums, so H equals H^T
+// bit for bit; [36:42] b; [42] cost; [43] gated count. Lane k of warp 0
+// holds sum k after the block reduction; the warp gathers the 44 words by
+// two shuffles and writes them as two coalesced runs.
 __global__ void __launch_bounds__(kThreads)
 gicp_gn_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
                const float* __restrict__ p2, const float* __restrict__ C1,
@@ -516,7 +530,12 @@ gicp_gn_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
   for (int p = tid; p < n; p += kThreads)
     accumulate_point(R, t, load_point_global(p1, p2, C1, C2, valid, p), max_dist2, acc);
   const float total = reduce_sums(acc, s_part);
-  if (tid < kSums) out[tid] = total;
+  if (tid < 32) {                    // warp 0: lane k holds sum k
+    const float lo = __shfl_sync(kFull, total, gn_source(tid));
+    const float hi = __shfl_sync(kFull, total, gn_source(min(32 + tid, 43)));
+    out[tid] = lo;
+    if (tid < 12) out[32 + tid] = hi;
+  }
 }
 
 }  // namespace
@@ -541,6 +560,7 @@ extern "C" int rgbd_gicp_refine_full(const void* T, const void* p1, const void* 
   return (int)cudaGetLastError();
 }
 
+// out: 44 floats (H, b, cost, count), see gicp_gn_kernel.
 extern "C" int rgbd_gicp_gn(const void* T, const void* p1, const void* p2,
                             const void* C1, const void* C2, const void* valid,
                             int n, float max_dist2, void* out, void* stream) {

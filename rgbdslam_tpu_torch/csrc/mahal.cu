@@ -13,9 +13,18 @@
 // m^2 = d^T adj(C) d / det(C) clamped at 0; an inlier has m^2 <= th and a
 // valid slot. Per hypothesis: inlier count and the sum of m^2 over inliers.
 //
-// Three entry points share the device functions below:
+// Two entry points share the device functions below:
 //   rgbd_mahal_hypothesis_scores  the scorer alone (the TPU kernel's cut):
-//       hypotheses and covariances are inputs;
+//       hypotheses and covariances are inputs; one launch of
+//       mahal_scores_kernel writes every count and sum (see its note). The
+//       TPU kernel scores a tile of 32 hypotheses against all N planes held
+//       in VMEM; here a block scores G = 4 or 8 hypotheses against a chunk
+//       of the points held in registers, so a point is read H / G times and
+//       not H times, and the chunks of a group (at most 8, one block each)
+//       are combined inside the launch by a thread-block cluster, in rank
+//       order, through distributed shared memory. At H = 256, N = 1024 the
+//       grid is 64 groups of 4 x 8 chunks = 512 blocks of 128 threads, at
+//       B = 13 32 groups of 8 x 8 chunks x 13 = 3,328.
 //   rgbd_ransac_se3               the whole function, two kernels on one
 //       stream:
 //     A, ransac_fit_score_kernel, grid (H, B): block (h, b) finds its S = 4
@@ -42,6 +51,8 @@
 // shared memory and registers, so a step costs a barrier and not a launch;
 // a refit's re-scoring of the pose it starts from repeats the previous
 // scoring bit for bit and is not done again.
+// The scorer alone has the same throughput and no dependent step: its time
+// is one launch, one pass over a block's points and one cluster barrier.
 //
 // Rounding: the library is built with -fmad=false and each m^2 is computed
 // in the Pallas kernel's operation order, so counts equal the plain
@@ -55,13 +66,19 @@
 // verifies all its candidate keyframes in one call). The unbatched call is
 // the batch of one.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;      // scorer and kernel A
+constexpr int kThreads = 256;      // kernel A
+constexpr int kScoreThreads = 128; // the scorer alone: a block's points a pass
+constexpr int kScoreWarps = kScoreThreads / 32;
+constexpr int kMaxChunks = 8;      // the scorer alone: blocks a cluster (the portable most)
 constexpr int kSelThreads = 512;   // kernel B
 constexpr int kSelWarps = kSelThreads / 32;
 constexpr int kSample = 4;         // points per hypothesis
@@ -233,40 +250,125 @@ __device__ void horn_pose(const float* S, const float* c1, const float* c2,
 // the scorer alone
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-mahal_kernel(const float* __restrict__ T, const float* __restrict__ p1,
-             const float* __restrict__ p2, const float* __restrict__ s1,
-             const float* __restrict__ s2,
-             const unsigned char* __restrict__ valid, int n, float th,
-             int* __restrict__ cnt_out, float* __restrict__ err_out) {
-  __shared__ int s_cnt[kThreads];
-  __shared__ float s_err[kThreads];
+// Grid (ceil(H / G), chunks, B), launched as clusters of the `chunks`
+// blocks of one (group, batch entry): block (x, r, z) scores hypotheses
+// G x .. G x + G - 1 of entry z against the points
+// [r span, min(n, (r + 1) span)), span = ceil(n / chunks). Its rank in the
+// cluster is r (the cluster spans the whole y dimension).
+//   1. The group's poses go to shared memory, once.
+//   2. Thread t reads its points r span + t, + kScoreThreads, ... from global
+//      memory once each (13 values in registers; a warp's loads are one
+//      contiguous run of each array) and scores each against the group's
+//      poses, adding count and m^2 of each inlier in point order. The poses
+//      are read from shared memory at each use (volatile): held in registers
+//      across the point loop, 8 poses and their products took all 255
+//      registers and spilled.
+//   3. Each warp sums each hypothesis's count by __reduce_add_sync and its
+//      m^2 by the xor tree (lanes i and i ^ 16, then ^ 8, ... ^ 1); thread g
+//      adds hypothesis g's warp partials in warp order and stores the sums
+//      into row r of block 0's table through distributed shared memory.
+//   4. After one cluster barrier, block 0 adds the rows in rank order and
+//      writes the results; the other blocks are done. No float atomics: two
+//      calls give the same bits.
+// G (4 or 8, chosen by the wrapper) changes which block scores a
+// hypothesis, not the order of its sums: the results do not depend on it.
+template <int G>
+__global__ void __launch_bounds__(kScoreThreads)
+mahal_scores_kernel(const float* __restrict__ T, const float* __restrict__ p1,
+                    const float* __restrict__ p2, const float* __restrict__ s1,
+                    const float* __restrict__ s2,
+                    const unsigned char* __restrict__ valid, int h, int n, int span,
+                    float th, int* __restrict__ cnt_out, float* __restrict__ err_out) {
+  __shared__ float s_pose[G][12];
+  __shared__ int s_wcnt[kScoreWarps][G];
+  __shared__ float s_werr[kScoreWarps][G];
+  __shared__ int s_cnt[kMaxChunks][G];      // block 0's: every block's sums
+  __shared__ float s_err[kMaxChunks][G];
 
-  const size_t z = blockIdx.y;
-  const size_t hyp = z * gridDim.x + blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.y, chunks = gridDim.y;
+  const size_t z = blockIdx.z;
+  const int h0 = blockIdx.x * G;
+  const int ng = min(G, h - h0);
   p1 += z * (size_t)n * 3;
   p2 += z * (size_t)n * 3;
   s1 += z * (size_t)n * 3;
   s2 += z * (size_t)n * 3;
   valid += z * (size_t)n;
-  Pose P;
-  load_pose(T + hyp * 16, P);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  int cnt = 0;
-  float err = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float m2 = mahal_m2(P, p1[3 * i], p1[3 * i + 1], p1[3 * i + 2], p2[3 * i],
-                              p2[3 * i + 1], p2[3 * i + 2], s1[3 * i], s1[3 * i + 1],
-                              s1[3 * i + 2], s2[3 * i], s2[3 * i + 1], s2[3 * i + 2]);
-    if (m2 <= th && valid[i]) {
-      cnt += 1;
-      err += m2;
+  if (tid < ng * 12) {
+    const int g = tid / 12, k = tid % 12;
+    const float* Tg = T + (z * h + h0 + g) * 16;
+    s_pose[g][k] = (k < 9) ? Tg[4 * (k / 3) + k % 3] : Tg[4 * (k - 9) + 3];
+  }
+  __syncthreads();
+
+  int cnt[G];
+  float err[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    cnt[g] = 0;
+    err[g] = 0.0f;
+  }
+  const int hi = min(n, rank * span + span);
+  for (int i = rank * span + tid; i < hi; i += kScoreThreads) {
+    const float x1 = p1[3 * i], y1 = p1[3 * i + 1], z1 = p1[3 * i + 2];
+    const float x2 = p2[3 * i], y2 = p2[3 * i + 1], z2 = p2[3 * i + 2];
+    const float a0 = s1[3 * i], a1 = s1[3 * i + 1], a2 = s1[3 * i + 2];
+    const float b0 = s2[3 * i], b1 = s2[3 * i + 1], b2 = s2[3 * i + 2];
+    const bool v = valid[i] != 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < ng) {
+        const volatile float* sp = s_pose[g];
+        Pose P;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) P.r[k] = sp[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) P.t[k] = sp[9 + k];
+        const float m2 = mahal_m2(P, x1, y1, z1, x2, y2, z2, a0, a1, a2, b0, b1, b2);
+        if (m2 <= th && v) {
+          cnt[g] += 1;
+          err[g] += m2;
+        }
+      }
     }
   }
-  reduce_cnt_err(cnt, err, s_cnt, s_err);
-  if (threadIdx.x == 0) {
-    cnt_out[hyp] = s_cnt[0];
-    err_out[hyp] = s_err[0];
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int c = __reduce_add_sync(kFull, cnt[g]);
+    float e = err[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(kFull, e, off);
+    if (lane == 0) {
+      s_wcnt[warp][g] = c;
+      s_werr[warp][g] = e;
+    }
+  }
+  __syncthreads();
+  if (tid < G) {
+    int c = s_wcnt[0][tid];
+    float e = s_werr[0][tid];
+#pragma unroll
+    for (int w = 1; w < kScoreWarps; ++w) {
+      c += s_wcnt[w][tid];
+      e += s_werr[w][tid];
+    }
+    *cluster.map_shared_rank(&s_cnt[rank][tid], 0) = c;
+    *cluster.map_shared_rank(&s_err[rank][tid], 0) = e;
+  }
+  cluster.sync();
+  if (rank == 0 && tid < ng) {
+    int c = s_cnt[0][tid];
+    float e = s_err[0][tid];
+    for (int r = 1; r < chunks; ++r) {
+      c += s_cnt[r][tid];
+      e += s_err[r][tid];
+    }
+    cnt_out[z * h + h0 + tid] = c;
+    err_out[z * h + h0 + tid] = e;
   }
 }
 
@@ -624,15 +726,34 @@ ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict
 
 }  // namespace
 
+// The scorer alone in one launch: `chunks` (1 to kMaxChunks) blocks of a
+// cluster share each group of `group` (4 or 8) hypotheses' points.
 extern "C" int rgbd_mahal_hypothesis_scores(const void* T, const void* p1,
                                             const void* p2, const void* s1,
                                             const void* s2, const void* valid,
-                                            int batch, int h, int n, float th,
-                                            void* cnt, void* err, void* stream) {
-  mahal_kernel<<<dim3(h, batch), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)T, (const float*)p1, (const float*)p2, (const float*)s1,
-      (const float*)s2, (const unsigned char*)valid, n, th, (int*)cnt,
-      (float*)err);
+                                            int batch, int h, int n, int chunks, int group,
+                                            float th, void* cnt, void* err, void* stream) {
+  if (batch < 1 || h < 1 || n < 0 || chunks < 1 || chunks > kMaxChunks ||
+      (group != 4 && group != 8))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((h + group - 1) / group, chunks, batch);
+  cfg.blockDim = dim3(kScoreThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = chunks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int span = (n + chunks - 1) / chunks;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, group == 8 ? mahal_scores_kernel<8> : mahal_scores_kernel<4>, (const float*)T,
+      (const float*)p1, (const float*)p2, (const float*)s1, (const float*)s2,
+      (const unsigned char*)valid, h, n, span, th, (int*)cnt, (float*)err);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -60,8 +60,8 @@ SIGNATURES = {
     # best_idx, best_dist, second_dist, col_best_row, v1, n, m, batch,
     # batched1, ratio, valid_out, stream
     "rgbd_match_gates": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
-    # T_h, p1, p2, s1, s2, valid, batch, h, n, th, cnt, err, stream
-    "rgbd_mahal_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    # T_h, p1, p2, s1, s2, valid, batch, h, n, chunks, group, th, cnt, err, stream
+    "rgbd_mahal_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                      _P, _P, _P),
     # p1, p2, w, valid, u, draws, batch, h, n, cov_x, cov_y, depth_std_factor,
     # th, refine_iters, min_inliers, T_h, cnt_h, err_h, T, inliers, cnt, rmse,

@@ -455,6 +455,28 @@ def match_gated_ref(desc1, desc2, valid1, valid2, ratio: float):
 # ---------------------------------------------------------------------------
 
 
+#: the scorer alone (csrc/mahal.cu, mahal_scores_kernel): threads a block
+#: and blocks a cluster at most
+SCORER_THREADS, SCORER_MAX_CHUNKS = 128, 8
+
+
+def scorer_chunks(n: int) -> int:
+    """Blocks of a cluster that share one group's n points: one pass of
+    SCORER_THREADS points each, at most SCORER_MAX_CHUNKS (then several
+    passes), at least one. Block r takes the points [r span, (r + 1) span),
+    span = ceil(n / chunks)."""
+    return min(SCORER_MAX_CHUNKS, max(1, -(-n // SCORER_THREADS)))
+
+
+def scorer_group(h: int, n: int, batch: int, sms: int) -> int:
+    """Hypotheses a block of the scorer: 8, so that a point is read H / 8
+    times, once the grid then has two blocks for each of the card's `sms`
+    SMs; else 4 (twice the blocks, to hide latency where the grid is small:
+    H = 256, N = 1024 unbatched). Which block scores a hypothesis does not
+    change the order of its sums: the results do not depend on it."""
+    return 8 if -(-h // 8) * scorer_chunks(n) * batch >= 2 * sms else 4
+
+
 def mahal_hypothesis_scores(T_h: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                             s1: torch.Tensor, s2: torch.Tensor,
                             valid: torch.Tensor, th: float):
@@ -463,7 +485,10 @@ def mahal_hypothesis_scores(T_h: torch.Tensor, p1: torch.Tensor, p2: torch.Tenso
     (s = diagonal sensor covariances); valid (N,) bool; th = max m^2.
 
     With a leading batch dimension on every argument (T_h (B, H, 4, 4),
-    points (B, N, 3), valid (B, N)) the outputs are (B, H). One launch."""
+    points (B, N, 3), valid (B, N)) the outputs are (B, H). One launch: a
+    cluster of `scorer_chunks(N)` blocks a group of `scorer_group(...)`
+    hypotheses and batch entry, the chunks' sums combined in rank order, so
+    an entry's results do not depend on the batch around it."""
     batched = T_h.dim() == 4
     lead = (T_h.shape[0],) if batched else ()
     H, N = T_h.shape[-3], p1.shape[-2]
@@ -476,9 +501,11 @@ def mahal_hypothesis_scores(T_h: torch.Tensor, p1: torch.Tensor, p2: torch.Tenso
     err = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
     if cnt.numel() == 0:
         return cnt, err
+    B = lead[0] if batched else 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _launch("rgbd_mahal_hypothesis_scores", dev, _ptr(T_h), _ptr(p1), _ptr(p2),
-            _ptr(s1), _ptr(s2), _ptr(valid), lead[0] if batched else 1, H, N,
-            float(th), _ptr(cnt), _ptr(err))
+            _ptr(s1), _ptr(s2), _ptr(valid), B, H, N, scorer_chunks(N),
+            scorer_group(H, N, B, sms), float(th), _ptr(cnt), _ptr(err))
     LAUNCHES["mahal_hypothesis_scores"] += 1
     BATCHED_LAUNCHES["mahal_hypothesis_scores"] += int(batched)
     return cnt, err
@@ -635,6 +662,12 @@ def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):
 # ---------------------------------------------------------------------------
 
 
+def gicp_gn_result(out: torch.Tensor):
+    """(H (6, 6), b (6,), cost (), count ()) as views of K5's 44-float
+    result: H row-major (both triangles), b, cost, count."""
+    return out[:36].view(6, 6), out[36:42], out[42], out[43]
+
+
 def gicp_gn_normal_equations(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                              C1: torch.Tensor, C2: torch.Tensor,
                              valid: torch.Tensor, max_dist: float):
@@ -642,21 +675,15 @@ def gicp_gn_normal_equations(T: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor
     (H (6, 6), b (6,), cost (), count ()) of min sum r^T W r with
     r = R p1 + t - p2, W = (R C1 R^T + C2)^-1, J = [I | -hat(R p1 + t)],
     over valid pairs with |r| < max_dist. No damping, no solve: it is one
-    round of `gicp_refine_fused` up to the block reduction. The kernel
-    writes the 21 upper-triangular entries of H; the symmetric H is
-    assembled here."""
+    round of `gicp_refine_fused` up to the block reduction. One launch
+    writes the whole result into one buffer; the outputs are views of it."""
     _check_gicp_inputs(T, p1, p2, C1, C2, valid)
-    out = torch.empty((29,), dtype=torch.float32, device=T.device)
+    out = torch.empty((44,), dtype=torch.float32, device=T.device)
     _launch("rgbd_gicp_gn", T.device, _ptr(T), _ptr(p1), _ptr(p2), _ptr(C1),
             _ptr(C2), _ptr(valid), p1.shape[0],
             float(max_dist) * float(max_dist), _ptr(out))
     LAUNCHES["gicp_gn_normal_equations"] += 1
-    iu = torch.triu_indices(6, 6, device=T.device)
-    r, c = iu[0], iu[1]
-    H = torch.zeros((6, 6), dtype=torch.float32, device=T.device)
-    H[r, c] = out[:21]
-    H[c, r] = out[:21]
-    return H, out[21:27], out[27], out[28]
+    return gicp_gn_result(out)
 
 
 def gicp_gn_normal_equations_ref(T, p1, p2, C1, C2, valid, max_dist: float):

@@ -98,6 +98,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                detection paired against the per-level route (the dense K1
                per level and the plain per-level selection) and the ORB build through
                both routes, on the same frame in the same call.
+ 11. configs — the configurations the card used to refuse and the
+               SlamConfig fields ported with them: the limits that stay (a
+               cell above 32, more than 8 levels, more than 46,000 cells)
+               refused by Tracker, SlamSystem and PipelinedOdometry at
+               construction; the 48-frame sweep through
+               PipelinedOdometry(device="cuda"), seeds 0-4, at cell_size 5 and
+               6 and RANSAC sample_size 3 and 5 (median ATE < 0.05 m), under
+               the euclidean and adaptive_euclidean error models, with the
+               Mahalanobis polish and with reassociating GICP (median <= 1.5 x
+               the JAX package's median on the same frames + 0.01 m), and at
+               8,192 features (kernel B's planes in global memory); orb (x1.2)
+               at cell_size 6 on the clean revisit tour, serial seed 0 (<= 1.5
+               x JAX + 0.01 m); the multi-room tour at 4,096 features through
+               SlamSystem (ATE < 0.05 m, one K4 launch an estimate, its planes
+               in global memory); the Kinect-noise revisit tour with
+               --noise-robust and the polish, seeds 0-2 (median <= 1.5 x JAX +
+               0.01 m); then every new kernel mode against its plain version
+               with its time, bound, device us a launch and device launches
+               a call (whole-cell kernel A at cells 3-24 on both detections,
+               K4 at N = 1,024, 3,000, 3,001, 4,096 and reassociating, the
+               fused RANSAC at S = 3 and 5, under each error model, with the
+               polish and at N = 8,192). Its modes join the kernels line with
+               their launches on these runs (the reprojection models, which
+               no SLAM caller reaches, through the public entry).
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -194,9 +218,10 @@ def plain_versions_forbidden(kernels):
         "gicp_gn_normal_equations_ref")]
     names += [(fast, n) for n in ("detect_keypoints_ref", "detect_cells_ref",
                                   "detect_select_ref")]
-    names += [(icp, "_finish_gicp")]
+    names += [(icp, n) for n in ("_finish_gicp", "nearest_targets")]
     names += [(ransac_mod, n) for n in ("ransac_se3_ref", "hypotheses_ref",
-                                        "hypothesis_fits_ref", "select_refine_ref")]
+                                        "hypothesis_fits_ref", "select_refine_ref",
+                                        "refine_mahalanobis_ref", "pair_errors")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
 
     def forbid(name):
@@ -265,6 +290,90 @@ MAHAL_OPS_PER_PAIR = 21 + 33 + (11 + 6 + 8) + 1 + 1
 # the cost r . W r 5, the 29 sums 29. The kernel does ~300 a pair.
 GN_OPS_PER_POINT = 18 + 3 + 7
 GN_OPS_PER_GATED = 81 + 30 + 27 + 18 + 15 + 9 + 5 + 29
+# A Gauss-Newton round's own work: the pivoted 6x6 solve (elimination on
+# the 6 x 7 system ~224, back substitution 36) and the exp-compose (the
+# exponential ~60, the 4x4 product's rotation 45 and translation 21)
+GN_OPS_PER_ROUND = 224 + 36 + 60 + 45 + 21
+# The fused RANSAC's scoring at its least, per error model: (operations a
+# hypothesis and valid correspondence, a valid correspondence once, a
+# hypothesis once). euclidean: d = R p1 + t - p2 21, |d|^2 5, its root 1,
+# the test 1, the error delta^2 1 (29); adaptive_euclidean: the same, and a
+# pair's threshold once (the mean depth 2, its square 1, scaled 1, added 1)
+# 5; reprojection: q = R p1 + t 18, z clamped 1, its reciprocal 1, x / z and
+# y / z 2, less the target's normalised point 2, times fx and fy 2, du^2 +
+# dv^2 3, the test on the squared threshold 1, and the error as euclidean's
+# from q (d 3, |d|^2 5, root and square 2) (40), and once a pair the
+# target's normalised point (clamp, reciprocal, two products) 4; both:
+# reprojection's and the distance test 1 (41), 4; mahalanobis:
+# MAHAL_OPS_PER_PAIR, the two clouds' Khoshelham diagonals once a pair (5
+# each) 10, and a hypothesis's 18 products R_ik R_jk.
+RANSAC_MODEL_OPS = {"euclidean": (29, 0, 0), "adaptive_euclidean": (29, 5, 0),
+                    "reprojection": (40, 4, 0), "both": (41, 4, 0),
+                    "mahalanobis": (MAHAL_OPS_PER_PAIR, 10, 18)}
+# A Horn fit: 30 power iterations of ~45 operations and ~150 around them;
+# its weighted moments ~40 a correspondence
+FIT_OPS = 30 * 45 + 150
+FIT_OPS_PER_POINT = 40
+# The Mahalanobis polish a round and inlier at its least: q 18, r 3, C = R
+# diag(s1) R^T + diag(s2) 33, W = C^-1 by adjugate 30, W hat(q) 27, hat(q)^T
+# W hat(q) 18, W r 15, q x W r 9, the 27 sums of H and b 27
+POLISH_OPS_PER_INLIER = 18 + 3 + 33 + 30 + 27 + 18 + 15 + 9 + 27
+
+
+def ransac_ops(rc, b: int, n_valid: int, n_inliers: int, hyp_inliers: int) -> int:
+    """Operations of the fused RANSAC at its least on this run's data, for
+    b problems holding n_valid valid correspondences in all: each problem's
+    H Horn fits of S samples and H scorings of its valid pairs under
+    rc.error_model (RANSAC_MODEL_OPS), 2 a counted inlier (count, sum;
+    hyp_inliers: kernel A's counts summed), the ranking (3 a hypothesis),
+    refine_iters refits over the inliers (n_inliers: the results' inliers
+    in all, each refit's set within a few pairs of it) and refine_iters + 1
+    scorings of one pose (the winner's mask and each refit's); with the
+    polish, its rounds over the inliers and one more scoring."""
+    hyp_pair, pair, hyp = RANSAC_MODEL_OPS[rc.error_model]
+    H, S, r = rc.num_hypotheses, rc.sample_size, rc.refine_iters
+
+    def scorings(poses):         # `poses` poses a problem against its valid pairs
+        return poses * (n_valid * hyp_pair + b * hyp)
+
+    ops = (n_valid * pair + b * H * (S * FIT_OPS_PER_POINT + FIT_OPS) + scorings(H)
+           + 2 * hyp_inliers + 3 * b * H
+           + b * r * FIT_OPS + r * n_inliers * FIT_OPS_PER_POINT
+           + scorings(r + 1) + 2 * (r + 1) * n_inliers)
+    if rc.mahalanobis_refine:
+        ops += (rc.mahalanobis_refine_iters * (n_inliers * POLISH_OPS_PER_INLIER
+                                               + b * GN_OPS_PER_ROUND)
+                + scorings(1) + 2 * n_inliers)
+    return ops
+
+
+def gicp_gated_counts(T0, p1, p2, C1, C2, valid, cfg) -> list:
+    """The gated pairs of each of K4's rounds on this data, from its plain
+    loop taken one round at a time (each round depends on the pose only)."""
+    from rgbdslam_tpu_torch.ops import kernels
+
+    T, counts = T0, []
+    for _ in range(cfg.max_iterations):
+        T, _, count = kernels.gicp_refine_ref(T, p1, p2, C1, C2, valid, 1,
+                                              cfg.max_correspondence_dist,
+                                              reassociate=cfg.reassociate)
+        counts.append(int(count))
+    return counts
+
+
+def gicp_ops(n_valid: int, gated: list, reassociate: bool) -> int:
+    """K4's operations at their least on this data: each round, every valid
+    pair's residual and gate (GN_OPS_PER_POINT), each gated pair's build
+    (GN_OPS_PER_GATED; `gated`: the rounds' counts) and the round's solve
+    and exp-compose (GN_OPS_PER_ROUND); the finish gate's residuals; with
+    reassociation, each round's and the finish's scan of every valid target
+    for every valid point (|q - p2|^2 8 and the comparison 1)."""
+    rounds = len(gated)
+    ops = ((rounds + 1) * n_valid * GN_OPS_PER_POINT + sum(gated) * GN_OPS_PER_GATED
+           + rounds * GN_OPS_PER_ROUND)
+    if reassociate:
+        ops += (rounds + 1) * n_valid * n_valid * 9
+    return ops
 
 
 def rank_ops(n: int) -> int:
@@ -326,34 +435,72 @@ def poses_close(aT, pT, T64, p1, atol=5e-5, factor=10.0):
     return (factor * own > atol)[..., 0, 0], float(ratio.max())
 
 
-def device_launches(fn, name: str, reps: int = 4) -> int:
-    """Kernels, copies and fills the device ran for one fn(), counted by
-    torch.profiler over `reps` calls. A window this short sometimes comes
-    back without a single device event, or torn (once three windows in a
-    row came back empty; once the x1.2 detection's second window held 15
-    launches of 8 calls of 2, after an empty first); that is no reading, so
-    it is taken again over a window twice as long, at most six times. Each
-    reading set aside is logged under `name`."""
+def counted_device_events(fn, n: int) -> list:
+    """torch.profiler's device events (kernels, copies, fills) of n calls of
+    fn(), taken from the middle of a window of 3 n calls: late in a long
+    process the tracer drops the records at one end of a session (windows
+    of up to 32 one-kernel calls came back empty, of 64 and 128 calls 40
+    records short, on an H100), so n calls before and n after are
+    run and not counted. The counted calls are the device events that start
+    inside a marked range, which ends with a synchronisation; 2 ms apart
+    from the calls around it."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    fn()                                   # first-use set-up stays outside
-    readings = []
-    for attempt in range(6):
-        n = reps << attempt
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.002)       # gaps far wider than the device clock's skew
+        with torch.profiler.record_function("chip_smoke_counted"):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = sum(evt.count for evt in prof.key_averages()
-                    if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        time.sleep(0.002)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    marks = [e for e in events if e.name == "chip_smoke_counted"
+             and getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
+    if not marks:
+        return []
+    lo, hi = marks[0].time_range.start, marks[0].time_range.end
+    # the mark itself comes back as a device annotation too
+    return [e for e in events
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and e.name != "chip_smoke_counted" and lo <= e.time_range.start <= hi]
+
+
+def device_launches(fn, name: str, reps: int = 4) -> int:
+    """Kernels, copies and fills the device ran for one fn(), counted by
+    torch.profiler over `reps` calls (`counted_device_events`): the larger
+    of two whole readings where six windows give two, else the one. A
+    window sometimes comes back without a single device event, or torn
+    (once the x1.2 detection's second window held 15 launches of 8 calls of
+    2; late in the run windows of 4-16 calls came back empty); that is no
+    reading, so it is taken again over a window twice as long. A window may
+    also miss every record of one kernel and still look whole (once the
+    whole detection's first window held 4 launches of 4 calls of 2); the
+    tracer drops records and adds none, hence the larger reading. Each
+    reading set aside is logged under `name`."""
+    fn()                                   # first-use set-up stays outside
+    whole, readings = [], []
+    for attempt in range(6):
+        n = reps << attempt
+        total = len(counted_device_events(fn, n))
         if total and total % n == 0:
-            if readings:
-                log(f"[profiler] {name}: readings set aside (device launches, calls) "
-                    f"{readings}, then {total} over {n}")
-            return total // n
-        readings.append((total, n))
-    raise AssertionError(f"{name}: the profiler gave no whole reading in six windows (device "
-                         f"launches, calls): {readings}")
+            whole.append(total // n)
+            if len(whole) == 2:
+                break
+        else:
+            readings.append((total, n))
+    if not whole:
+        raise AssertionError(f"{name}: the profiler gave no whole reading in six windows "
+                             f"(device launches, calls): {readings}")
+    if readings or len(set(whole)) > 1:
+        log(f"[profiler] {name}: device launches a call in the whole readings {whole}; "
+            f"readings set aside (device launches, calls) {readings}")
+    return max(whole)
 
 
 # how the profiler names the kernels of csrc/ (a template's name starts with
@@ -369,41 +516,35 @@ def own_kernel(key: str) -> bool:
 
 def device_us_per_launch(fn, expect: dict, repeats: int = 10) -> dict:
     """Device microseconds per launch of each of the port's own kernels
-    over `repeats` calls of fn(), from torch.profiler: the mean over the
-    launches the tracer recorded. `expect` names the kernels and their
-    launches per call. The tracer drops records: often one launch of a
-    kernel in a window (9 of 10, in every window of a call), once none of
-    kernel A's ten and all of kernel C's. A window short of launches is logged;
-    one holding fewer than half of a kernel's is taken again, at most six
+    over `repeats` calls of fn(), from torch.profiler
+    (`counted_device_events`): the mean over the launches the tracer
+    recorded. `expect` names the kernels and their launches per call. The
+    tracer drops records: often one launch of a kernel in a window (9 of 10,
+    in every window of a call), once none of kernel A's ten and all of
+    kernel C's, and late in a long process whole short windows come back
+    empty. A window short of launches is logged; one holding fewer than
+    half of a kernel's is taken again over twice the calls, at most six
     times."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     readings = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(repeats):
-                fn()
-            torch.cuda.synchronize()
+    for attempt in range(6):
         us, count = {}, {}
-        for evt in prof.key_averages():
-            if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
-                    and own_kernel(evt.key)):
-                dev_us = getattr(evt, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        n_calls = repeats << attempt
+        for evt in counted_device_events(fn, n_calls):
+            if own_kernel(evt.name):
                 # a template's arguments (the scorer's group) are left out
-                name = evt.key.split("(anonymous namespace)::")[1].split("(")[0].split("<")[0]
-                us[name] = us.get(name, 0.0) + dev_us
-                count[name] = count.get(name, 0) + evt.count
-        readings.append(count)
-        if all(2 * count.get(k, 0) >= n * repeats for k, n in expect.items()):
-            if any(count.get(k, 0) != n * repeats for k, n in expect.items()):
-                log(f"[profiler] device us: launches recorded over {repeats} calls of "
+                name = evt.name.split("(anonymous namespace)::")[1].split("(")[0].split("<")[0]
+                us[name] = us.get(name, 0.0) + (evt.time_range.end - evt.time_range.start)
+                count[name] = count.get(name, 0) + 1
+        readings.append((n_calls, count))
+        if all(2 * count.get(k, 0) >= n * n_calls for k, n in expect.items()):
+            if len(readings) > 1 or any(count.get(k, 0) != n * n_calls
+                                        for k, n in expect.items()):
+                log(f"[profiler] device us: launches recorded (calls, launches) of "
                     f"{expect}: {readings}")
             return {k: round(us[k] / count[k], 2) for k in count}
-    raise AssertionError(f"the profiler missed over half of {expect} x {repeats} in six "
-                         f"windows: {readings}")
+    raise AssertionError(f"the profiler missed over half of {expect} in six windows (calls, "
+                         f"launches): {readings}")
 
 
 def device_rows(prof) -> list:
@@ -1771,6 +1912,447 @@ def families_phase(dev, smi, kernels, detect_images):
     return launches, batched, dict(x12, err=k1_err, build_ms=build_ms)
 
 
+# The JAX package's runs of phase 11's gated configurations on the same
+# frames, ATE in m, on the CPU (RANSAC seed = the run's seed):
+#   python tools/tour_reference_jax.py --sweep --config C --seeds 0 1 2 3 4
+#     (the 48-frame 640x480 sweep through PipelinedOdometry, batch 8)
+JAX_SWEEP_ATE = {
+    "euclidean": (0.0108, 0.0232, 0.03306, 0.02262, 0.02729),
+    "adaptive_euclidean": (0.13684, 0.12216, 0.11303, 0.15773, 0.13357),
+    "mahal": (0.03717, 0.0481, 0.03864, 0.04694, 0.04716),
+    "reassociate": (0.0092, 0.0061, 0.00622, 0.00539, 0.00516),
+}
+#   python tools/tour_reference_jax.py --loops 1.15 --detector orb --config cell6 --seeds 0
+JAX_ORB_CELL6_ATE = 0.03957
+#   python tools/tour_reference_jax.py --loops 1.15 --noise --config noise-robust+mahal
+JAX_MAHAL_DENSE_ATE = (0.04806, 0.01347, 0.01879)
+
+
+def configs_phase(dev, smi, kernels, sweep, sweep_frames):
+    """Phase 11: the configurations the card used to refuse (F8: any cell
+    size, any RANSAC sample size, 4,096 features through SlamSystem, N past
+    kernel B's shared memory) and the SlamConfig fields ported with them
+    (RANSAC's error models, the Mahalanobis polish, reassociating GICP),
+    through the entry points a user calls, and every new kernel mode
+    against its plain version with its time and device us a launch.
+    Returns the kernels line's entries of the new modes, each with its
+    launches on this phase's paths (each path's counts set to 0 just before
+    it and read just after) or through its public entry."""
+    import dataclasses
+
+    from rgbdslam_tpu_torch.config import (ExtractorConfig, IcpConfig, LoopConfig,
+                                           RansacConfig, SlamConfig)
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.frontend.matcher import gather_matched_points, match_frames
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import (SyntheticDataset, apply_sensor_noise,
+                                                 kinect_noise_fields)
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.ops import fast, image
+    from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+    from rgbdslam_tpu_torch.slam.tracking import Tracker
+    from rgbdslam_tpu_torch.solvers import icp as icp_mod
+    from rgbdslam_tpu_torch.solvers import ransac_se3 as rs
+
+    t_phase = time.perf_counter()
+    entries = {}
+    pallas = "rgbdslam_tpu/ops/pallas_kernels.py"
+
+    def entry(name, src, replaces, wrapper, launches, on_path, err, timing, bnd, dev_us):
+        entries[name] = dict(src=src, replaces=f"{pallas}:{replaces}", wrapper=wrapper,
+                             launches=launches, on_path=on_path, max_abs_err=err,
+                             ms=timing[0], plain_ms=timing[1], bound=bnd, device_us=dev_us)
+
+    # ---- the construction refusals of the limits that stay
+    refused = []
+    for ecfg, msg in ((ExtractorConfig(cell_size=40), "at most 32"),
+                      (ExtractorConfig(cell_size=2), "46000"),
+                      (ExtractorConfig(scale_factor=1.2, num_levels=9), "at most 8")):
+        for cls in (Tracker, SlamSystem, PipelinedOdometry):
+            try:
+                cls(SYNTHETIC, SlamConfig(extractor=ecfg), device=dev)
+            except ValueError as e:
+                check(msg in str(e), f"{cls.__name__}: refused with {e!r}, expected {msg!r}")
+                refused.append(f"{cls.__name__}: {e}")
+            else:
+                raise AssertionError(f"{cls.__name__} built with {ecfg} on the card")
+    log(f"[configs] refused at construction: {json.dumps(refused[::3])} (and by the other "
+        f"two constructors)")
+
+    # ---- the sweep through PipelinedOdometry(device="cuda"), five seeds a
+    # configuration, the plain versions forbidden
+    seeds = (0, 1, 2, 3, 4)
+    n_sweep = len(sweep_frames)
+
+    def sweep_runs(tag, cfg, run_seeds=seeds):
+        odos = [PipelinedOdometry(SYNTHETIC, cfg, batch=8, seed=sd, device=dev)
+                for sd in run_seeds]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_versions_forbidden(kernels):
+            runs = [o.run(sweep_frames) for o in odos]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        ates, fails = [], []
+        for ts, poses, st in runs:
+            check(poses.shape == (n_sweep, 4, 4) and np.isfinite(poses).all(),
+                  f"{tag}: bad poses")
+            ates.append(ate_rmse(ts, poses, sweep.timestamps, sweep.poses_twc)[0])
+            fails.append(st["failures"])
+        pairs = (n_sweep - 1) * len(run_seeds)
+        expect = {"detect_keypoints_fused": n_sweep * len(run_seeds),
+                  "ransac_se3_fused": pairs, "gicp_refine_fused": pairs}
+        for k, v in expect.items():
+            check(launches[k] == v, f"{tag}: {k} launched {launches[k]} times, expected {v}")
+        med = float(np.median(ates))
+        log(f"[configs] sweep {tag}, seeds {list(run_seeds)}: ATE median {med:.5f} m, "
+            f"{json.dumps([round(float(a), 5) for a in ates])}, failures {fails}, "
+            f"{1000 * wall / (n_sweep * len(run_seeds)):.3f} ms/frame ({smi})")
+        return med, launches
+
+    base = SlamConfig()
+    path_launches = {}
+    for cell in (5, 6):
+        cfg = dataclasses.replace(base, extractor=dataclasses.replace(base.extractor,
+                                                                     cell_size=cell))
+        med, path_launches[f"cell{cell}"] = sweep_runs(f"cell_size {cell}", cfg)
+        check(med < 0.05, f"sweep at cell_size {cell}: median ATE {med} m >= 0.05 m")
+    for S in (3, 5):
+        cfg = dataclasses.replace(base, ransac=dataclasses.replace(base.ransac, sample_size=S))
+        med, path_launches[f"s{S}"] = sweep_runs(f"sample_size {S}", cfg)
+        check(med < 0.05, f"sweep at sample_size {S}: median ATE {med} m >= 0.05 m")
+    item23 = {"euclidean": dict(ransac=RansacConfig(error_model="euclidean")),
+              "adaptive_euclidean": dict(ransac=RansacConfig(error_model="adaptive_euclidean")),
+              "mahal": dict(ransac=RansacConfig(mahalanobis_refine=True)),
+              "reassociate": dict(icp=IcpConfig(reassociate=True))}
+    for name, kw in item23.items():
+        med, path_launches[name] = sweep_runs(name, dataclasses.replace(base, **kw))
+        jax_med = float(np.median(JAX_SWEEP_ATE[name]))
+        limit = 1.5 * jax_med + 0.01
+        log(f"[configs] sweep {name}: the JAX package's median on the same frames "
+            f"{jax_med:.5f} m (CPU, {json.dumps(JAX_SWEEP_ATE[name])}), bound {limit:.5f} m")
+        check(med <= limit, f"sweep {name}: median ATE {med} m above {limit} m")
+    # N = 8,192 correspondences (kernel B's planes in global memory): one
+    # seed at 8,192 features in cells of 4 pixels
+    big = dataclasses.replace(base, extractor=dataclasses.replace(
+        base.extractor, num_features=8192, cell_size=4))
+    med, path_launches["n8192"] = sweep_runs("num_features 8192, cell_size 4", big, (0,))
+    check(med < 0.05, f"sweep at 8192 features: ATE {med} m >= 0.05 m")
+
+    # ---- the clean revisit tour: orb (x1.2) at cell_size 6, serial seed 0
+    loop = LoopConfig(id_interval=12, min_kfs_since_loop=10)
+    n_tour = 128
+    revisit = SyntheticDataset(n_frames=n_tour, cam=SYNTHETIC, trajectory="tour", loops=1.15,
+                               device=dev)
+    revisit_frames = [revisit.grab(i) for i in range(n_tour)]
+
+    def serial(tag, cfg, frames, ds, voc, seed=0):
+        system = SlamSystem(SYNTHETIC, cfg, seed=seed, device=dev)
+        system.load_vocabulary(voc)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_versions_forbidden(kernels):
+            for f in frames:
+                system.track(*f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        system.finish()
+        ts_c, poses_c = system.camera_trajectory()
+        check(np.isfinite(poses_c).all(), f"{tag}: non-finite poses")
+        rmse, _ = ate_rmse(ts_c, poses_c, ds.timestamps, ds.poses_twc)
+        st = system.tracker.stats
+        log(f"[configs] {tag} seed {seed}: ATE {rmse:.5f} m, keyframes {system.store.count}, "
+            f"loops {system.loops_closed}, failures {st.failures}, estimates {st.estimates}, "
+            f"{1000 * wall / len(frames):.3f} ms/frame ({smi})")
+        return rmse, launches, system
+
+    orb_cfg = SlamConfig(detector="orb", loop=loop,
+                         extractor=dataclasses.replace(base.extractor, cell_size=6))
+    rmse, path_launches["orb_cell6"], _ = serial("orb cell_size 6, revisit tour", orb_cfg,
+                                                 revisit_frames, revisit,
+                                                 shipped_vocabulary("orb"))
+    limit = 1.5 * JAX_ORB_CELL6_ATE + 0.01
+    check(rmse <= limit, f"orb at cell_size 6: ATE {rmse} m above {limit} m (JAX "
+          f"{JAX_ORB_CELL6_ATE} m)")
+    check(path_launches["orb_cell6"]["detect_keypoints_scaled"] >= n_tour
+          and path_launches["orb_cell6"]["detect_score_map"] == 0,
+          f"orb cell 6 launches {path_launches['orb_cell6']}")
+
+    # ---- the multi-room tour at 4,096 features (K4 and RANSAC at N = 4,096)
+    tour = SyntheticDataset(n_frames=n_tour, cam=SYNTHETIC, trajectory="tour", device=dev)
+    tour_frames = [tour.grab(i) for i in range(n_tour)]
+    wide_cfg = SlamConfig(loop=loop, extractor=dataclasses.replace(
+        base.extractor, num_features=4096, cell_size=8))
+    rmse, path_launches["n4096"], sys4096 = serial("4096 features, cell_size 8, tour",
+                                                   wide_cfg, tour_frames, tour,
+                                                   shipped_vocabulary("svo_fast"))
+    check(rmse < 0.05, f"4096 features: ATE {rmse} m >= 0.05 m")
+    est = sys4096.tracker.stats.estimates
+    check(path_launches["n4096"]["gicp_refine_fused"] == est,
+          f"4096 features: {path_launches['n4096']['gicp_refine_fused']} K4 launches for "
+          f"{est} estimates")
+
+    # ---- the Kinect-noise revisit tour with --noise-robust and the polish
+    dense_mahal = SlamConfig(loop=loop, use_dense_icp=True,
+                             ransac=RansacConfig(mahalanobis_refine=True))
+    h, w = SYNTHETIC.height, SYNTHETIC.width
+    noisy_ates = []
+    noise_launches = {}
+    for sd in (0, 1, 2):
+        frames = [(ts, *apply_sensor_noise(SYNTHETIC, g, d, None,
+                                           *kinect_noise_fields(sd, i, h, w)))
+                  for i, (ts, g, d) in enumerate(revisit_frames)]
+        rmse, launches, _ = serial("noisy tour --noise-robust + mahalanobis_refine",
+                                   dense_mahal, frames, revisit,
+                                   shipped_vocabulary("svo_fast"), seed=sd)
+        noisy_ates.append(rmse)
+        for k, v in launches.items():
+            noise_launches[k] = noise_launches.get(k, 0) + v
+        del frames
+    path_launches["mahal_dense"] = noise_launches
+    jax_med = float(np.median(JAX_MAHAL_DENSE_ATE))
+    med = float(np.median(noisy_ates))
+    limit = 1.5 * jax_med + 0.01
+    log(f"[configs] noisy tour --noise-robust + mahalanobis_refine: median {med:.5f} m; the "
+        f"JAX package's on the same frames {jax_med:.5f} m (CPU, "
+        f"{json.dumps(JAX_MAHAL_DENSE_ATE)}), bound {limit:.5f} m")
+    check(med <= limit, f"mahal+dense median ATE {med} m above {limit} m")
+
+    # ---- every new kernel mode against its plain version, its time and
+    # its device us a launch
+    gray, depth = sweep_frames[1][1], sweep_frames[1][2]
+
+    def same_kp(a, b, what):
+        for f in ("uv", "level", "score", "valid"):
+            x, y = getattr(a, f), getattr(b, f)
+            check(x.dtype == y.dtype and torch.equal(x, y), f"{what}: {f}")
+
+    ecfg = base.extractor
+    pyr = image.build_pyramid(gray, ecfg.num_levels)
+    x12 = image.build_scaled_pyramid(revisit_frames[25][1], 8, 1.2)
+    border = max(ecfg.min_border, ecfg.brief_patch_size // 2 + 1)
+    for cell in (3, 5, 6, 10, 12, 24):
+        for sub in (False, True):
+            kw = dict(num_features=1024, cell_size=cell, fast_threshold=ecfg.fast_threshold,
+                      min_response=ecfg.min_response, min_border=ecfg.min_border,
+                      subpixel=sub)
+            same_kp(fast.detect_keypoints(pyr, **kw), fast.detect_keypoints_ref(pyr, **kw),
+                    f"half-sample detection, cell {cell}, subpixel {sub}")
+            q = fast.level_quotas(1024, 8, 1.2, cell, [tuple(p.shape) for p in x12])
+            args = (x12, q, cell, ecfg.fast_threshold, ecfg.min_response, border, True,
+                    ecfg.fast_threshold, sub)
+            same_kp(fast.detect_keypoints_scaled(*args), fast.detect_keypoints_scaled_ref(*args),
+                    f"x1.2 detection, cell {cell}, subpixel {sub}")
+    log("[configs] kernel A's whole-cell tiles: the half-sample and x1.2 detections at cells "
+        "3, 5, 6, 10, 12, 24, with and without offsets, equal the plain versions")
+    det6 = (ecfg.num_features, 6, ecfg.fast_threshold, ecfg.min_response, ecfg.min_border)
+    q6 = fast.level_quotas(1024, 8, 1.2, 6, [tuple(p.shape) for p in x12])
+    args6 = (x12, q6, 6, ecfg.fast_threshold, ecfg.min_response, border, True,
+             ecfg.fast_threshold)
+    n_px = sum(int(lvl.numel()) for lvl in pyr)
+    n_px12 = sum(int(lvl.numel()) for lvl in x12)
+    n_c6 = (480 // 6) * (640 // 6)
+    n_c12 = sum((p.shape[0] // 6) * (p.shape[1] // 6) for p, qq in zip(x12, q6) if qq > 0)
+    for name, fn, plain, expect, bnd in (
+            ("detect_keypoints_fused_cell6", lambda: fast.detect_keypoints(pyr, *det6),
+             lambda: fast.detect_keypoints_ref(pyr, *det6),
+             {"detect_cells_kernel": 1, "detect_select_kernel": 1},
+             bound(n_px * 4 + 1024 * 17, n_px * DETECT_OPS_PER_PX
+                   + 4 * n_c6 * len(pyr) + rank_ops(n_c6))),
+            ("detect_keypoints_scaled_cell6", lambda: fast.detect_keypoints_scaled(*args6),
+             lambda: fast.detect_keypoints_scaled_ref(*args6),
+             {"detect_cells_kernel": 1, "detect_rank_kernel": 1},
+             bound(n_px12 * 4 + 1024 * 17, n_px12 * DETECT_OPS_PER_PX + rank_ops(n_c12)))):
+        n = device_launches(fn, name=name)
+        check(n == 2, f"{name}: {n} device launches, not 2")
+        dus = device_us_per_launch(fn, expect)
+        t = paired_ms(fn, plain)
+        wrapper = ("detect_keypoints_fused" if "fused" in name else "detect_keypoints_scaled")
+        tag = "cell6" if "fused" in name else "orb_cell6"
+        entry(name, "detect.cu", 320, wrapper, path_launches[tag][wrapper], True, 0.0, t, bnd,
+              dus)
+        log(f"[configs] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
+            f"{bnd[0]:.6f} ms by {bnd[1]}, device us a launch {json.dumps(dus)}, device "
+            f"launches a call {n} ({smi})")
+
+    # K4 at N = 1,024, 3,000 (shared memory), 3,001, 4,096 (global memory),
+    # reassociating at 1,024 and 4,096, against the plain loop and gate
+    def gicp_problem(seed, N):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p1 = torch.rand(N, 3, generator=g, device=dev) * 2 - 1
+        p1[:, 2] += 2.5
+        T = se3.exp(0.03 * torch.randn(6, generator=g, device=dev))
+        p2 = p1 @ T[:3, :3].T + T[:3, 3] + 0.004 * torch.randn(N, 3, generator=g, device=dev)
+        A = 0.02 * torch.randn(N, 3, 3, generator=g, device=dev)
+        C1 = (A @ A.transpose(1, 2) + 1e-4 * torch.eye(3, device=dev)).contiguous()
+        C2 = C1.flip(0).contiguous()
+        valid = torch.rand(N, generator=g, device=dev) > 0.2
+        T0 = (se3.exp(0.02 * torch.randn(6, generator=g, device=dev)) @ T).contiguous()
+        return T0, p1, p2.contiguous(), C1, C2, valid
+
+    icp_cfg = IcpConfig(max_iterations=10, max_correspondence_dist=0.07)
+    k4_times = {}
+    for N, reassoc in ((1024, False), (3000, False), (3001, False), (4096, False),
+                       (1024, True), (4096, True)):
+        T0, p1, p2, C1, C2, valid = gicp_problem(60 + N, N)
+        cfg = dataclasses.replace(icp_cfg, reassociate=reassoc)
+
+        def k4():
+            return icp_mod.gicp_refine(p1, p2, valid, T0, cfg, C1, C2)
+
+        def plain():
+            fin = kernels.gicp_refine_ref(T0, p1, p2, C1, C2, valid, 10, 0.07,
+                                          reassociate=reassoc)[0]
+            return icp_mod._finish_gicp(fin, T0, p1, p2, valid, cfg)
+
+        kT, kc, kn = k4()
+        pT, pc, pn = plain()
+        check(bool(kc) == bool(pc) and int(kn) == int(pn), f"K4 N {N} reassociate {reassoc}: "
+              "converged or n_valid differ")
+        torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
+        err = float((kT - pT).abs().max())
+        n = device_launches(k4, name=f"gicp_refine N {N}")
+        check(n == 1, f"gicp_refine N {N} reassociate {reassoc}: {n} device launches")
+        dus = device_us_per_launch(k4, {"gicp_refine_kernel": 1})
+        t = paired_ms(k4, plain)
+        ops = gicp_ops(int(valid.sum()), gicp_gated_counts(T0, p1, p2, C1, C2, valid, cfg),
+                       reassoc)
+        k4_times[(N, reassoc)] = (t, dus, err, ops)
+        log(f"[configs] K4 N {N}{' reassociating' if reassoc else ''} "
+            f"({'global' if N > kernels.GICP_SHARED_POINTS else 'shared'} memory): kernel "
+            f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, device us a launch {json.dumps(dus)}, "
+            f"pose - plain {err:.3g} ({smi})")
+    gicp_bytes = lambda N: N * (3 + 3 + 9 + 9) * 4 + N + 64 + 64 + 5   # noqa: E731
+    # reassociation counted as a scan (a k-d tree would do fewer)
+    for name, key, path in (("gicp_refine_fused_n4096", (4096, False), "n4096"),
+                            ("gicp_refine_fused_reassociate", (1024, True), "reassociate")):
+        t, dus, err, ops = k4_times[key]
+        entry(name, "gicp.cu", 791, "gicp_refine_fused",
+              path_launches[path]["gicp_refine_fused"], True, err, t,
+              bound(gicp_bytes(key[0]), ops), dus)
+
+    # the polish kept: on 13 problems of 1,024 points (0.003 m noise, 30 %
+    # outliers) the plain polish moves most poses; kernel B's poses lie by
+    # the polished ones, within 5e-5, and not by the unpolished ones. (On the
+    # sweep pair below the plain version rejects its polish.)
+    g = torch.Generator(device=dev).manual_seed(30)
+    b1 = torch.rand(13, 1024, 3, generator=g, device=dev) * 2 - 1
+    b1[..., 2] += 2.5
+    Tb = se3.exp(0.05 * torch.randn(13, 6, generator=g, device=dev))
+    b2 = (b1 @ Tb[:, :3, :3].transpose(-1, -2) + Tb[:, None, :3, 3]
+          + 0.003 * torch.randn(13, 1024, 3, generator=g, device=dev))
+    b2 = b2 + (torch.rand(13, 1024, generator=g, device=dev) < 0.3)[..., None] * 0.5 * (
+        torch.randn(13, 1024, 3, generator=g, device=dev))
+    bv = torch.rand(13, 1024, generator=g, device=dev) < 0.85
+    qb = (b1, b2.contiguous(), torch.where(bv, 1.0 / (b1[..., 2] * b2[..., 2]), 0.0), bv)
+    rc = RansacConfig(mahalanobis_refine=True)
+    nv = torch.clamp_min(bv.sum(-1), 1)[:, None, None]
+    draws = torch.minimum((torch.rand(13, rc.num_hypotheses, 4, generator=g, device=dev)
+                           * nv).long(), nv - 1)
+    res = rs.ransac_se3_cuda(*qb, rc, draws=draws)[0]
+    hyp = rs.hypotheses_ref(*qb, rc, draws=draws)
+    polished = rs.select_refine_ref(*hyp, *qb, rc)
+    bare = rs.select_refine_ref(*hyp, *qb, dataclasses.replace(rc, mahalanobis_refine=False))
+    torch.testing.assert_close(res.T21, polished.T21, rtol=1e-4, atol=5e-5)
+    move = (polished.T21 - bare.T21).abs().amax((-1, -2))
+    off = (res.T21 - polished.T21).abs().amax((-1, -2))
+    kept = move > 1e-4
+    check(int(kept.sum()) >= 4 and bool((off[kept] < 0.25 * move[kept]).all()),
+          f"the polish: the plain version moved {json.dumps(move.tolist())}, kernel B's poses "
+          f"lie {json.dumps(off.tolist())} from the polished ones")
+    log(f"[configs] the polish on 13 problems: the plain version's polish moves "
+        f"{int(kept.sum())} poses by {float(move[kept].min()):.3g}-{float(move.max()):.3g}; "
+        f"kernel B's poses lie at most {float(off.max()):.3g} from the polished ones")
+
+    # the fused RANSAC in every new mode on the first sweep pair's matches
+    f0 = PipelinedOdometry(SYNTHETIC, base, device=dev).features(*sweep_frames[0][1:])
+    f1 = PipelinedOdometry(SYNTHETIC, base, device=dev).features(gray, depth)
+    m = match_frames(f0, f1, base.matcher.nn_ratio)
+    p1, p2, w, valid = gather_matched_points(f0, f1, m)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    N = p1.shape[0]
+    modes = {"ransac_se3_fused_s3": (dict(sample_size=3), "s3"),
+             "ransac_se3_fused_s5": (dict(sample_size=5), "s5"),
+             "ransac_se3_fused_euclidean": (dict(error_model="euclidean"), "euclidean"),
+             "ransac_se3_fused_adaptive_euclidean": (dict(error_model="adaptive_euclidean"),
+                                                     "adaptive_euclidean"),
+             "ransac_se3_fused_reprojection": (dict(error_model="reprojection"), None),
+             "ransac_se3_fused_both": (dict(error_model="both"), None),
+             "ransac_se3_fused_polish": (dict(mahalanobis_refine=True), "mahal"),
+             "ransac_se3_fused_n8192": ({}, "n8192")}
+    for name, (kw, path) in modes.items():
+        rc = RansacConfig(**kw)
+        cam = SYNTHETIC if rc.error_model in ("reprojection", "both") else None
+        q = (p1, p2, w, valid)
+        if name.endswith("n8192"):
+            g = torch.Generator(device=dev).manual_seed(8)
+            r1 = torch.rand(8192, 3, generator=g, device=dev) * 2 - 1
+            r1[:, 2] += 2.5
+            r2 = r1 + 0.003 * torch.randn(8192, 3, generator=g, device=dev)
+            bad = torch.rand(8192, generator=g, device=dev) < 0.3
+            r2 = (r2 + bad[:, None] * 0.5 * torch.randn(8192, 3, generator=g, device=dev))
+            rv = torch.rand(8192, generator=g, device=dev) < 0.9
+            q = (r1.contiguous(), r2.contiguous(),
+                 torch.where(rv, 1.0 / (r1[:, 2] * r2[:, 2]), 0.0), rv)
+        H, S = rc.num_hypotheses, rc.sample_size
+        nv = torch.clamp_min(q[3].sum(), 1)
+        draws = torch.minimum((torch.rand(H, S, generator=gen, device=dev) * nv).long(), nv - 1)
+        kernels.reset_launch_counts()
+        res, (aT, acnt, aerr) = rs.ransac_se3_cuda(*q, rc, draws=draws, cam=cam)
+        pT, pcnt, perr = rs.hypotheses_ref(*q, rc, draws=draws, cam=cam)
+        ok, e2 = rs.pair_errors(aT, q[0], q[1], rc, cam)
+        inl = ok & q[3]
+        check(torch.equal(acnt, inl.sum(-1).to(torch.int32)),
+              f"{name}: kernel A's counts differ from the plain scoring of its poses")
+        # a sample of nearly coincident points leaves its fit ill-determined
+        # (phase 3): at most 3 % of the hypotheses beyond 5e-5, each scoring
+        # within 2 inliers of the plain fit's pose
+        far = (aT - pT).nan_to_num().abs().amax((-1, -2)) > 5e-5
+        check(int(far.sum()) <= 0.03 * H, f"{name}: {int(far.sum())} of {H} poses of kernel "
+              "A beyond 5e-5 of the plain fit")
+        check(int(((acnt.long() - pcnt.long()).abs() * far).max()) <= 2,
+              f"{name}: an ill-determined hypothesis scores apart from the plain fit's")
+        for what, ref in (("kernel B", rs.select_refine_ref(aT, acnt, aerr, *q, rc, cam)),
+                          ("whole", rs.select_refine_ref(pT, pcnt, perr, *q, rc, cam))):
+            check(torch.equal(res.success, ref.success), f"{name}, {what}: success")
+            dn = abs(int(res.num_inliers) - int(ref.num_inliers))
+            check(dn <= 2, f"{name}, {what}: inlier counts differ by {dn}")
+            torch.testing.assert_close(res.T21, ref.T21, rtol=1e-4, atol=5e-5)
+        err = float((res.T21 - ref.T21).abs().max())
+
+        def fused(q=q, rc=rc, cam=cam):
+            return rs.ransac_se3(*q, gen, rc, cam=cam)
+
+        def plain(q=q, rc=rc, cam=cam):
+            return rs.ransac_se3_ref(*q, gen, rc, cam=cam)
+
+        n = device_launches(fused, name=name)
+        check(0 < n <= 4, f"{name}: {n} device launches, limit 4")
+        off = kernels.LAUNCHES["ransac_se3_fused"]
+        dus = device_us_per_launch(fused, {"ransac_fit_score_kernel": 1,
+                                           "ransac_select_refine_kernel": 1})
+        t = paired_ms(fused, plain)
+        Nq = q[0].shape[0]
+        ops = ransac_ops(rc, 1, int(q[3].sum()), int(res.num_inliers), int(acnt.sum()))
+        bnd = bound(Nq * (24 + 4 + 1) + H * S * 4 + 64 + Nq + 9, ops)
+        on_path = path is not None
+        entry(name, "mahal.cu", 480, "ransac_se3_fused",
+              path_launches[path]["ransac_se3_fused"] if on_path else off, on_path, err, t,
+              bnd, dus)
+        log(f"[configs] {name} (N {Nq}, S {S}): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+            f"bound {bnd[0]:.6f} ms by {bnd[1]}, device us a launch {json.dumps(dus)}, device "
+            f"launches a call {n}, T21 - plain {err:.3g}, inliers {int(res.num_inliers)} "
+            f"({smi})")
+    log(f"[configs] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def scaled_detection_timing(smi, kernels, gray, depth, ecfg):
     """The x1.2 detection of one 640x480 frame on the card: 2 device
     launches (profiler), and so the half-sample detection with subpixel
@@ -3119,18 +3701,16 @@ def main() -> int:
     def gated_bound(b):    # K2's work, the gates' five operations and one flag per query
         return bound(b * N * 33 + M * 33 + b * N * 9, b * N * M * 8 * 3 + b * N * 5)
 
-    def ransac_bound(b):
-        """The function's work whatever implements it: H x N scorings of
-        ~100 operations, H + refine_iters Horn fits (30 iterations of ~45
-        operations and ~150 around them; a refit's moments ~40 per
-        correspondence), refine_iters + 1 scorings of one pose (the winner's
-        and each refit's: a second scoring of a refit repeats the first bit
-        for bit and is not needed); p1, p2, w, valid and the uniforms read
-        once, T21, the mask and three scalars written once."""
-        r = rc.refine_iters
-        fit = 30 * 45 + 150
-        ops = H * N * 100 + (H + r) * fit + r * N * 40 + (r + 1) * N * 100
-        return bound(b * (N * (24 + 4 + 1) + H * S * 4 + 64 + N + 9), b * ops)
+    def ransac_bound(q):
+        """The function's work on this data (`ransac_ops`: the valid slots,
+        kernel A's inliers and the results' of one call with the draws of
+        `gen`); p1, p2, w, valid and the uniforms read once, T21, the mask
+        and three scalars written once."""
+        res, (_, cnt_h, _) = ransac_mod.ransac_se3_cuda(
+            *q, rc, ransac_mod._uniforms(q[0], rc, gen, None))
+        b = res.num_inliers.numel()
+        ops = ransac_ops(rc, b, int(q[3].sum()), int(res.num_inliers.sum()), int(cnt_h.sum()))
+        return bound(b * (N * (24 + 4 + 1) + H * S * 4 + 64 + N + 9), ops)
 
     bounds = {
         # the image in, two maps out; DETECT_OPS_PER_PX a pixel
@@ -3141,15 +3721,16 @@ def main() -> int:
         "mahal_hypothesis_scores_b13": k3_bound(vb, kcb),
         "match_gated": gated_bound(1),
         "match_gated_b13": gated_bound(13),
-        "ransac_se3_fused": ransac_bound(1),
-        "ransac_se3_fused_b13": ransac_bound(13),
+        "ransac_se3_fused": ransac_bound((p1, p2, w, valid)),
+        "ransac_se3_fused_b13": ransac_bound((Xb, p2b, wb, vb)),
         # the pyramid in, the keypoint slots out; DETECT_OPS_PER_PX a pixel, the
         # merge (4 a level and cell) and the ranking of the cells
         "detect_keypoints_fused": bound(
             n_px * 4 + ecfg.num_features * 17,
             n_px * DETECT_OPS_PER_PX + 4 * n_det_cells * len(pyr) + rank_ops(n_det_cells)),
-        # ~300 float operations per correspondence and round, ~20 for the gate
-        "gicp_refine_fused": bound(gicp_bytes + 64 + 5, N * (300 * icp.max_iterations + 20)),
+        # every round's residuals, gate and build on this run's gated pairs
+        "gicp_refine_fused": bound(gicp_bytes + 64 + 5, gicp_ops(
+            int(k4_args[5].sum()), gicp_gated_counts(*k4_args, icp), icp.reassociate)),
         # every pair's residual and gate, the build on the gated pairs of
         # this run (K5's count on the timed pair); H, b, cost, count out
         "gicp_gn_normal_equations": bound(
@@ -3177,6 +3758,9 @@ def main() -> int:
     # ---------------------------------------------------------------- 10
     launches_families, batched_families, fam = families_phase(dev, smi, kernels,
                                                              detect_images)
+
+    # ---------------------------------------------------------------- 11
+    configs = configs_phase(dev, smi, kernels, ds, frames)
     log(f"[times] detect_score_map at the sweep's 4 half-sample levels: kernel "
         f"{timing['detect_score_map'][0]:.4f} ms, plain {timing['detect_score_map'][1]:.4f} ms "
         f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
@@ -3250,7 +3834,23 @@ def main() -> int:
              "max_abs_err": results[k]["max_abs_err"],
              "ms": timing[k][0], "plain_ms": timing[k][1],
              "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None})
+    # phase 11's kernel modes: launches on its own paths (the mode's runs,
+    # counted from 0 each) or, for the reprojection models that no SLAM
+    # caller reaches (no caller passes RANSAC a camera), through the public
+    # entry
+    for k, e in configs.items():
+        check(e["launches"] > 0, f"{k}: no launch")
+        line["kernels"].append(
+            {"name": k, "route": "cuda", "source": f"rgbdslam_tpu_torch/csrc/{e['src']}",
+             "replaces": e["replaces"], "launches": e["launches"],
+             "launches_configs": e["launches"] if e["on_path"] else 0,
+             "launches_off_path": 0 if e["on_path"] else e["launches"],
+             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+             "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": None,
+             "device_us": e["device_us"]})
     for entry in line["kernels"]:
+        if "launches_configs" in entry:
+            continue
         on_path = sum(entry[f"launches_{path}"] for path in paths)
         if entry["name"] in off_path:
             check(on_path == 0 and entry["launches_off_path"] > 0,

@@ -214,6 +214,10 @@ def main(argv=None) -> int:
         detector=args.detector,
         adaptive=args.adaptive,
     )
+    # the limits that stay on the card, before the loader starts
+    from rgbdslam_tpu_torch.slam.tracking import check_system_config
+
+    check_system_config(cfg, ds.cam, device)
     if args.pipelined and not args.odometry_only:
         print("--pipelined implies --odometry-only", file=sys.stderr)
         args.odometry_only = True

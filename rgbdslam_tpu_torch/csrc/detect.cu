@@ -39,12 +39,17 @@
 //    cell_size on every level, the level's own grid and border. The FAST
 //    threshold is a device scalar, read once per block (the TPU kernel's
 //    thr_ref): a threshold that the batched tracker evolves on the device
-//    costs no host read. After tile_scores it applies the border gate and,
-//    for each cell of the tile (the 32x16 tile must be a whole number of
-//    cells), finds the maximum and its first index in the cell's row-major
-//    order (strict >, so an all -inf cell gives index 0, as argmax does). A
-//    cell lies in exactly one tile, so each (level, cell) entry is written by
-//    one block, without atomics. Pixels beyond rows*cell x cols*cell belong
+//    costs no host read. A level's tile is made of whole cells of its cell
+//    size c (1 to 32): c * max(1, 32 / c) pixels wide and c * max(1, 16 / c)
+//    high (whole_cell_tile), so the reference's 5-pixel SVO grid runs as
+//    30 x 15 tiles; where every level's tile is 32 x 16 (c = 1, 2, 4, 8,
+//    16, the default configuration) a fixed instantiation keeps the strides
+//    constant. A block of 512 threads walks the tile's pixels, up to 1,024
+//    (32 x 32). After tile_scores it applies the NMS and the border gate
+//    and, for each cell of the tile, finds the maximum and its first index
+//    in the cell's row-major order (strict >, so an all -inf cell gives
+//    index 0, as argmax does). A cell lies in exactly one tile, so each
+//    (level, cell) entry is written by one block, without atomics. Pixels beyond rows*cell x cols*cell belong
 //    to no cell. No dense map is written. The masked map holds no NaN (a NaN
 //    score never passes the >= of the NMS), so neither do the cell maxima.
 //    With subpixel offsets the same thread writes the parabola offsets at
@@ -81,12 +86,12 @@
 //    levels' slots come out in level order; the caller scales each slot to
 //    level 0 by its level's f32(1.2^l).
 //
-// One tile shape serves every level: the whole-image / row-tiled split of
-// the Pallas version existed only for the TPU's VMEM.
-// The input tile and a 6-pixel halo (NMS 1 + box radius 4 + gradient 1) go
+// The whole-image / row-tiled split of the Pallas version existed only for
+// the TPU's VMEM. The input tile and a 6-pixel halo (NMS 1 + box radius 4 + gradient 1) go
 // into shared memory once, zero-filled outside the image like the Pallas
 // kernel; every intermediate (gradients, row box sums, score, corner flags)
-// stays in shared memory.
+// stays in shared memory (dynamic, sized for the largest level's tile: 36 KB
+// at 32 x 16, 61 KB at 32 x 32).
 // Semantics kept: gradients are zero on the outer row and column, box sums
 // are zero-padded and separable (row pass, then column pass, adding the +s
 // then the -s neighbour), FAST-10 runs only on the 3-pixel interior with
@@ -111,51 +116,82 @@
 
 namespace {
 
-constexpr int TW = 32;                 // output tile width
-constexpr int TH = 16;                 // output tile height
+constexpr int TW = 32;                 // the dense kernel's tile, and kernel A's widest
+constexpr int TH = 16;                 // ... and its usual height
+constexpr int kTileThreads = TW * TH;  // threads of a tile's block
 constexpr int HALO = 6;
 constexpr int R = 4;                   // Shi-Tomasi box radius
 constexpr int kArc = 10;               // FAST arc length
-constexpr int SW = TW + 2 * HALO;      // image tile (halo 6)
-constexpr int SH = TH + 2 * HALO;
-constexpr int GW = TW + 10;            // gradients (halo 5)
-constexpr int GH = TH + 10;
-constexpr int BW = TW + 2;             // score / corners (halo 1)
-constexpr int BH = TH + 2;
 
 __constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
 __constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
 
-// Everything a tile keeps in shared memory.
-struct TileSmem {
-  float img[SH][SW];
-  float dx[GH][GW];
-  float dy[GH][GW];
-  float hxx[GH][BW];
-  float hyy[GH][BW];
-  float hxy[GH][BW];
-  float score[BH][BW];
-  float cs[BH][BW];
-  unsigned char corner[BH][BW];
+// Everything a tw x th tile keeps in shared memory, as views into the
+// block's dynamic shared memory: the image with a 6-pixel halo (sw wide),
+// the gradients with 5 (gw), the row box sums (gw rows of bw), the scores,
+// corner scores and corner flags with 1 (bw). A tile's strides are the
+// dense kernel's constants where the tile is 32 x 16, so the compiler folds
+// them there.
+struct Tile {
+  float* f;          // the views, end to end
+  int tw, th, sw, gw, bw;
+  __device__ __forceinline__ float* img() const { return f; }
+  __device__ __forceinline__ float* dx() const { return f + (th + 2 * HALO) * sw; }
+  __device__ __forceinline__ float* dy() const { return dx() + (th + 10) * gw; }
+  __device__ __forceinline__ float* hxx() const { return dy() + (th + 10) * gw; }
+  __device__ __forceinline__ float* hyy() const { return hxx() + (th + 10) * bw; }
+  __device__ __forceinline__ float* hxy() const { return hyy() + (th + 10) * bw; }
+  __device__ __forceinline__ float* score() const { return hxy() + (th + 10) * bw; }
+  __device__ __forceinline__ float* cs() const { return score() + (th + 2) * bw; }
+  __device__ __forceinline__ unsigned char* corner() const {
+    return reinterpret_cast<unsigned char*>(cs() + (th + 2) * bw);
+  }
 };
 
-// The (masked, raw) scores of this thread's pixel of the tile at (x0, y0) of
-// a level of h x w pixels: masked is the Shi-Tomasi score where the pixel is
-// a FAST corner winning its 3x3 neighbourhood and -inf elsewhere, raw the
-// dense score. For a thread outside the image masked is -inf and raw 0.
-// Called by all TW x TH threads of the block.
+__host__ __device__ __forceinline__ int tile_floats(int tw, int th) {
+  return (th + 2 * HALO) * (tw + 2 * HALO) + 2 * (th + 10) * (tw + 10)
+         + 3 * (th + 10) * (tw + 2) + 2 * (th + 2) * (tw + 2);
+}
+
+// Bytes of a tile's views (the corner flags last, rounded up to 16).
+__host__ __device__ __forceinline__ int tile_bytes(int tw, int th) {
+  return (tile_floats(tw, th) * 4 + (th + 2) * (tw + 2) + 15) & ~15;
+}
+
+// The views of a tw x th tile at `base`: one base pointer and the strides,
+// each view's offset computed where it is used (constants where tw and th
+// are), so no view takes a register of its own.
+__device__ __forceinline__ Tile carve_tile(char* base, int tw, int th) {
+  Tile t;
+  t.f = reinterpret_cast<float*>(base);
+  t.tw = tw;
+  t.th = th;
+  t.sw = tw + 2 * HALO;
+  t.gw = tw + 10;
+  t.bw = tw + 2;
+  return t;
+}
+
+// Steps 1-4 for the tw x th tile at (x0, y0) of a level of h x w pixels:
+// the image and its halo, the gradients, the box sums, then at every pixel
+// of the tile and its 1-pixel halo the Shi-Tomasi score, the FAST flag and
+// the corner score (-inf where no corner). Called by all the block's
+// kTileThreads threads; ends with a barrier.
 __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h, int w,
                                             float thr, bool fast_gate, int x0, int y0,
-                                            TileSmem& s, float& masked, float& raw) {
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  const int nthr = TW * TH;
+                                            const Tile& s) {
+  const int tid = threadIdx.x;
+  const int nthr = kTileThreads;
   const float NEG_INF = -INFINITY;
+  const int SW = s.sw, SH = s.th + 2 * HALO;
+  const int GW = s.gw, GH = s.th + 10;
+  const int BW = s.bw, BH = s.th + 2;
 
   // 1. image tile + halo, zero outside the image
   for (int i = tid; i < SH * SW; i += nthr) {
     const int ly = i / SW, lx = i % SW;
     const int gy = y0 - HALO + ly, gx = x0 - HALO + lx;
-    s.img[ly][lx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? img[gy * w + gx] : 0.0f;
+    s.img()[ly * SW + lx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? img[gy * w + gx] : 0.0f;
   }
   __syncthreads();
 
@@ -163,30 +199,31 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
   for (int i = tid; i < GH * GW; i += nthr) {
     const int ly = i / GW, lx = i % GW;
     const int gy = y0 - 5 + ly, gx = x0 - 5 + lx;
-    const float right = s.img[ly + 1][lx + 2], left = s.img[ly + 1][lx];
-    const float down = s.img[ly + 2][lx + 1], up = s.img[ly][lx + 1];
-    s.dx[ly][lx] = (gx >= 1 && gx < w - 1) ? right - left : 0.0f;
-    s.dy[ly][lx] = (gy >= 1 && gy < h - 1) ? down - up : 0.0f;
+    const float right = s.img()[(ly + 1) * SW + lx + 2], left = s.img()[(ly + 1) * SW + lx];
+    const float down = s.img()[(ly + 2) * SW + lx + 1], up = s.img()[ly * SW + lx + 1];
+    s.dx()[ly * GW + lx] = (gx >= 1 && gx < w - 1) ? right - left : 0.0f;
+    s.dy()[ly * GW + lx] = (gy >= 1 && gy < h - 1) ? down - up : 0.0f;
   }
   __syncthreads();
 
   // 3. row pass of the 9x9 box sums of dx*dx, dy*dy, dx*dy
   for (int i = tid; i < GH * BW; i += nthr) {
     const int ly = i / BW, bx = i % BW;
-    const int c = bx + R;
-    float axx = s.dx[ly][c] * s.dx[ly][c];
-    float ayy = s.dy[ly][c] * s.dy[ly][c];
-    float axy = s.dx[ly][c] * s.dy[ly][c];
+    const float* dxr = s.dx() + ly * GW + bx + R;
+    const float* dyr = s.dy() + ly * GW + bx + R;
+    float axx = dxr[0] * dxr[0];
+    float ayy = dyr[0] * dyr[0];
+    float axy = dxr[0] * dyr[0];
     for (int k = 1; k <= R; ++k) {
-      const float dxp = s.dx[ly][c + k], dyp = s.dy[ly][c + k];
-      const float dxm = s.dx[ly][c - k], dym = s.dy[ly][c - k];
+      const float dxp = dxr[k], dyp = dyr[k];
+      const float dxm = dxr[-k], dym = dyr[-k];
       axx = axx + dxp * dxp + dxm * dxm;
       ayy = ayy + dyp * dyp + dym * dym;
       axy = axy + dxp * dyp + dxm * dym;
     }
-    s.hxx[ly][bx] = axx;
-    s.hyy[ly][bx] = ayy;
-    s.hxy[ly][bx] = axy;
+    s.hxx()[ly * BW + bx] = axx;
+    s.hyy()[ly * BW + bx] = ayy;
+    s.hxy()[ly * BW + bx] = axy;
   }
   __syncthreads();
 
@@ -195,12 +232,12 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
   const unsigned window = (1u << kArc) - 1u;
   for (int i = tid; i < BH * BW; i += nthr) {
     const int by = i / BW, bx = i % BW;
-    const int r0 = by + R;
-    float sxx = s.hxx[r0][bx], syy = s.hyy[r0][bx], sxy = s.hxy[r0][bx];
+    const int c0 = (by + R) * BW + bx;
+    float sxx = s.hxx()[c0], syy = s.hyy()[c0], sxy = s.hxy()[c0];
     for (int k = 1; k <= R; ++k) {
-      sxx = sxx + s.hxx[r0 + k][bx] + s.hxx[r0 - k][bx];
-      syy = syy + s.hyy[r0 + k][bx] + s.hyy[r0 - k][bx];
-      sxy = sxy + s.hxy[r0 + k][bx] + s.hxy[r0 - k][bx];
+      sxx = sxx + s.hxx()[c0 + k * BW] + s.hxx()[c0 - k * BW];
+      syy = syy + s.hyy()[c0 + k * BW] + s.hyy()[c0 - k * BW];
+      sxy = sxy + s.hxy()[c0 + k * BW] + s.hxy()[c0 - k * BW];
     }
     const float dxx = sxx * inv, dyy = syy * inv, dxy = sxy * inv;
     const float tr = dxx + dyy;
@@ -213,11 +250,12 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
     // GFTT: every pixel of the image is a candidate, none outside it
     bool corner = !fast_gate && gy >= 0 && gy < h && gx >= 0 && gx < w;
     if (fast_gate && gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3) {
-      const float center = s.img[by + 5][bx + 5];
+      const float* ctr = s.img() + (by + 5) * SW + bx + 5;
+      const float center = ctr[0];
       const float hi = center + thr, lo = center - thr;
       unsigned bmask = 0u, dmask = 0u;
       for (int k = 0; k < 16; ++k) {
-        const float rk = s.img[by + 5 + kRingDy[k]][bx + 5 + kRingDx[k]];
+        const float rk = ctr[kRingDy[k] * SW + kRingDx[k]];
         if (rk > hi) bmask |= 1u << k;
         if (rk < lo) dmask |= 1u << k;
       }
@@ -228,46 +266,49 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ img, int h
                         || (((dext >> k) & window) == window);
       }
     }
-    s.score[by][bx] = score;
-    s.cs[by][bx] = corner ? score : NEG_INF;
-    s.corner[by][bx] = corner ? 1 : 0;
+    s.score()[by * BW + bx] = score;
+    s.cs()[by * BW + bx] = corner ? score : NEG_INF;
+    s.corner()[by * BW + bx] = corner ? 1 : 0;
   }
   __syncthreads();
+}
 
-  // 5. 3x3 NMS (>= every neighbour)
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  masked = NEG_INF;
-  raw = 0.0f;
-  if (x0 + tx < w && y0 + ty < h) {
-    const float c = s.cs[ty + 1][tx + 1];
-    float nbmax = c;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx) {
-        const float v = s.cs[ty + dy][tx + dx];
-        nbmax = v > nbmax ? v : nbmax;
-      }
-    const bool keep = s.corner[ty + 1][tx + 1] && c >= nbmax;
-    raw = s.score[ty + 1][tx + 1];
-    masked = keep ? raw : NEG_INF;
-  }
+// Step 5 at pixel (tx, ty) of the tile, inside the level: the masked score
+// (the score where the pixel is a corner that is >= every neighbour's
+// corner score, 3x3 NMS, else -inf).
+__device__ __forceinline__ float tile_masked(const Tile& s, int tx, int ty) {
+  const int BW = s.bw;
+  const float* cs = s.cs() + ty * BW + tx;        // the 3x3 window's top left
+  const float c = cs[BW + 1];
+  float nbmax = c;
+  for (int dy = 0; dy < 3; ++dy)
+    for (int dx = 0; dx < 3; ++dx) {
+      const float v = cs[dy * BW + dx];
+      nbmax = v > nbmax ? v : nbmax;
+    }
+  const bool keep = s.corner()[(ty + 1) * BW + tx + 1] && c >= nbmax;
+  return keep ? s.score()[(ty + 1) * BW + tx + 1] : -INFINITY;
 }
 
 // The dense (masked, raw) maps of one level; the threshold from device memory.
-__global__ void __launch_bounds__(TW * TH)
+// For a pixel outside the image nothing is written. Four blocks an SM (32
+// registers a thread), as the 32x16 tile's shared memory allows.
+__global__ void __launch_bounds__(kTileThreads, 4)
 detect_kernel(const float* __restrict__ img, int h, int w,
               const float* __restrict__ thr_ptr, int fast_gate,
               float* __restrict__ out, float* __restrict__ raw) {
-  __shared__ TileSmem s;
+  extern __shared__ float4 s_dyn[];
   __shared__ float s_thr;
-  if (threadIdx.x == 0 && threadIdx.y == 0) s_thr = *thr_ptr;
+  const Tile s = carve_tile(reinterpret_cast<char*>(s_dyn), TW, TH);
+  if (threadIdx.x == 0) s_thr = *thr_ptr;
   __syncthreads();
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  float m, r;
-  tile_scores(img, h, w, s_thr, fast_gate != 0, x0, y0, s, m, r);
-  const int gx = x0 + threadIdx.x, gy = y0 + threadIdx.y;
+  tile_scores(img, h, w, s_thr, fast_gate != 0, x0, y0, s);
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int gx = x0 + tx, gy = y0 + ty;
   if (gx < w && gy < h) {
-    out[gy * w + gx] = m;
-    raw[gy * w + gx] = r;
+    out[gy * w + gx] = tile_masked(s, tx, ty);
+    raw[gy * w + gx] = s.score()[(ty + 1) * s.bw + tx + 1];
   }
 }
 
@@ -279,7 +320,8 @@ constexpr int kMaxLevels = 8;
 
 // Level l: an h x w image whose cells of cell x cell pixels form a rows x cols
 // grid, written at entries first_cell[l] .. first_cell[l + 1] - 1 by kernel A's
-// blocks first_block[l] .. first_block[l + 1] - 1 (tiles_x tiles a row).
+// blocks first_block[l] .. first_block[l + 1] - 1, each a tw x th tile of
+// whole cells (tiles_x tiles a row; see whole_cell_tile).
 // Border gate: pixel (x, y) takes part iff (x << bshift, y << bshift) lies at
 // least min_border inside a bh x bw frame. The half-sample pyramid: cell =
 // cell_size >> l, the level-0 grid, bshift = l and the level-0 frame; the x1.2
@@ -294,6 +336,8 @@ struct LevelTable {
   int rows[kMaxLevels];
   int cols[kMaxLevels];
   int tiles_x[kMaxLevels];
+  int tw[kMaxLevels];
+  int th[kMaxLevels];
   int bshift[kMaxLevels];
   int bh[kMaxLevels];
   int bw[kMaxLevels];
@@ -324,79 +368,110 @@ __device__ __forceinline__ float parabola_offset(float sm, float sc, float sp) {
 
 // (ox, oy) at pixel (px, py) of an h x w level from the raw scores of the
 // tile at (x0, y0) (1-pixel halo), neighbours clamped into the level.
-__device__ __forceinline__ float2 tile_offsets(const TileSmem& s, int px, int py, int h,
+__device__ __forceinline__ float2 tile_offsets(const Tile& s, int px, int py, int h,
                                                int w, int x0, int y0) {
   const int um = px - 1 < 0 ? 0 : px - 1, up = px + 1 > w - 1 ? w - 1 : px + 1;
   const int vm = py - 1 < 0 ? 0 : py - 1, vp = py + 1 > h - 1 ? h - 1 : py + 1;
   const int bx = px - x0 + 1, by = py - y0 + 1;
-  const float c = s.score[by][bx];
-  return make_float2(parabola_offset(s.score[by][um - x0 + 1], c, s.score[by][up - x0 + 1]),
-                     parabola_offset(s.score[vm - y0 + 1][bx], c, s.score[vp - y0 + 1][bx]));
+  const float* row = s.score() + by * s.bw;
+  const float c = row[bx];
+  return make_float2(parabola_offset(row[um - x0 + 1], c, row[up - x0 + 1]),
+                     parabola_offset(s.score()[(vm - y0 + 1) * s.bw + bx], c,
+                                     s.score()[(vp - y0 + 1) * s.bw + bx]));
 }
 
-__global__ void __launch_bounds__(TW * TH)
+// A level's tile for cells of c pixels: whole cells, c * max(1, 32 / c)
+// wide and c * max(1, 16 / c) high: 32 x 16 for c = 1, 2, 4, 8, 16 (the
+// fixed instantiation), 30 x 15 for 3 and 5, 30 x 12 for 6, 30 x 10 for 10,
+// 24 x 12 for 12, up to 32 x 32 for 32.
+__host__ __device__ __forceinline__ int2 whole_cell_tile(int c) {
+  const int nx = TW / c, ny = TH / c;
+  return make_int2(c * (nx > 1 ? nx : 1), c * (ny > 1 ? ny : 1));
+}
+
+// Bytes of kernel A's dynamic shared memory for a tw x th tile: the tile's
+// views, then its gated scores and the row stage's maxima and indices
+// (at most one a pixel each).
+__host__ __device__ __forceinline__ int cells_bytes(int tw, int th) {
+  return tile_bytes(tw, th) + 3 * tw * th * 4;
+}
+
+// kFixed: every level's tile is 32 x 16 (cells of 1, 2, 4, 8 or 16 pixels),
+// with the strides as constants, four blocks an SM; else each level's tile
+// from the table, three blocks an SM (a 32 x 32 tile takes 61 KB). The
+// table's strides at the default cells cost a quarter more device time on
+// an H100 (tools/kernel_device_us.py; PERF.md section 6), hence the two.
+template <bool kFixed>
+__global__ void __launch_bounds__(kTileThreads, kFixed ? 4 : 3)
 detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_gate,
                     int min_border, float* __restrict__ cell_max, int* __restrict__ cell_arg,
                     float2* __restrict__ cell_off) {
-  __shared__ TileSmem s;
-  __shared__ float s_out[TH][TW];     // gated masked scores of the tile
-  __shared__ float s_rmax[TH][TW];    // [row][cell column]: best of the cell's row
-  __shared__ int s_rarg[TH][TW];
+  extern __shared__ float4 s_dyn[];
   __shared__ float s_thr;
 
-  if (threadIdx.x == 0 && threadIdx.y == 0) s_thr = *thr_ptr;
+  if (threadIdx.x == 0) s_thr = *thr_ptr;
   __syncthreads();
   const float thr = s_thr;
 
   const int lvl = level_of(tab.first_block, tab.n_levels, blockIdx.x);
+  const int tw = kFixed ? TW : tab.tw[lvl];
+  const int th = kFixed ? TH : tab.th[lvl];
   const int tile = blockIdx.x - tab.first_block[lvl];
-  const int x0 = (tile % tab.tiles_x[lvl]) * TW;
-  const int y0 = (tile / tab.tiles_x[lvl]) * TH;
+  const int x0 = (tile % tab.tiles_x[lvl]) * tw;
+  const int y0 = (tile / tab.tiles_x[lvl]) * th;
   const int h = tab.h[lvl], w = tab.w[lvl];
   const int cell_l = tab.cell[lvl];
 
-  float m, r;
-  tile_scores(tab.img[lvl], h, w, thr, fast_gate != 0, x0, y0, s, m, r);
+  char* base = reinterpret_cast<char*>(s_dyn);
+  const Tile s = carve_tile(base, tw, th);
+  float* s_out = reinterpret_cast<float*>(base + tile_bytes(tw, th));   // gated scores
+  float* s_rmax = s_out + tw * th;     // [row][cell column]: best of the cell's row
+  int* s_rarg = reinterpret_cast<int*>(s_rmax + tw * th);
 
-  // border gate in the level's frame
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  tile_scores(tab.img[lvl], h, w, thr, fast_gate != 0, x0, y0, s);
+
+  // NMS and the border gate in the level's frame, pixel by pixel
+  const int tid = threadIdx.x;
   const int bs = tab.bshift[lvl];
-  const int X = (x0 + tx) << bs, Y = (y0 + ty) << bs;
-  const bool inb = X >= min_border && X < tab.bw[lvl] - min_border
-                && Y >= min_border && Y < tab.bh[lvl] - min_border;
-  s_out[ty][tx] = inb ? m : -INFINITY;
+  for (int p = tid; p < tw * th; p += kTileThreads) {
+    const int tx = p % tw, ty = p / tw;
+    const int X = (x0 + tx) << bs, Y = (y0 + ty) << bs;
+    const bool inb = X >= min_border && X < tab.bw[lvl] - min_border
+                  && Y >= min_border && Y < tab.bh[lvl] - min_border;
+    const bool inside = x0 + tx < w && y0 + ty < h;
+    s_out[p] = (inb && inside) ? tile_masked(s, tx, ty) : -INFINITY;
+  }
   __syncthreads();
 
   // best of each cell's rows, then of each cell: strict >, scanning in
   // row-major order, keeps the first maximum
-  const int tid = ty * TW + tx;
-  const int segs = TW / cell_l;
-  if (tid < TH * segs) {
+  const int segs = tw / cell_l;
+  if (tid < th * segs) {
     const int row = tid / segs, seg = tid % segs;
-    const int base = seg * cell_l;
-    float best = s_out[row][base];
+    const float* px = s_out + row * tw + seg * cell_l;
+    float best = px[0];
     int arg = 0;
     for (int k = 1; k < cell_l; ++k) {
-      const float v = s_out[row][base + k];
+      const float v = px[k];
       if (v > best) {
         best = v;
         arg = k;
       }
     }
-    s_rmax[row][seg] = best;
-    s_rarg[row][seg] = arg;
+    s_rmax[tid] = best;
+    s_rarg[tid] = arg;
   }
   __syncthreads();
-  if (tid < (TH / cell_l) * segs) {
+  if (tid < (th / cell_l) * segs) {
     const int cyl = tid / segs, cxl = tid % segs;
-    const int row0 = cyl * cell_l;
-    float best = s_rmax[row0][cxl];
-    int arg = s_rarg[row0][cxl];
+    const int r0 = cyl * cell_l * segs + cxl;   // the cell's first row, its column
+    float best = s_rmax[r0];
+    int arg = s_rarg[r0];
     for (int j = 1; j < cell_l; ++j) {
-      const float v = s_rmax[row0 + j][cxl];
+      const float v = s_rmax[r0 + j * segs];
       if (v > best) {
         best = v;
-        arg = j * cell_l + s_rarg[row0 + j][cxl];
+        arg = j * cell_l + s_rarg[r0 + j * segs];
       }
     }
     const int cy = y0 / cell_l + cyl, cx = x0 / cell_l + cxl;
@@ -606,21 +681,32 @@ detect_rank_kernel(LevelTable tab, const float* __restrict__ cell_max,
   valid_out[slot] = ok ? 1 : 0;
 }
 
-// Kernel A's blocks and the table's entries from each level's cell and grid;
-// false where a level's cells are not whole in the tile or its grid does not
-// fit its image.
-bool plan_tiles(LevelTable& tab) {
+// Kernel A's blocks, tiles and the table's entries from each level's cell
+// and grid; false where a level's cell is outside 1..32 or its grid does
+// not fit its image. `fixed` says whether every tile is 32 x 16 and `bytes`
+// gives the dynamic shared memory of the largest tile.
+bool plan_tiles(LevelTable& tab, bool& fixed, int& bytes) {
   int blocks = 0, cells = 0;
+  fixed = true;
+  bytes = 0;
   for (int l = 0; l < tab.n_levels; ++l) {
     const int c = tab.cell[l];
     const bool empty = tab.rows[l] == 0 || tab.cols[l] == 0;
-    if (!empty && (c < 1 || TW % c != 0 || TH % c != 0 || tab.h[l] < tab.rows[l] * c ||
+    if (!empty && (c < 1 || c > TW || tab.h[l] < tab.rows[l] * c ||
                    tab.w[l] < tab.cols[l] * c))
       return false;
-    tab.tiles_x[l] = empty ? 0 : (tab.cols[l] * c + TW - 1) / TW;
+    const int2 t = empty ? make_int2(TW, TH) : whole_cell_tile(c);
+    tab.tw[l] = t.x;
+    tab.th[l] = t.y;
+    if (!empty) {
+      fixed = fixed && t.x == TW && t.y == TH;
+      const int b = cells_bytes(t.x, t.y);
+      bytes = b > bytes ? b : bytes;
+    }
+    tab.tiles_x[l] = empty ? 0 : (tab.cols[l] * c + t.x - 1) / t.x;
     tab.first_block[l] = blocks;
     tab.first_cell[l] = cells;
-    blocks += empty ? 0 : tab.tiles_x[l] * ((tab.rows[l] * c + TH - 1) / TH);
+    blocks += empty ? 0 : tab.tiles_x[l] * ((tab.rows[l] * c + t.y - 1) / t.y);
     cells += tab.rows[l] * tab.cols[l];
   }
   for (int l = tab.n_levels; l <= kMaxLevels; ++l) {
@@ -630,16 +716,36 @@ bool plan_tiles(LevelTable& tab) {
   for (int l = tab.n_levels; l < kMaxLevels; ++l) {
     tab.img[l] = nullptr;
     tab.h[l] = tab.w[l] = tab.cell[l] = tab.rows[l] = tab.cols[l] = tab.tiles_x[l] = 0;
+    tab.tw[l] = tab.th[l] = 0;
     tab.bshift[l] = tab.bh[l] = tab.bw[l] = tab.quota[l] = tab.first_slot[l] = 0;
   }
+  if (fixed) bytes = cells_bytes(TW, TH);
   return true;
 }
 
-// Dynamic shared memory of a ranking block beyond 48 KB needs the attribute.
+// Dynamic shared memory of a block beyond 48 KB needs the attribute.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Kernel A over the table's blocks: the fixed instantiation where every tile
+// is 32 x 16, else the one that reads each level's tile from the table.
+cudaError_t launch_cells(const LevelTable& tab, bool fixed, int bytes, const float* thr,
+                         int fast_gate, int min_border, float* cell_max, int* cell_arg,
+                         float2* off, cudaStream_t st) {
+  const int blocks = tab.first_block[kMaxLevels];
+  if (fixed) {
+    detect_cells_kernel<true><<<blocks, kTileThreads, bytes, st>>>(
+        tab, thr, fast_gate, min_border, cell_max, cell_arg, off);
+  } else {
+    const cudaError_t e = allow_smem(detect_cells_kernel<false>, bytes);
+    if (e != cudaSuccess) return e;
+    detect_cells_kernel<false><<<blocks, kTileThreads, bytes, st>>>(
+        tab, thr, fast_gate, min_border, cell_max, cell_arg, off);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -648,9 +754,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 extern "C" int rgbd_detect_score_map(const void* img, int h, int w, const void* thr,
                                      int fast_gate, void* out, void* raw, void* stream) {
   if (h <= 0 || w <= 0) return (int)cudaSuccess;
-  dim3 block(TW, TH);
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  detect_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  detect_kernel<<<grid, kTileThreads, tile_bytes(TW, TH), (cudaStream_t)stream>>>(
       (const float*)img, h, w, (const float*)thr, fast_gate, (float*)out, (float*)raw);
   return (int)cudaGetLastError();
 }
@@ -693,11 +798,13 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
     tab.quota[l] = tab.first_slot[l] = 0;
     if (tab.cell[l] < 1) return (int)cudaErrorInvalidValue;
   }
-  if (!plan_tiles(tab)) return (int)cudaErrorInvalidValue;
+  bool fixed;
+  int tile_smem;
+  if (!plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
   float2* off = subpixel ? (float2*)cell_off : nullptr;
-  detect_cells_kernel<<<tab.first_block[kMaxLevels], dim3(TW, TH), 0, st>>>(
-      tab, (const float*)thr, fast_gate, min_border, (float*)cell_max, (int*)cell_arg, off);
-  const cudaError_t launched = cudaGetLastError();
+  const cudaError_t launched = launch_cells(tab, fixed, tile_smem, (const float*)thr, fast_gate,
+                                            min_border, (float*)cell_max, (int*)cell_arg, off,
+                                            st);
   if (launched != cudaSuccess) return (int)launched;
   const int bytes = ((n_cells + 31) & ~31) * (int)sizeof(float) + n_cells;
   const cudaError_t e = allow_smem(detect_select_kernel, bytes);
@@ -753,12 +860,14 @@ extern "C" int rgbd_detect_scaled(const void* const* imgs, const int* hs, const 
     max_cells = n > max_cells ? n : max_cells;
   }
   for (int l = n_levels; l <= kMaxLevels; ++l) tab.first_rank_block[l] = rank_blocks;
-  if (slots < 1 || !plan_tiles(tab)) return (int)cudaErrorInvalidValue;
+  bool fixed;
+  int tile_smem;
+  if (slots < 1 || !plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
   float2* off = subpixel ? (float2*)cell_off : nullptr;
   if (tab.first_block[kMaxLevels] > 0) {
-    detect_cells_kernel<<<tab.first_block[kMaxLevels], dim3(TW, TH), 0, st>>>(
-        tab, (const float*)thr, fast_gate, min_border, (float*)cell_max, (int*)cell_arg, off);
-    const cudaError_t launched = cudaGetLastError();
+    const cudaError_t launched = launch_cells(tab, fixed, tile_smem, (const float*)thr,
+                                              fast_gate, min_border, (float*)cell_max,
+                                              (int*)cell_arg, off, st);
     if (launched != cudaSuccess) return (int)launched;
   }
   const int bytes = ((max_cells + 31) & ~31) * (int)sizeof(float);

@@ -31,8 +31,16 @@
 // Design: one block of 512 threads. The inputs are read from global memory
 // once into dynamic shared memory, as 19 planes of N floats (p1, p2, the six
 // upper-triangular entries of C1 and of C2, the validity flag), so every
-// later read is conflict-free and no round touches global memory: the wrapper takes at most 3,000 points (76 bytes each within the 227
-// KB a block may use, less 2 KB of static shared memory). Each thread
+// later read is conflict-free and no round touches global memory, up to
+// 3,000 points (76 bytes each within the 227 KB a block may use, less 2 KB
+// of static shared memory). Past that (SlamSystem allows 4,096 features) the
+// same planes go to a global scratch buffer that the wrapper passes, 311 KB
+// at N = 4,096, which stays in L2; the same thread-to-point map, per-point
+// function and reduction tree run on them, so the arithmetic does not depend
+// on where the planes live. With IcpConfig.reassociate each round and the
+// finish first pair every point with its nearest valid target (a loop over
+// the N targets' planes a point, every lane of a warp reading the same
+// target: N^2 / 512 distance evaluations a thread and round). Each thread
 // accumulates its points' 29 partial sums in registers; the sums are combined
 // inside each warp by folds (the lanes split the 29 sums between them: 31
 // shuffles, where a butterfly per sum takes 145 and the card moves one
@@ -58,15 +66,14 @@
 
 namespace {
 
+#include "se3_solve.cuh"
+
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 29;     // 21 H + 6 b + cost + count
 constexpr int kPlanes = 19;   // p1 3, p2 3, C1 6, C2 6, valid 1
-constexpr float kDamping = 1e-6f;   // as _gicp_iteration and the plain _gn_step
 
-// index of entry (i, j), i <= j, among the 21 upper-triangular entries of H
-__host__ __device__ constexpr int tri6(int i, int j) { return i * 6 - i * (i - 1) / 2 + (j - i); }
 // index of entry (i, j) of a symmetric 3x3 among its six upper-triangular
 // entries (xx xy xz yy yz zz)
 __host__ __device__ constexpr int tri3_upper(int i, int j) {
@@ -74,105 +81,6 @@ __host__ __device__ constexpr int tri3_upper(int i, int j) {
 }
 __host__ __device__ constexpr int tri3(int i, int j) {
   return i <= j ? tri3_upper(i, j) : tri3_upper(j, i);
-}
-
-// x = -(H + kDamping I)^-1 b by Gaussian elimination with partial pivoting
-// (Hs = 21 upper-triangular entries), as the plain version's LU solve.
-// The Pallas kernel's unpivoted Cholesky (_chol6_solve_neg) returns NaN
-// when H is indefinite, which real frames produce: the one-pass depth-patch
-// covariances cancel in f32 and come out slightly indefinite.
-// Every loop unrolls and every index is a constant, so A stays in registers;
-// the pivot row is brought up by selects.
-__device__ __forceinline__ void solve6_neg(const float (&Hs)[21], const float (&bs)[6],
-                                           float (&x)[6]) {
-  float A[6][7];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-#pragma unroll
-    for (int j = i; j < 6; ++j) {
-      A[i][j] = Hs[tri6(i, j)];
-      A[j][i] = Hs[tri6(i, j)];
-    }
-    A[i][i] = A[i][i] + kDamping;
-    A[i][6] = -bs[i];
-  }
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    int piv = c;
-    float big = fabsf(A[c][c]);
-#pragma unroll
-    for (int r = c + 1; r < 6; ++r) {
-      const float v = fabsf(A[r][c]);
-      if (v > big) {
-        big = v;
-        piv = r;
-      }
-    }
-#pragma unroll
-    for (int r = c + 1; r < 6; ++r) {
-      const bool sw = piv == r;
-#pragma unroll
-      for (int j = c; j < 7; ++j) {
-        const float a = A[c][j], b = A[r][j];
-        A[c][j] = sw ? b : a;
-        A[r][j] = sw ? a : b;
-      }
-    }
-#pragma unroll
-    for (int r = c + 1; r < 6; ++r) {
-      const float f = A[r][c] / A[c][c];
-#pragma unroll
-      for (int j = c; j < 7; ++j) A[r][j] = A[r][j] - f * A[c][j];
-    }
-  }
-#pragma unroll
-  for (int i = 5; i >= 0; --i) {
-    float s = A[i][6];
-#pragma unroll
-    for (int m = i + 1; m < 6; ++m) s = s - A[i][m] * x[m];
-    x[i] = s / A[i][i];
-  }
-}
-
-// (R, t) <- exp(xi) (R, t), xi = [rho | phi] (geometry/se3.exp convention)
-__device__ __forceinline__ void se3_exp_compose(const float (&xi)[6], float (&R)[3][3],
-                                                float (&t)[3]) {
-  const float rho[3] = {xi[0], xi[1], xi[2]};
-  const float phi[3] = {xi[3], xi[4], xi[5]};
-  const float th2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
-  const float th = sqrtf(th2);
-  const bool small = th2 < 1e-12f;
-  const float A = small ? 1.0f - th2 / 6.0f : sinf(th) / th;
-  const float B = small ? 0.5f - th2 / 24.0f : (1.0f - cosf(th)) / th2;
-  const float C = small ? 1.0f / 6.0f - th2 / 120.0f : (th - sinf(th)) / (th2 * th);
-  const float hat[3][3] = {{0.0f, -phi[2], phi[1]},
-                           {phi[2], 0.0f, -phi[0]},
-                           {-phi[1], phi[0], 0.0f}};
-  float Re[3][3], V[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float hsq = (i == j) ? phi[i] * phi[j] - th2 : phi[i] * phi[j];
-      const float delta = (i == j) ? 1.0f : 0.0f;
-      Re[i][j] = delta + A * hat[i][j] + B * hsq;
-      V[i][j] = delta + B * hat[i][j] + C * hsq;
-    }
-  float Rn[3][3], tn[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float te = V[i][0] * rho[0] + V[i][1] * rho[1] + V[i][2] * rho[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      Rn[i][j] = Re[i][0] * R[0][j] + Re[i][1] * R[1][j] + Re[i][2] * R[2][j];
-    tn[i] = Re[i][0] * t[0] + Re[i][1] * t[1] + Re[i][2] * t[2] + te;
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = Rn[i][j];
-    t[i] = tn[i];
-  }
 }
 
 // One correspondence: the points, the upper triangles of the two surface
@@ -348,17 +256,64 @@ __device__ __forceinline__ float reduce_sums(const float (&acc)[kSums],
   return total;
 }
 
+// The nearest valid target of q: argmin_j |q - p2_j|^2 over the valid j,
+// summed as (dx^2 + dy^2) + dz^2, the first index on ties, a NaN distance
+// below everything (the first NaN wins, as argmin takes it), 0 where no
+// target is valid or every distance is +inf.
+__device__ __forceinline__ int nearest_target(const float* planes, int stride, int n,
+                                              const float (&q)[3]) {
+  int best = 0;
+  float bd = INFINITY;
+  for (int j = 0; j < n; ++j) {
+    if (planes[18 * stride + j] == 0.0f) continue;
+    const float dx = q[0] - planes[3 * stride + j];
+    const float dy = q[1] - planes[4 * stride + j];
+    const float dz = q[2] - planes[5 * stride + j];
+    const float d = dx * dx + dy * dy + dz * dz;
+    if (!isnan(bd) && (d < bd || isnan(d))) {
+      bd = d;
+      best = j;
+    }
+  }
+  return best;
+}
+
+// Point p with its partner: its own (x2, C2), or with `reassoc` those of its
+// nearest valid target at pose (R, t).
+__device__ __forceinline__ Point paired_point(const float* planes, int stride, int n, int p,
+                                              bool reassoc, const float (&R)[3][3],
+                                              const float (&t)[3]) {
+  Point pt = load_point_planes(planes, stride, p);
+  if (reassoc) {
+    float q[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      q[i] = R[i][0] * pt.x1[0] + R[i][1] * pt.x1[1] + R[i][2] * pt.x1[2] + t[i];
+    const int j = nearest_target(planes, stride, n, q);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pt.x2[i] = planes[(3 + i) * stride + j];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) pt.c2[i] = planes[(12 + i) * stride + j];
+  }
+  return pt;
+}
+
 // out, as 36 words: [0:16] the output pose (the final one if converged, else
 // T0), [16:32] the final pose, [32] cost and [33] gated count of the last
 // round's build, [34] the number of valid slots (int), [35] converged (int,
-// 0 or 1).
+// 0 or 1). kShared: the planes in dynamic shared memory; else in g_planes
+// (kPlanes x stride floats of global memory, read through L2). kReassoc:
+// every round and the finish re-pair each point with its nearest valid
+// target (IcpConfig.reassociate).
+template <bool kShared, bool kReassoc>
 __global__ void __launch_bounds__(kThreads)
 gicp_refine_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
                    const float* __restrict__ p2, const float* __restrict__ C1,
                    const float* __restrict__ C2, const unsigned char* __restrict__ valid,
                    int n, int stride, int iters, float max_dist, float max_dist2,
-                   int min_matches, float* __restrict__ out) {
-  extern __shared__ float s_planes[];      // kPlanes x stride
+                   int min_matches, float* __restrict__ g_planes, float* __restrict__ out) {
+  extern __shared__ float s_dyn[];         // kPlanes x stride with kShared
+  float* s_planes = kShared ? s_dyn : g_planes;
   __shared__ float s_part[kWarps][kSums];
   __shared__ float s_R[3][3];
   __shared__ float s_t[3];
@@ -403,7 +358,8 @@ gicp_refine_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
     for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
 
     for (int p = tid; p < n; p += kThreads)
-      accumulate_point(R, t, load_point_planes(s_planes, stride, p), max_dist2, acc);
+      accumulate_point(R, t, paired_point(s_planes, stride, n, p, kReassoc, R, t), max_dist2,
+                       acc);
 
     const float total = reduce_sums(acc, s_part);
     if (warp == 0) {
@@ -442,7 +398,7 @@ gicp_refine_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
   }
   int n_valid = 0, n_gated = 0;
   for (int p = tid; p < n; p += kThreads) {
-    const Point pt = load_point_planes(s_planes, stride, p);
+    const Point pt = paired_point(s_planes, stride, n, p, kReassoc, R, t);
     float q[3], r[3];
     const float dist2 = residual(R, t, pt, q, r);
     n_valid += pt.valid ? 1 : 0;
@@ -540,24 +496,49 @@ gicp_gn_kernel(const float* __restrict__ T0, const float* __restrict__ p1,
 
 }  // namespace
 
-// 76 (n | 1) bytes of dynamic shared memory: the wrapper holds n to 3,000.
+template <bool kShared, bool kReassoc>
+cudaError_t launch_refine(const void* T, const void* p1, const void* p2, const void* C1,
+                          const void* C2, const void* valid, int n, int stride, int iters,
+                          float max_dist, float max_dist2, int min_matches, float* planes,
+                          void* out, cudaStream_t st) {
+  const int bytes = kShared ? kPlanes * stride * (int)sizeof(float) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(gicp_refine_kernel<kShared, kReassoc>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               bytes);
+    if (e != cudaSuccess) return e;
+  }
+  gicp_refine_kernel<kShared, kReassoc><<<1, kThreads, bytes, st>>>(
+      (const float*)T, (const float*)p1, (const float*)p2, (const float*)C1, (const float*)C2,
+      (const unsigned char*)valid, n, stride, iters, max_dist, max_dist2, min_matches, planes,
+      (float*)out);
+  return cudaGetLastError();
+}
+
+// The planes (76 (n | 1) bytes) in dynamic shared memory where `planes` is
+// null, else in `planes` (19 (n | 1) floats of global memory): the wrapper
+// passes it past 3,000 points. reassoc: IcpConfig.reassociate.
 extern "C" int rgbd_gicp_refine_full(const void* T, const void* p1, const void* p2,
                                      const void* C1, const void* C2, const void* valid,
                                      int n, int iters, float max_dist, float max_dist2,
-                                     int min_matches, void* out, void* stream) {
+                                     int min_matches, int reassoc, void* planes, void* out,
+                                     void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const int stride = n | 1;
-  const int bytes = kPlanes * stride * (int)sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gicp_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  gicp_refine_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const float*)T, (const float*)p1, (const float*)p2, (const float*)C1,
-      (const float*)C2, (const unsigned char*)valid, n, stride, iters, max_dist, max_dist2,
-      min_matches, (float*)out);
-  return (int)cudaGetLastError();
+  float* g = (float*)planes;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (g == nullptr)
+    e = reassoc ? launch_refine<true, true>(T, p1, p2, C1, C2, valid, n, stride, iters,
+                                            max_dist, max_dist2, min_matches, g, out, st)
+                : launch_refine<true, false>(T, p1, p2, C1, C2, valid, n, stride, iters,
+                                             max_dist, max_dist2, min_matches, g, out, st);
+  else
+    e = reassoc ? launch_refine<false, true>(T, p1, p2, C1, C2, valid, n, stride, iters,
+                                             max_dist, max_dist2, min_matches, g, out, st)
+                : launch_refine<false, false>(T, p1, p2, C1, C2, valid, n, stride, iters,
+                                              max_dist, max_dist2, min_matches, g, out, st);
+  return (int)e;
 }
 
 // out: 44 floats (H, b, cost, count), see gicp_gn_kernel.

@@ -27,20 +27,32 @@
 //       B = 13 32 groups of 8 x 8 chunks x 13 = 3,328.
 //   rgbd_ransac_se3               the whole function, two kernels on one
 //       stream:
-//     A, ransac_fit_score_kernel, grid (H, B): block (h, b) finds its S = 4
-//       sample slots by a block scan of b's validity mask (the compaction,
-//       done redundantly: 1 KB per block), one thread fits the pose by
-//       Horn's method (30 power iterations in registers), then the block
-//       scores the pose against all N correspondences with the per-point
-//       covariances computed from z. It writes T (16), count, sum of m^2;
-//       nothing (H, N) or (H, S, 3) reaches device memory.
+//     A, ransac_fit_score_kernel, grid (H, B): block (h, b) finds its S
+//       sample slots (any S; the slots in dynamic shared memory) by a block
+//       scan of b's validity mask (the compaction, done redundantly: 1 KB
+//       per block), one thread fits the pose by Horn's method (the weight
+//       sum, centroids and cross-covariance in passes over the S slots, in
+//       weighted_rigid_transform's order; 30 power iterations in registers),
+//       then the block scores the pose against all N correspondences under
+//       the error model. It writes T (16), count, sum of errors; nothing
+//       (H, N) or (H, S, 3) reaches device memory.
 //     B, ransac_select_refine_kernel, grid (B): one block per problem holds
-//       the N correspondences in shared memory (31 N bytes, dynamic), takes
+//       the N correspondences as planes in shared memory (31 N bytes,
+//       dynamic; past the 227 KB a block may use, N > ~7,400, the same
+//       planes in a global scratch buffer, read through L2), takes
 //       the arg max of rank = count * 1e4 - min(rmse, 9e3) with the first
 //       index on ties, scores the winner, and runs the refits: three block
 //       reductions (weight sum, centroids, cross-covariance), one Horn fit,
-//       one scoring, keep or drop. It writes T21, the inlier mask, count,
-//       rmse and success.
+//       one scoring, keep or drop. With the Mahalanobis polish it then runs
+//       its Gauss-Newton rounds (a pass, one block sum of 27 entries, a
+//       damped pivoted 6x6 solve and a left exp-compose, se3_solve.cuh, as
+//       K4 does) and one scoring, keep or drop. It writes T21, the inlier
+//       mask, count, rmse and success.
+// Error models (RansacConfig.error_model, a switch in both kernels):
+// mahalanobis (m^2 <= th, error m^2), euclidean (|d| <= threshold),
+// adaptive_euclidean (threshold + coeff z_mean^2), reprojection (pixel
+// distance of the two projections, the camera by value), both (reprojection
+// and euclidean); every model but mahalanobis adds |d|^2 to the error.
 //
 // What bounds it on an H100: 256 x 1024 pairs x ~100 flops is 26 MFLOP in
 // f32 from 30 KB of inputs: microseconds of throughput. The time is
@@ -75,13 +87,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+#include "se3_solve.cuh"
+
 constexpr int kThreads = 256;      // kernel A
 constexpr int kScoreThreads = 128; // the scorer alone: a block's points a pass
 constexpr int kScoreWarps = kScoreThreads / 32;
 constexpr int kMaxChunks = 8;      // the scorer alone: blocks a cluster (the portable most)
 constexpr int kSelThreads = 512;   // kernel B
 constexpr int kSelWarps = kSelThreads / 32;
-constexpr int kSample = 4;         // points per hypothesis
 constexpr int kPowerIters = 30;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -92,6 +105,21 @@ struct Pose {       // rows of [R | t]
 
 struct Noise {      // sigma = (cx z, cy z, (dsf z z)^2)
   float cx, cy, dsf;
+};
+
+// RANSAC's error models (RansacConfig.error_model), in the order of
+// ransac_se3.ERROR_MODELS
+enum ErrorModel { kMahalanobis = 0, kEuclidean = 1, kAdaptive = 2, kReprojection = 3, kBoth = 4 };
+
+// What decides an inlier: the model and its parameters, passed by value.
+struct Model {
+  int kind;
+  Noise nz;          // mahalanobis: the per-point covariance from z
+  float th;          // mahalanobis: the largest m^2 of an inlier
+  float thr_m;       // euclidean, adaptive, both: the distance threshold (m)
+  float coeff;       // adaptive: thr_m + coeff z_mean^2
+  float reproj_th;   // reprojection, both: the pixel threshold
+  float fx, fy, cx, cy;
 };
 
 __device__ __forceinline__ void set_identity(Pose& P) {
@@ -157,6 +185,40 @@ __device__ __forceinline__ float mahal_m2(const Pose& P, float x1, float y1, flo
   const float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
   const float m2 = quad * inv_det;
   return (m2 < 0.0f) ? 0.0f : m2;                // max(m2, 0), NaN kept
+}
+
+// Whether the correspondence (p1, p2) is an inlier of pose P under the model
+// (the caller adds the slot's validity), with its error in `err`: m^2 under
+// mahalanobis; else delta^2, delta = |R p1 + t - p2| rounded as a root, as
+// _score (rgbdslam_tpu/solvers/ransac_se3.py:146-189) computes it. The
+// reprojection clamps both depths at 1e-6 and keeps a NaN.
+__device__ __forceinline__ bool pair_inlier(const Model& md, const Pose& P, float x1, float y1,
+                                            float z1, float x2, float y2, float z2,
+                                            float& err) {
+  if (md.kind == kMahalanobis) {
+    float a0, a1, a2, b0, b1, b2;
+    sigma_diag(md.nz, z1, a0, a1, a2);
+    sigma_diag(md.nz, z2, b0, b1, b2);
+    err = mahal_m2(P, x1, y1, z1, x2, y2, z2, a0, a1, a2, b0, b1, b2);
+    return err <= md.th;
+  }
+  const float q0 = P.r[0] * x1 + P.r[1] * y1 + P.r[2] * z1 + P.t[0];
+  const float q1 = P.r[3] * x1 + P.r[4] * y1 + P.r[5] * z1 + P.t[1];
+  const float q2 = P.r[6] * x1 + P.r[7] * y1 + P.r[8] * z1 + P.t[2];
+  const float d0 = q0 - x2, d1 = q1 - y2, d2 = q2 - z2;
+  const float delta = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+  err = delta * delta;
+  if (md.kind == kEuclidean) return delta <= md.thr_m;
+  if (md.kind == kAdaptive) {
+    const float zm = 0.5f * (z1 + z2);
+    return delta <= md.thr_m + md.coeff * zm * zm;
+  }
+  const float zq = q2 < 1e-6f ? 1e-6f : q2;
+  const float zt = z2 < 1e-6f ? 1e-6f : z2;
+  const float du = (md.fx * q0 / zq + md.cx) - (md.fx * x2 / zt + md.cx);
+  const float dv = (md.fy * q1 / zq + md.cy) - (md.fy * y2 / zt + md.cy);
+  const bool ok = sqrtf(du * du + dv * dv) <= md.reproj_th;
+  return md.kind == kBoth ? ok && delta <= md.thr_m : ok;
 }
 
 // Block sums of a 256-thread block's (count, error) partials over a fixed
@@ -381,12 +443,12 @@ ransac_fit_score_kernel(const float* __restrict__ p1, const float* __restrict__ 
                         const float* __restrict__ w,
                         const unsigned char* __restrict__ valid,
                         const float* __restrict__ u, const int* __restrict__ draws,
-                        int n, Noise nz, float th, float* __restrict__ T_out,
+                        int n, int sample, Model md, float* __restrict__ T_out,
                         int* __restrict__ cnt_out, float* __restrict__ err_out) {
+  extern __shared__ int s_idx[];       // the hypothesis's `sample` slots
   __shared__ int s_cnt[kThreads];
   __shared__ float s_err[kThreads];
   __shared__ int s_warp[kThreads / 32];
-  __shared__ int s_idx[kSample];
   __shared__ float s_pose[12];
 
   const size_t z = blockIdx.y;
@@ -413,7 +475,7 @@ ransac_fit_score_kernel(const float* __restrict__ p1, const float* __restrict__ 
       if (lane >= off) incl += o;
     }
     if (lane == 31) s_warp[warp] = incl;
-    if (tid < kSample) s_idx[tid] = 0;   // a draw beyond the valid slots takes slot 0
+    for (int s = tid; s < sample; s += kThreads) s_idx[s] = 0;   // a draw beyond the valid slots takes slot 0
     __syncthreads();
     int before = 0, n_valid = 0;
     for (int k = 0; k < kThreads / 32; ++k) {
@@ -422,12 +484,12 @@ ransac_fit_score_kernel(const float* __restrict__ p1, const float* __restrict__ 
     }
     const int first = before + incl - local;   // rank of this thread's first valid slot
     const int nv = max(n_valid, 1);
-    for (int s = 0; s < kSample; ++s) {
+    for (int s = 0; s < sample; ++s) {
       int d;
       if (draws != nullptr) {
-        d = draws[hyp * kSample + s];
+        d = draws[hyp * sample + s];
       } else {
-        d = min((int)floorf(u[hyp * kSample + s] * (float)nv), nv - 1);
+        d = min((int)floorf(u[hyp * sample + s] * (float)nv), nv - 1);
       }
       if (d >= first && d < first + local) {
         int k = d - first;
@@ -444,32 +506,33 @@ ransac_fit_score_kernel(const float* __restrict__ p1, const float* __restrict__ 
     }
     __syncthreads();
     if (tid == 0) {
-      float x1[kSample][3], x2[kSample][3], sw[kSample];
+      // weighted_rigid_transform's order over the drawn slots, one pass a
+      // step (no per-sample array, so S is a loop bound): the weight sum,
+      // the normalized weights' centroids, the cross-covariance
       float wsum = 0.0f;
-      for (int s = 0; s < kSample; ++s) {
+      for (int s = 0; s < sample; ++s) {
         const int i = s_idx[s];
-        for (int k = 0; k < 3; ++k) {
-          x1[s][k] = p1[3 * i + k];
-          x2[s][k] = p2[3 * i + k];
-        }
-        sw[s] = w[i] * (valid[i] ? 1.0f : 0.0f);
-        wsum += sw[s];
+        wsum += w[i] * (valid[i] ? 1.0f : 0.0f);
       }
       const float den = (wsum < 1e-12f) ? 1e-12f : wsum;
       float c1[3] = {0.0f, 0.0f, 0.0f}, c2[3] = {0.0f, 0.0f, 0.0f};
-      for (int s = 0; s < kSample; ++s) {
-        sw[s] = sw[s] / den;
+      for (int s = 0; s < sample; ++s) {
+        const int i = s_idx[s];
+        const float sw = w[i] * (valid[i] ? 1.0f : 0.0f) / den;
         for (int k = 0; k < 3; ++k) {
-          c1[k] += sw[s] * x1[s][k];
-          c2[k] += sw[s] * x2[s][k];
+          c1[k] += sw * p1[3 * i + k];
+          c2[k] += sw * p2[3 * i + k];
         }
       }
       float S[9];
       for (int k = 0; k < 9; ++k) S[k] = 0.0f;
-      for (int s = 0; s < kSample; ++s)
+      for (int s = 0; s < sample; ++s) {
+        const int i = s_idx[s];
+        const float sw = w[i] * (valid[i] ? 1.0f : 0.0f) / den;
         for (int a = 0; a < 3; ++a)
           for (int b = 0; b < 3; ++b)
-            S[3 * a + b] += sw[s] * (x1[s][a] - c1[a]) * (x2[s][b] - c2[b]);
+            S[3 * a + b] += sw * (p1[3 * i + a] - c1[a]) * (p2[3 * i + b] - c2[b]);
+      }
       Pose F;
       horn_pose(S, c1, c2, wsum, F);
       for (int k = 0; k < 9; ++k) s_pose[k] = F.r[k];
@@ -483,15 +546,12 @@ ransac_fit_score_kernel(const float* __restrict__ p1, const float* __restrict__ 
   int cnt = 0;
   float err = 0.0f;
   for (int i = tid; i < n; i += kThreads) {
-    const float x1 = p1[3 * i], y1 = p1[3 * i + 1], z1 = p1[3 * i + 2];
-    const float x2 = p2[3 * i], y2 = p2[3 * i + 1], z2 = p2[3 * i + 2];
-    float a0, a1, a2, b0, b1, b2;
-    sigma_diag(nz, z1, a0, a1, a2);
-    sigma_diag(nz, z2, b0, b1, b2);
-    const float m2 = mahal_m2(P, x1, y1, z1, x2, y2, z2, a0, a1, a2, b0, b1, b2);
-    if (m2 <= th && valid[i]) {
+    float e;
+    const bool in = pair_inlier(md, P, p1[3 * i], p1[3 * i + 1], p1[3 * i + 2], p2[3 * i],
+                                p2[3 * i + 1], p2[3 * i + 2], e);
+    if (in && valid[i]) {
       cnt += 1;
-      err += m2;
+      err += e;
     }
   }
   reduce_cnt_err(cnt, err, s_cnt, s_err);
@@ -533,30 +593,45 @@ __device__ __forceinline__ bool rank_ahead(float ra, int ia, float rb, int ib) {
   return ia < ib;
 }
 
-struct SelShared {      // views into kernel B's dynamic shared memory
+// Views of one problem's correspondences as planes: in kernel B's dynamic
+// shared memory, or past its capacity in a global scratch buffer (the same
+// layout, 31 bytes a slot: seven f32 planes, then the validity flags and two
+// planes of inlier flags).
+struct SelPlanes {
   float *x1, *y1, *z1, *x2, *y2, *z2, *w;
   unsigned char *valid, *inl_a, *inl_b;
 };
 
+__device__ __forceinline__ SelPlanes carve_planes(char* base, int n) {
+  SelPlanes sm;
+  sm.x1 = reinterpret_cast<float*>(base);
+  sm.y1 = sm.x1 + n;
+  sm.z1 = sm.y1 + n;
+  sm.x2 = sm.z1 + n;
+  sm.y2 = sm.x2 + n;
+  sm.z2 = sm.y2 + n;
+  sm.w = sm.z2 + n;
+  sm.valid = reinterpret_cast<unsigned char*>(sm.w + n);
+  sm.inl_a = sm.valid + n;
+  sm.inl_b = sm.inl_a + n;
+  return sm;
+}
+
 // Score pose P on the block's correspondences: writes the inlier flags and
-// returns (count, sum of m^2) in every thread. The count rides the float
+// returns (count, sum of errors) in every thread. The count rides the float
 // reduction: integers up to N < 2^24 add exactly in f32.
-__device__ __forceinline__ void score_block(const Pose& P, const SelShared& sm, int n,
-                                            const Noise& nz, float th,
-                                            unsigned char* inl, float* s_red,
+__device__ __forceinline__ void score_block(const Pose& P, const SelPlanes& sm, int n,
+                                            const Model& md, unsigned char* inl, float* s_red,
                                             int& cnt_out, float& err_out) {
-  float acc[2] = {0.0f, 0.0f};        // count, sum of m^2
+  float acc[2] = {0.0f, 0.0f};        // count, sum of errors
   for (int i = threadIdx.x; i < n; i += kSelThreads) {
-    float a0, a1, a2, b0, b1, b2;
-    sigma_diag(nz, sm.z1[i], a0, a1, a2);
-    sigma_diag(nz, sm.z2[i], b0, b1, b2);
-    const float m2 = mahal_m2(P, sm.x1[i], sm.y1[i], sm.z1[i], sm.x2[i], sm.y2[i],
-                              sm.z2[i], a0, a1, a2, b0, b1, b2);
-    const bool ok = m2 <= th && sm.valid[i];
+    float e;
+    const bool ok = pair_inlier(md, P, sm.x1[i], sm.y1[i], sm.z1[i], sm.x2[i], sm.y2[i],
+                                sm.z2[i], e) && sm.valid[i];
     inl[i] = ok ? 1 : 0;
     if (ok) {
       acc[0] += 1.0f;
-      acc[1] += m2;
+      acc[1] += e;
     }
   }
   block_sum<2>(acc, s_red);
@@ -564,18 +639,81 @@ __device__ __forceinline__ void score_block(const Pose& P, const SelShared& sm, 
   err_out = acc[1];
 }
 
+// y = L^-1 b for the lower-triangular L = [[l11], [l21, l22], [l31, l32, l33]]
+__device__ __forceinline__ void lower_solve(const float (&L)[6], float b0, float b1, float b2,
+                                            float (&y)[3]) {
+  y[0] = b0 / L[0];
+  y[1] = (b1 - L[1] * y[0]) / L[2];
+  y[2] = (b2 - L[3] * y[0] - L[4] * y[1]) / L[5];
+}
+
+// One inlier's contribution (wm = 1; 0 for the others, multiplied as the
+// plain version multiplies) to the 21 upper entries of H and the 6 of g of
+// refine_mahalanobis (rgbdslam_tpu/solvers/ransac_se3.py:211-260): the
+// covariance C = R diag(s1) R^T + diag(s2), its Cholesky factor L (_chol3,
+// each pivot floored at 1e-20 before its root), the whitened residual
+// L^-1 (q - p2) and Jacobian L^-1 [I | -hat(q)], q = R p1 + t.
+__device__ __forceinline__ void polish_point(const float (&R)[3][3], const float (&t)[3],
+                                             const Noise& nz, float x1, float y1, float z1,
+                                             float x2, float y2, float z2, float wm,
+                                             float (&acc)[27]) {
+  float a[3], b[3];
+  sigma_diag(nz, z1, a[0], a[1], a[2]);
+  sigma_diag(nz, z2, b[0], b[1], b[2]);
+  const float x[3] = {x1, y1, z1};
+  float q[3], d[3];
+  for (int i = 0; i < 3; ++i) {
+    q[i] = R[i][0] * x[0] + R[i][1] * x[1] + R[i][2] * x[2] + t[i];
+  }
+  d[0] = q[0] - x2;
+  d[1] = q[1] - y2;
+  d[2] = q[2] - z2;
+  float C[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l)
+      C[i][l] = R[i][0] * a[0] * R[l][0] + R[i][1] * a[1] * R[l][1]
+              + R[i][2] * a[2] * R[l][2] + (i == l ? b[i] : 0.0f);
+  float L[6];
+  const float c00 = C[0][0] < 1e-20f ? 1e-20f : C[0][0];
+  L[0] = sqrtf(c00);
+  L[1] = C[1][0] / L[0];
+  L[3] = C[2][0] / L[0];
+  const float c11 = C[1][1] - L[1] * L[1];
+  L[2] = sqrtf(c11 < 1e-20f ? 1e-20f : c11);
+  L[4] = (C[2][1] - L[3] * L[1]) / L[2];
+  const float c22 = C[2][2] - L[3] * L[3] - L[4] * L[4];
+  L[5] = sqrtf(c22 < 1e-20f ? 1e-20f : c22);
+  float Wd[3], WJ[6][3];
+  lower_solve(L, d[0], d[1], d[2], Wd);
+  lower_solve(L, 1.0f, 0.0f, 0.0f, WJ[0]);
+  lower_solve(L, 0.0f, 1.0f, 0.0f, WJ[1]);
+  lower_solve(L, 0.0f, 0.0f, 1.0f, WJ[2]);
+  lower_solve(L, 0.0f, -q[2], q[1], WJ[3]);
+  lower_solve(L, q[2], 0.0f, -q[0], WJ[4]);
+  lower_solve(L, -q[1], q[0], 0.0f, WJ[5]);
+  for (int j = 0; j < 6; ++j) {
+    for (int k = j; k < 6; ++k)
+      acc[tri6(j, k)] += (WJ[j][0] * WJ[k][0] + WJ[j][1] * WJ[k][1] + WJ[j][2] * WJ[k][2]) * wm;
+    acc[21 + j] += (WJ[j][0] * Wd[0] + WJ[j][1] * Wd[1] + WJ[j][2] * Wd[2]) * wm;
+  }
+}
+
+// kShared: the problem's planes in dynamic shared memory (31 N bytes);
+// else in `scratch`, one `stride`-byte region a problem, read through L2.
+template <bool kShared>
 __global__ void __launch_bounds__(kSelThreads)
 ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict__ cnt_h,
                             const float* __restrict__ err_h, int h,
                             const float* __restrict__ p1, const float* __restrict__ p2,
                             const float* __restrict__ w,
-                            const unsigned char* __restrict__ valid, int n, Noise nz,
-                            float th, int refine_iters, int min_inliers,
+                            const unsigned char* __restrict__ valid, int n, Model md,
+                            int refine_iters, int polish_iters, int min_inliers,
+                            char* __restrict__ scratch, size_t stride,
                             float* __restrict__ T_out, unsigned char* __restrict__ inl_out,
                             int* __restrict__ cnt_out, float* __restrict__ rmse_out,
                             unsigned char* __restrict__ success_out) {
-  extern __shared__ float s_dyn[];
-  __shared__ float s_red[kSelWarps * 9];
+  extern __shared__ float4 s_dyn[];
+  __shared__ float s_red[kSelWarps * 27];
   __shared__ float s_rank[kSelWarps];
   __shared__ int s_best[kSelWarps];
   __shared__ float s_pose[12];
@@ -590,17 +728,8 @@ ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict
   valid += z * (size_t)n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  SelShared sm;
-  sm.x1 = s_dyn;
-  sm.y1 = sm.x1 + n;
-  sm.z1 = sm.y1 + n;
-  sm.x2 = sm.z1 + n;
-  sm.y2 = sm.x2 + n;
-  sm.z2 = sm.y2 + n;
-  sm.w = sm.z2 + n;
-  sm.valid = (unsigned char*)(sm.w + n);
-  sm.inl_a = sm.valid + n;
-  sm.inl_b = sm.inl_a + n;
+  const SelPlanes sm =
+      carve_planes(kShared ? reinterpret_cast<char*>(s_dyn) : scratch + z * stride, n);
 
   int some_valid = 0;
   for (int i = tid; i < n; i += kSelThreads) {
@@ -656,7 +785,7 @@ ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict
   unsigned char* inl_new = sm.inl_b;
   int cnt;
   float err;
-  score_block(P, sm, n, nz, th, inl, s_red, cnt, err);
+  score_block(P, sm, n, md, inl, s_red, cnt, err);
   float rmse = rmse_of(cnt, err);
 
   for (int it = 0; it < refine_iters; ++it) {
@@ -699,7 +828,7 @@ ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict
     for (int k = 0; k < 3; ++k) P_new.t[k] = s_pose[9 + k];
     int cnt2;
     float err2;
-    score_block(P_new, sm, n, nz, th, inl_new, s_red, cnt2, err2);
+    score_block(P_new, sm, n, md, inl_new, s_red, cnt2, err2);
     const float rmse2 = rmse_of(cnt2, err2);
     // keep a refit only if it loses no inliers and no accuracy
     if (cnt2 >= cnt && rmse2 <= rmse) {
@@ -709,6 +838,66 @@ ransac_select_refine_kernel(const float* __restrict__ T_h, const int* __restrict
       unsigned char* tmp = inl;
       inl = inl_new;
       inl_new = tmp;
+    }
+  }
+
+  // the Mahalanobis polish (mahalanobis_refine): polish_iters whitened
+  // Gauss-Newton rounds from the refined pose over its inliers, each a
+  // pass, one block sum of the 27 normal-equation entries and thread 0's
+  // damped pivoted solve and left exp-compose; kept if finite with >= 3
+  // inliers, then only if its own scoring loses no inliers and no accuracy
+  // (ransac_se3.py:353-361)
+  if (polish_iters > 0) {
+    float R[3][3], t[3];
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) R[i][j] = P.r[3 * i + j];
+      t[i] = P.t[i];
+    }
+    for (int it = 0; it < polish_iters; ++it) {
+      float acc[27];
+      for (int k = 0; k < 27; ++k) acc[k] = 0.0f;
+      for (int i = tid; i < n; i += kSelThreads)
+        polish_point(R, t, md.nz, sm.x1[i], sm.y1[i], sm.z1[i], sm.x2[i], sm.y2[i], sm.z2[i],
+                     inl[i] ? 1.0f : 0.0f, acc);
+      block_sum<27>(acc, s_red);
+      if (tid == 0) {
+        float Hs[21], g[6], xi[6];
+        for (int k = 0; k < 21; ++k) Hs[k] = acc[k];
+        for (int k = 0; k < 6; ++k) g[k] = acc[21 + k];
+        solve6_neg(Hs, g, xi);
+        se3_exp_compose(xi, R, t);
+        for (int i = 0; i < 3; ++i) {
+          for (int j = 0; j < 3; ++j) s_pose[3 * i + j] = R[i][j];
+          s_pose[9 + i] = t[i];
+        }
+      }
+      __syncthreads();
+      for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) R[i][j] = s_pose[3 * i + j];
+        t[i] = s_pose[9 + i];
+      }
+    }
+    Pose P_m;
+    bool finite = true;
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) {
+        P_m.r[3 * i + j] = R[i][j];
+        finite = finite && isfinite(R[i][j]);
+      }
+      P_m.t[i] = t[i];
+      finite = finite && isfinite(t[i]);
+    }
+    if (finite && cnt >= 3) {
+      int cnt_m;
+      float err_m;
+      score_block(P_m, sm, n, md, inl_new, s_red, cnt_m, err_m);
+      const float rmse_m = rmse_of(cnt_m, err_m);
+      if (cnt_m >= cnt && rmse_m <= rmse) {
+        P = P_m;
+        cnt = cnt_m;
+        rmse = rmse_m;
+        inl = inl_new;
+      }
     }
   }
 
@@ -759,32 +948,65 @@ extern "C" int rgbd_mahal_hypothesis_scores(const void* T, const void* p1,
 
 // The whole RANSAC: kernel A over (h, batch) blocks, then kernel B over
 // batch blocks, on one stream. Exactly one of u (f32 uniforms in [0, 1)) and
-// draws (int32 ranks among the valid slots), both (batch, h, 4), is not null.
+// draws (int32 ranks among the valid slots), both (batch, h, sample), is not
+// null. model: an ErrorModel; params (host, 11 floats): cov_x, cov_y,
+// depth_std_factor, th (the largest inlier m^2), the distance threshold,
+// the adaptive coefficient, the pixel threshold, fx, fy, cx, cy.
+// polish_iters > 0 runs the Mahalanobis polish. scratch: null, or past the
+// shared memory a block may hold (31 n bytes) batch regions of `stride`
+// bytes for kernel B's planes.
 extern "C" int rgbd_ransac_se3(const void* p1, const void* p2, const void* w,
                                const void* valid, const void* u, const void* draws,
-                               int batch, int h, int n, float cov_x, float cov_y,
-                               float depth_std_factor, float th, int refine_iters,
-                               int min_inliers, void* T_h, void* cnt_h, void* err_h,
-                               void* T, void* inliers, void* cnt, void* rmse,
-                               void* success, void* stream) {
+                               int batch, int h, int n, int sample, int model,
+                               const float* params, int refine_iters, int polish_iters,
+                               int min_inliers, void* scratch, long long stride, void* T_h,
+                               void* cnt_h, void* err_h, void* T, void* inliers, void* cnt,
+                               void* rmse, void* success, void* stream) {
+  if (batch < 1 || h < 1 || n < 1 || sample < 1 || model < kMahalanobis || model > kBoth)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const Noise nz = {cov_x, cov_y, depth_std_factor};
-  ransac_fit_score_kernel<<<dim3(h, batch), kThreads, 0, s>>>(
-      (const float*)p1, (const float*)p2, (const float*)w,
-      (const unsigned char*)valid, (const float*)u, (const int*)draws, n, nz, th,
-      (float*)T_h, (int*)cnt_h, (float*)err_h);
-  cudaError_t e = cudaGetLastError();
+  Model md;
+  md.kind = model;
+  md.nz = {params[0], params[1], params[2]};
+  md.th = params[3];
+  md.thr_m = params[4];
+  md.coeff = params[5];
+  md.reproj_th = params[6];
+  md.fx = params[7];
+  md.fy = params[8];
+  md.cx = params[9];
+  md.cy = params[10];
+  cudaError_t e;
+  const int idx_bytes = sample * (int)sizeof(int);
+  if (idx_bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(ransac_fit_score_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, idx_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ransac_fit_score_kernel<<<dim3(h, batch), kThreads, idx_bytes, s>>>(
+      (const float*)p1, (const float*)p2, (const float*)w, (const unsigned char*)valid,
+      (const float*)u, (const int*)draws, n, sample, md, (float*)T_h, (int*)cnt_h,
+      (float*)err_h);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (scratch != nullptr) {
+    ransac_select_refine_kernel<false><<<batch, kSelThreads, 0, s>>>(
+        (const float*)T_h, (const int*)cnt_h, (const float*)err_h, h, (const float*)p1,
+        (const float*)p2, (const float*)w, (const unsigned char*)valid, n, md, refine_iters,
+        polish_iters, min_inliers, (char*)scratch, (size_t)stride, (float*)T,
+        (unsigned char*)inliers, (int*)cnt, (float*)rmse, (unsigned char*)success);
+    return (int)cudaGetLastError();
+  }
   const int bytes = n * (7 * 4 + 3);   // seven f32 planes and three flag planes
   if (bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(ransac_select_refine_kernel,
+    e = cudaFuncSetAttribute(ransac_select_refine_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  ransac_select_refine_kernel<<<batch, kSelThreads, bytes, s>>>(
+  ransac_select_refine_kernel<true><<<batch, kSelThreads, bytes, s>>>(
       (const float*)T_h, (const int*)cnt_h, (const float*)err_h, h, (const float*)p1,
-      (const float*)p2, (const float*)w, (const unsigned char*)valid, n, nz, th,
-      refine_iters, min_inliers, (float*)T, (unsigned char*)inliers, (int*)cnt,
+      (const float*)p2, (const float*)w, (const unsigned char*)valid, n, md, refine_iters,
+      polish_iters, min_inliers, nullptr, 0, (float*)T, (unsigned char*)inliers, (int*)cnt,
       (float*)rmse, (unsigned char*)success);
   return (int)cudaGetLastError();
 }

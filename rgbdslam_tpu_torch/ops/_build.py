@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
@@ -63,14 +64,14 @@ SIGNATURES = {
     # T_h, p1, p2, s1, s2, valid, batch, h, n, chunks, group, th, cnt, err, stream
     "rgbd_mahal_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                      _P, _P, _P),
-    # p1, p2, w, valid, u, draws, batch, h, n, cov_x, cov_y, depth_std_factor,
-    # th, refine_iters, min_inliers, T_h, cnt_h, err_h, T, inliers, cnt, rmse,
-    # success, stream
-    "rgbd_ransac_se3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+    # p1, p2, w, valid, u, draws, batch, h, n, sample, model, params (host,
+    # 11 floats), refine_iters, polish_iters, min_inliers, scratch, stride,
+    # T_h, cnt_h, err_h, T, inliers, cnt, rmse, success, stream
+    "rgbd_ransac_se3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _L,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # T, p1, p2, C1, C2, valid, n, iters, max_dist, max_dist2, min_matches,
-    # out, stream
-    "rgbd_gicp_refine_full": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P),
+    # reassoc, planes (global scratch or null), out, stream
+    "rgbd_gicp_refine_full": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P),
     # T, p1, p2, C1, C2, valid, n, max_dist2, out, stream
     "rgbd_gicp_gn": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P),
 }
@@ -78,7 +79,7 @@ SIGNATURES = {
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for p in sorted(SRC_DIR.glob("*.cu")):
+    for p in sorted(SRC_DIR.glob("*.cu*")):      # the sources and their headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

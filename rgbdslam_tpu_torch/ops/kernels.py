@@ -168,10 +168,19 @@ def detect_score_map_ref(img: torch.Tensor, fast_threshold, use_fast_gate: bool 
 
 
 #: pyramid levels the level table of csrc/detect.cu holds (kMaxLevels)
-_DETECT_MAX_LEVELS = 8
+DETECT_MAX_LEVELS = 8
 #: cells whose scores and levels (5 bytes each) fit the shared memory a block
 #: may use on sm_90
-_DETECT_MAX_CELLS = 46000
+DETECT_MAX_CELLS = 46000
+#: the widest cell kernel A's tiles hold (one cell a 32 x 32 tile)
+DETECT_MAX_CELL = 32
+
+
+def whole_cell_tile(cell: int) -> Tuple[int, int]:
+    """(width, height) of kernel A's tile for cells of `cell` pixels: whole
+    cells, cell * max(1, 32 // cell) by cell * max(1, 16 // cell)
+    (csrc/detect.cu whole_cell_tile)."""
+    return cell * max(1, 32 // cell), cell * max(1, 16 // cell)
 
 
 @functools.lru_cache(maxsize=256)
@@ -184,12 +193,12 @@ def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 def _detect_level_checks(entry: str, levels: List[torch.Tensor], cells) -> None:
     """A detection's pyramid against the level table of csrc/detect.cu:
-    each level's cells whole in the 32x16 tile and its grid inside its image
+    each level's cell at most 32 pixels wide and its grid inside its image
     (checked before the device), then f32 CUDA images."""
     for lvl, (img, (cell_l, rows, cols)) in enumerate(zip(levels, cells)):
-        if cell_l < 1 or 32 % cell_l or 16 % cell_l:
-            raise ValueError(f"{entry}, level {lvl}: the 32x16 tile is not a whole number "
-                             f"of {cell_l}x{cell_l} cells")
+        if not 1 <= cell_l <= DETECT_MAX_CELL:
+            raise ValueError(f"{entry}, level {lvl}: cells of {cell_l} pixels; kernel A's "
+                             f"tiles hold cells of 1 to {DETECT_MAX_CELL}")
         if img.shape[0] < rows * cell_l or img.shape[1] < cols * cell_l:
             raise ValueError(f"{entry}, level {lvl}: {tuple(img.shape)} pixels do not hold "
                              f"{rows}x{cols} cells of {cell_l}x{cell_l}")
@@ -203,8 +212,8 @@ def _whole(entry: str, cell_size, min_border) -> None:
 
 
 def _level_count(entry: str, n_levels: int) -> None:
-    if n_levels > _DETECT_MAX_LEVELS:
-        raise ValueError(f"{entry} takes at most {_DETECT_MAX_LEVELS} pyramid levels, got "
+    if n_levels > DETECT_MAX_LEVELS:
+        raise ValueError(f"{entry} takes at most {DETECT_MAX_LEVELS} pyramid levels, got "
                          f"{n_levels}")
 
 
@@ -243,8 +252,8 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
     h0, w0 = pyramid[0].shape
     grid_rows, grid_cols = h0 // cell_size, w0 // cell_size
     n_cells = grid_rows * grid_cols
-    if not 1 <= n_cells <= _DETECT_MAX_CELLS:
-        raise ValueError(f"{entry} ranks 1 to {_DETECT_MAX_CELLS} cells in shared memory, "
+    if not 1 <= n_cells <= DETECT_MAX_CELLS:
+        raise ValueError(f"{entry} ranks 1 to {DETECT_MAX_CELLS} cells in shared memory, "
                          f"got {n_cells}")
     _detect_level_checks(entry, levels, [(cell_size >> lvl, grid_rows, grid_cols)
                                          for lvl in range(L)])
@@ -305,8 +314,8 @@ def detect_keypoints_scaled(pyramid: List[torch.Tensor], quotas: List[int], cell
     grids = [(h // cell_size, w // cell_size) if q > 0 else (0, 0)
              for (h, w), q in zip((p.shape for p in pyramid), quotas)]
     n_max = max(r * c for r, c in grids)
-    if n_max > _DETECT_MAX_CELLS:
-        raise ValueError(f"{entry} ranks at most {_DETECT_MAX_CELLS} cells of a level in "
+    if n_max > DETECT_MAX_CELLS:
+        raise ValueError(f"{entry} ranks at most {DETECT_MAX_CELLS} cells of a level in "
                          f"shared memory, got {n_max}")
     _detect_level_checks(entry, pyramid, [(int(cell_size), r, c) for r, c in grids])
     L = len(pyramid)
@@ -525,32 +534,45 @@ def mahal_hypothesis_scores_ref(T_h, p1, p2, s1, s2, valid, th: float):
 
 
 #: dynamic shared memory a block may use on sm_90, less kernel B's static part
-_SELECT_SHARED_BYTES = 232448 - 1024
+_SELECT_SHARED_BYTES = 232448 - 2048
+#: RansacConfig.error_model, in the order of csrc/mahal.cu's ErrorModel
+ERROR_MODELS = ("mahalanobis", "euclidean", "adaptive_euclidean", "reprojection", "both")
+
+
+def select_scratch_stride(n: int) -> int:
+    """Bytes of one problem's planes (31 a slot: seven f32 planes, three of
+    flags), rounded up to 16; 0 where they fit kernel B's shared memory."""
+    return 0 if n * 31 <= _SELECT_SHARED_BYTES else (n * 31 + 15) & ~15
 
 
 def ransac_se3_fused(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
                      valid: torch.Tensor, u: Optional[torch.Tensor],
-                     draws: Optional[torch.Tensor], num_hypotheses: int,
-                     cov_x: float, cov_y: float, depth_std_factor: float,
-                     th: float, refine_iters: int, min_inliers: int):
-    """The whole Mahalanobis RANSAC in two launches of csrc/mahal.cu (see
-    its header): kernel A samples, fits and scores the H hypotheses, kernel
-    B selects the winner and runs the masked refits.
+                     draws: Optional[torch.Tensor], num_hypotheses: int, sample_size: int,
+                     error_model: str, params, refine_iters: int, min_inliers: int,
+                     polish_iters: int = 0):
+    """The whole RANSAC in two launches of csrc/mahal.cu (see its header):
+    kernel A samples, fits and scores the H hypotheses, kernel B selects the
+    winner, runs the masked refits and, with `polish_iters` > 0, the
+    Mahalanobis polish (mahalanobis_refine).
 
     p1, p2 (N, 3) f32, w (N,) f32, valid (N,) bool, all with or all without
-    one leading batch dimension. Exactly one of `u` ((H, 4) f32 uniforms in
+    one leading batch dimension. Exactly one of `u` ((H, S) f32 uniforms in
     [0, 1), scaled to the number of valid slots in the kernel) and `draws`
-    ((H, 4) int32 ranks among the valid slots) is given, batched alike.
-    cov_x, cov_y, depth_std_factor: the noise model's per-point covariance
-    (cov_x z, cov_y z, (depth_std_factor z z)^2); th: the largest m^2 of an
-    inlier.
+    ((H, S) int32 ranks among the valid slots) is given, batched alike; S =
+    `sample_size`. error_model: one of ERROR_MODELS. params: 11 floats, the
+    noise model's per-point covariance (cov_x z, cov_y z, (depth_std_factor
+    z z)^2) as cov_x, cov_y, depth_std_factor; th, the largest m^2 of an
+    inlier; the distance threshold (m), the adaptive coefficient and the
+    pixel threshold; the camera's fx, fy, cx, cy (read by reprojection and
+    both). Past what kernel B's shared memory holds (`select_scratch_stride`)
+    its planes go to a scratch buffer allocated here.
 
     Returns (T21 (4, 4), inliers (N,) bool, num_inliers () int32, rmse ()
     f32, success () bool) and kernel A's (T_h (H, 4, 4), count (H,) int32,
-    sum of m^2 (H,) f32), each with the batch dimension if given."""
+    sum of errors (H,) f32), each with the batch dimension if given."""
     batched = p1.dim() == 3
     lead = (p1.shape[0],) if batched else ()
-    N, H = p1.shape[-2], int(num_hypotheses)
+    N, H, S = p1.shape[-2], int(num_hypotheses), int(sample_size)
     for t, name in ((p1, "p1"), (p2, "p2")):
         _check(t, name, torch.float32, lead + (N, 3))
     _check(w, "w", torch.float32, lead + (N,))
@@ -558,16 +580,19 @@ def ransac_se3_fused(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
     if (u is None) == (draws is None):
         raise ValueError("ransac_se3_fused takes exactly one of u and draws")
     if u is not None:
-        _check(u, "u", torch.float32, lead + (H, 4))
+        _check(u, "u", torch.float32, lead + (H, S))
     else:
-        _check(draws, "draws", torch.int32, lead + (H, 4))
-    if N < 1 or H < 1 or (batched and lead[0] < 1):
+        _check(draws, "draws", torch.int32, lead + (H, S))
+    if N < 1 or H < 1 or S < 1 or (batched and lead[0] < 1):
         raise ValueError("ransac_se3_fused needs at least one correspondence slot, "
-                         "one hypothesis and one problem")
-    if N * 31 > _SELECT_SHARED_BYTES:
-        raise ValueError(f"ransac_se3_fused holds the {N} correspondences of a problem "
-                         f"in shared memory: at most {_SELECT_SHARED_BYTES // 31}")
+                         "one hypothesis, one sample and one problem")
+    if error_model not in ERROR_MODELS:
+        raise ValueError(f"unknown error_model {error_model!r}")
+    params = (ctypes.c_float * 11)(*[float(v) for v in params])
     dev = p1.device
+    B = lead[0] if batched else 1
+    stride = select_scratch_stride(N)
+    scratch = torch.empty((B * stride,), dtype=torch.uint8, device=dev) if stride else None
     T_h = torch.empty(lead + (H, 4, 4), dtype=torch.float32, device=dev)
     cnt_h = torch.empty(lead + (H,), dtype=torch.int32, device=dev)
     err_h = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
@@ -578,8 +603,8 @@ def ransac_se3_fused(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
     success = torch.empty(lead, dtype=torch.bool, device=dev)
     _launch("rgbd_ransac_se3", dev, _ptr(p1), _ptr(p2), _ptr(w), _ptr(valid),
             None if u is None else _ptr(u), None if draws is None else _ptr(draws),
-            lead[0] if batched else 1, H, N, float(cov_x), float(cov_y),
-            float(depth_std_factor), float(th), int(refine_iters), int(min_inliers),
+            B, H, N, S, ERROR_MODELS.index(error_model), params, int(refine_iters),
+            int(polish_iters), int(min_inliers), _ptr(scratch), stride,
             _ptr(T_h), _ptr(cnt_h), _ptr(err_h), _ptr(T), _ptr(inliers), _ptr(cnt),
             _ptr(rmse), _ptr(success))
     LAUNCHES["ransac_se3_fused"] += 1
@@ -603,20 +628,25 @@ def _check_gicp_inputs(T, p1, p2, C1, C2, valid) -> int:
     return N
 
 
-#: correspondences `gicp_refine_fused` holds in shared memory (76 bytes each)
-_GICP_MAX_POINTS = 3000
+#: correspondences `gicp_refine_fused` holds in shared memory (76 bytes
+#: each); past them its planes go to a global scratch buffer
+GICP_SHARED_POINTS = 3000
 
 
 def gicp_refine_fused(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                       C1: torch.Tensor, C2: torch.Tensor, valid: torch.Tensor,
-                      iters: int, max_dist: float, min_matches: int):
+                      iters: int, max_dist: float, min_matches: int,
+                      reassociate: bool = False):
     """The whole `gicp_refine` in one launch of csrc/gicp.cu: `iters` rounds
     of (normal equations -> damped 6x6 solve -> left SE(3) exp-compose) on
-    inputs held in shared memory, then the convergence gate (at least
-    `min_matches` valid pairs, as many within `max_dist` at the final pose, a
-    finite pose) and the fallback to T_init. The solve pivots like the plain
-    version's LU; the Pallas kernel's Cholesky gave NaN on the indefinite H
-    that real frames produce (see the note in gicp.cu).
+    inputs held as planes in shared memory (past GICP_SHARED_POINTS in a
+    global scratch buffer allocated here), then the convergence gate (at
+    least `min_matches` valid pairs, as many within `max_dist` at the final
+    pose, a finite pose) and the fallback to T_init. With `reassociate`
+    every round and the gate pair each point with its nearest valid target
+    (IcpConfig.reassociate). The solve pivots like the plain version's LU;
+    the Pallas kernel's Cholesky gave NaN on the indefinite H that real
+    frames produce (see the note in gicp.cu).
 
     Returns ((T_out (4, 4), converged () bool, n_valid () int32), (T_fin
     (4, 4), cost (), count ())): what `_finish_gicp` returns, and the final
@@ -624,13 +654,15 @@ def gicp_refine_fused(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     last round's build, as `gicp_refine_ref` returns them. All are views of
     one output buffer."""
     N = _check_gicp_inputs(T_init, p1, p2, C1, C2, valid)
-    if not 1 <= N <= _GICP_MAX_POINTS:
-        raise ValueError(f"gicp_refine_fused holds 1 to {_GICP_MAX_POINTS} correspondences "
-                         f"in shared memory, got {N}")
+    if N < 1:
+        raise ValueError("gicp_refine_fused needs at least one correspondence")
     out = torch.empty((36,), dtype=torch.float32, device=T_init.device)
+    planes = (torch.empty((19 * (N | 1),), dtype=torch.float32, device=T_init.device)
+              if N > GICP_SHARED_POINTS else None)
     _launch("rgbd_gicp_refine_full", T_init.device, _ptr(T_init), _ptr(p1), _ptr(p2),
             _ptr(C1), _ptr(C2), _ptr(valid), N, int(iters), float(max_dist),
-            float(max_dist) * float(max_dist), int(min_matches), _ptr(out))
+            float(max_dist) * float(max_dist), int(min_matches), int(bool(reassociate)),
+            _ptr(planes), _ptr(out))
     LAUNCHES["gicp_refine_fused"] += 1
     n_valid = out[34:35].view(torch.int32)[0]
     converged = out[35:36].view(torch.bool)[0]      # the low byte of a 0 / 1 word
@@ -638,12 +670,14 @@ def gicp_refine_fused(T_init: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
             (out[16:32].view(4, 4), out[32], out[33]))
 
 
-def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):
+def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float,
+                    reassociate: bool = False):
     """Plain version of K4's loop: the Gauss-Newton rounds of
-    rgbdslam_tpu/solvers/icp.py:198-221 (reassociate=False). Returns
-    (T, cost, count) of the last round, like the kernels;
+    rgbdslam_tpu/solvers/icp.py:198-221, with `reassociate` re-pairing each
+    point with its nearest valid target (and its C2) at the start of every
+    round. Returns (T, cost, count) of the last round, like the kernels;
     `solvers.icp._finish_gicp` is the plain version of the gate behind it."""
-    from rgbdslam_tpu_torch.solvers.icp import _gn_step
+    from rgbdslam_tpu_torch.solvers.icp import _gn_step, nearest_targets
     from rgbdslam_tpu_torch.solvers.ransac_se3 import _inv3x3
 
     T = T_init
@@ -651,9 +685,13 @@ def gicp_refine_ref(T_init, p1, p2, C1, C2, valid, iters: int, max_dist: float):
     count = torch.zeros((), dtype=T.dtype, device=T.device)
     for _ in range(iters):
         R = T[:3, :3]
+        p2_i, C2_i = p2, C2
+        if reassociate:
+            j = nearest_targets(p1 @ R.T + T[:3, 3], p2, valid)
+            p2_i, C2_i = p2[j], C2[j]
         C1r = torch.einsum("ij,njk,lk->nil", R, C1, R)
-        W = _inv3x3(C1r + C2)
-        T, cost, count = _gn_step(T, p1, p2, W, valid, max_dist)
+        W = _inv3x3(C1r + C2_i)
+        T, cost, count = _gn_step(T, p1, p2_i, W, valid, max_dist)
     return T, cost, count
 
 

@@ -24,6 +24,7 @@ from rgbdslam_tpu_torch.device import resolve_device
 from rgbdslam_tpu_torch.frontend.frame import FrameFeatures, build_frame_features
 from rgbdslam_tpu_torch.frontend.matcher import gather_matched_points, match_frames
 from rgbdslam_tpu_torch.geometry.camera import Camera
+from rgbdslam_tpu_torch.slam.tracking import check_system_config
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
 
@@ -37,6 +38,7 @@ class PipelinedOdometry:
         self.cfg = cfg
         self.batch = batch
         self.device = resolve_device(device)
+        check_system_config(cfg, cam, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------

@@ -216,6 +216,7 @@ class SlamSystem:
         self.cfg = cfg
         self.device = resolve_device(device)
         kf_cfg = cfg.keyframe
+        # the Tracker refuses a configuration the device does not take
         self.tracker = Tracker(cam, cfg, seed=seed, device=self.device)
         self.store = KeyframeStore(kf_cfg.max_keyframes, cfg.extractor.num_features)
         self.graph = PoseGraph(

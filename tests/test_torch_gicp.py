@@ -110,8 +110,14 @@ def test_gicp_refine_matches_jax_and_falls_back():
         np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-4, atol=1e-5)
     assert not bool(ct)
     np.testing.assert_array_equal(Tt.numpy(), T0)          # fallback keeps T_init
-    with pytest.raises(NotImplementedError):
-        ticp.gicp_refine(*_t(p1, p2, valid, T0), IcpConfig(reassociate=True), *_t(C1, C2))
+    # reassociating GICP runs too, and agrees with the JAX package's loop
+    cfg = dict(reassociate=True, max_correspondence_dist=0.15)
+    Tj, cj, nj = jicp.gicp_refine(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid),
+                                  jnp.asarray(T0), None, JIcpConfig(**cfg),
+                                  C1=jnp.asarray(C1), C2=jnp.asarray(C2))
+    Tt, ct, nt = ticp.gicp_refine(*_t(p1, p2, valid, T0), IcpConfig(**cfg), *_t(C1, C2))
+    assert bool(ct) == bool(cj) and int(nt) == int(nj) and bool(ct)
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-4, atol=1e-5)
 
 
 def test_depth_patch_covariances_match_jax():
@@ -295,17 +301,46 @@ def _model_block_sum(contrib):
     return total
 
 
-def _model_gicp_refine_fused(T_init, p1, p2, C1, C2, valid, iters, max_dist, min_matches):
+def _model_nearest(q, p2, valid):
+    """nearest_target of csrc/gicp.cu, point by point: a scan over the valid
+    targets with d = (dx^2 + dy^2) + dz^2, the first strict minimum kept, a
+    NaN taken once and then kept, 0 where nothing is nearer than +inf."""
+    out = torch.zeros(q.shape[0], dtype=torch.int64)
+    for i in range(q.shape[0]):
+        d = q[i] - p2
+        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        best, bd = 0, float("inf")
+        for j in torch.nonzero(valid)[:, 0].tolist():
+            v = float(d2[j])
+            if not np.isnan(bd) and (v < bd or np.isnan(v)):
+                best, bd = j, v
+        out[i] = best
+    return out
+
+
+def _model_gicp_refine_fused(T_init, p1, p2, C1, C2, valid, iters, max_dist, min_matches,
+                             reassociate=False):
     """((T_out, converged, n_valid), T_fin): the loop on the model's sums,
     the pivoted solve, the exp-compose, then the kernel's gate: both counts
     >= min_matches at the final pose (|r| < max_dist by the square root) and
-    a finite pose, else T_init."""
+    a finite pose, else T_init. With `reassociate` every round and the gate
+    pair each point with its nearest valid target first."""
     from rgbdslam_tpu_torch.geometry import se3 as tse3
+
+    def paired(T):
+        if not reassociate:
+            return p2, C2
+        R, t = T[:3, :3], T[:3, 3]
+        q = torch.stack([R[i, 0] * p1[:, 0] + R[i, 1] * p1[:, 1] + R[i, 2] * p1[:, 2] + t[i]
+                         for i in range(3)], -1)
+        j = _model_nearest(q, p2, valid)
+        return p2[j], C2[j]
 
     T = T_init.clone()
     for _ in range(iters):
-        sums = _model_block_sum(_model_point_sums(T[:3, :3], T[:3, 3], p1, p2, C1, C2, valid,
-                                                  np.float32(max_dist * max_dist)))
+        p2_i, C2_i = paired(T)
+        sums = _model_block_sum(_model_point_sums(T[:3, :3], T[:3, 3], p1, p2_i, C1, C2_i,
+                                                  valid, np.float32(max_dist * max_dist)))
         H = torch.zeros((6, 6))
         for i in range(6):
             for j in range(i, 6):
@@ -315,21 +350,27 @@ def _model_gicp_refine_fused(T_init, p1, p2, C1, C2, valid, iters, max_dist, min
         T = tse3.exp(xi) @ T
     q = p1 @ T[:3, :3].T + T[:3, 3]
     n_valid = int(valid.sum())
-    n_gated = int((valid & (torch.sqrt(((q - p2) ** 2).sum(-1)) < max_dist)).sum())
+    p2_f = paired(T)[0] if bool(torch.isfinite(T).all()) else p2
+    n_gated = int((valid & (torch.sqrt(((q - p2_f) ** 2).sum(-1)) < max_dist)).sum())
     converged = (n_valid >= min_matches and n_gated >= min_matches
                  and bool(torch.isfinite(T[:3]).all()))
     return (T if converged else T_init, converged, n_valid), T
 
 
 @pytest.mark.parametrize("case", ["plain", "1024 points", "too few valid pairs",
-                                  "non-finite final pose", "pairs out of reach"])
+                                  "non-finite final pose", "pairs out of reach",
+                                  "reassociating", "reassociating bad pairs"])
 def test_fused_gicp_model_matches_plain_and_jax(case):
     """The fused kernel's algorithm (sums in its thread, warp and block
     order, solve, compose, gate, fallback) against the plain loop + gate and
     the JAX gicp_refine: converged and n_valid exact, poses rtol 1e-4 / atol
     1e-5 (f32 sums in three different orders over ten rounds)."""
     T0, p1, p2, C1, C2, valid, _ = _problem(12, 1024 if case == "1024 points" else 300)
-    cfg_kw = dict(max_iterations=10, max_correspondence_dist=0.15, min_matches=20)
+    reassoc = case.startswith("reassociating")
+    cfg_kw = dict(max_iterations=10, max_correspondence_dist=0.15, min_matches=20,
+                  reassociate=reassoc)
+    if case == "reassociating bad pairs":         # wrong descriptor pairings
+        p2[:60] = np.roll(p2[:60], 1, axis=0)
     if case == "too few valid pairs":
         valid[np.flatnonzero(valid)[19:]] = False
     elif case == "non-finite final pose":
@@ -337,8 +378,8 @@ def test_fused_gicp_model_matches_plain_and_jax(case):
     elif case == "pairs out of reach":
         p2 = p2 + np.float32(1.0)
     args = _t(T0, p1, p2, C1, C2, valid)
-    (mT, mconv, mnv), mfin = _model_gicp_refine_fused(*args, 10, 0.15, 20)
-    pfin = kernels.gicp_refine_ref(*args, 10, 0.15)[0]
+    (mT, mconv, mnv), mfin = _model_gicp_refine_fused(*args, 10, 0.15, 20, reassoc)
+    pfin = kernels.gicp_refine_ref(*args, 10, 0.15, reassociate=reassoc)[0]
     pT, pconv, pnv = ticp._finish_gicp(pfin, args[0], args[1], args[2], args[5],
                                        IcpConfig(**cfg_kw))
     Tj, cj, nj = jicp.gicp_refine(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid),
@@ -346,7 +387,7 @@ def test_fused_gicp_model_matches_plain_and_jax(case):
                                   C1=jnp.asarray(C1), C2=jnp.asarray(C2))
     assert mconv == bool(pconv) == bool(cj)
     assert mnv == int(pnv) == int(nj)
-    assert mconv == (case in ("plain", "1024 points"))
+    assert mconv == (case in ("plain", "1024 points") or reassoc)
     if case == "non-finite final pose":
         assert not np.isfinite(mfin.numpy()).all() and not np.isfinite(pfin.numpy()).all()
     else:
@@ -359,12 +400,13 @@ def test_fused_gicp_model_matches_plain_and_jax(case):
 
 
 def test_fused_gicp_wrapper_checks():
-    """The fused wrapper takes CUDA tensors only, and at most the 3,000
-    correspondences its kernel holds in shared memory."""
+    """The fused wrapper takes CUDA tensors only; its kernel holds up to
+    GICP_SHARED_POINTS correspondences' planes in shared memory (past them in
+    global memory)."""
     T0, p1, p2, C1, C2, valid, _ = _problem(13, 64)
     args = _t(T0, p1, p2, C1, C2, valid)
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gicp_refine_fused(*args, 10, 0.07, 20)
     assert kernels.LAUNCHES["gicp_refine_fused"] == 0
-    assert kernels._GICP_MAX_POINTS * 76 + 76 + 2032 <= 232448   # planes + static shared
+    assert kernels.GICP_SHARED_POINTS * 76 + 76 + 2032 <= 232448   # planes + static shared

@@ -518,8 +518,10 @@ def test_ransac_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
     res = rs.ransac_se3(p1, p2, w, valid, g, RansacConfig())
     assert kernels.LAUNCHES["ransac_se3_fused"] == 1 and bool(res.success)
     torch.testing.assert_close(res.T21, T, rtol=0, atol=1e-2)
-    with pytest.raises(NotImplementedError):
-        rs.ransac_se3(p1, p2, w, valid, g, RansacConfig(sample_size=3))
+    # any sample size runs on the card (kernel A takes S as a loop bound)
+    kernels.reset_launch_counts()
+    res3 = rs.ransac_se3(p1, p2, w, valid, g, RansacConfig(sample_size=3))
+    assert kernels.LAUNCHES["ransac_se3_fused"] == 1 and bool(res3.success)
     with pytest.raises(ValueError):
         rs.ransac_se3(p1.cpu(), p2, w, valid, g, RansacConfig())
 
@@ -626,6 +628,7 @@ def test_detect_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
     kw = dict(num_features=512, cell_size=8, fast_threshold=15.0, min_response=20.0,
               min_border=16)
     ref = fast.detect_keypoints_ref(pyr, **kw)
+    wide = {c: fast.detect_keypoints_ref(pyr, **{**kw, "cell_size": c}) for c in (10, 32)}
     for name in ("detect_keypoints_ref", "detect_cells_ref", "detect_select_ref"):
         monkeypatch.setattr(fast, name, forbid)
     monkeypatch.setattr(kernels, "detect_score_map_ref", forbid)
@@ -636,11 +639,12 @@ def test_detect_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
     dark = fast.detect_keypoints(image.build_pyramid(torch.zeros_like(img), 3), **kw)
     assert not bool(dark.valid.any()) and float(dark.uv.abs().sum()) == 0.0
     assert float(dark.score.abs().sum()) == 0.0 and int(dark.level.sum()) == 0
-    # shapes the kernels do not take raise
-    with pytest.raises(ValueError, match="whole number"):
-        fast.detect_keypoints(pyr, **{**kw, "cell_size": 10})
-    with pytest.raises(ValueError, match="whole number"):
-        fast.detect_keypoints(pyr, **{**kw, "cell_size": 32})
+    # any cell of 1 to 32 pixels runs, in tiles of whole cells (10: 30 x 10,
+    # 32: 32 x 32); a wider cell raises
+    for c, kp in wide.items():
+        _same_keypoints(fast.detect_keypoints(pyr, **{**kw, "cell_size": c}), kp)
+    with pytest.raises(ValueError, match="cells of 1 to 32"):
+        fast.detect_keypoints(pyr, **{**kw, "cell_size": 33})
     with pytest.raises(ValueError):
         fast.detect_keypoints([pyr[0], pyr[1].cpu()], **kw)
     # more levels than cells have pixels: the plain version's break
@@ -684,7 +688,7 @@ def test_gicp_refine_fused_matches_plain(dev, kernels, n, min_matches):
 def test_gicp_refine_fused_gate_and_limits(dev, kernels, monkeypatch):
     """A non-finite final pose falls back to T_init; pairs that end farther
     apart than max_dist do not count; more points than shared memory holds
-    raise; the public entry never reaches a plain version."""
+    run from global memory; the public entry never reaches a plain version."""
     from rgbdslam_tpu_torch.config import IcpConfig
     from rgbdslam_tpu_torch.solvers import icp
 
@@ -703,8 +707,11 @@ def test_gicp_refine_fused_gate_and_limits(dev, kernels, monkeypatch):
     (pT, pconv, pnv), _ = _finish_plain(kernels, (T0, p1, far, C1, C2, valid), 10, 0.07, 20)
     assert not bool(kconv) and not bool(pconv) and int(knv) == int(pnv) > 20
     assert torch.equal(kT, T0)
-    with pytest.raises(ValueError, match="3000"):
-        kernels.gicp_refine_fused(*_gicp_problem(dev, 42, 3001), 10, 0.07, 20)
+    big = _gicp_problem(dev, 42, 3001)
+    (kT, kconv, knv), _ = kernels.gicp_refine_fused(*big, 10, 0.07, 20)
+    (pT, pconv, pnv), _ = _finish_plain(kernels, big, 10, 0.07, 20)
+    assert bool(kconv) and bool(pconv) and int(knv) == int(pnv)
+    torch.testing.assert_close(kT, pT, rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.gicp_refine_fused(T0.T, p1, p2, C1, C2, valid, 10, 0.07, 20)
 

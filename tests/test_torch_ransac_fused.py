@@ -104,23 +104,59 @@ def _pose_matrix(R, t):
     return T
 
 
-def _model_score(T, p1, p2, valid, cfg):
-    """(inlier flags, count, sum of m^2) of poses T (..., 4, 4) on one
-    problem: sigma from z as sigma_diag does, m^2 in the kernels' order."""
+def _sigma(z, cfg):
+    """sigma_diag of csrc/mahal.cu: (cov_x z, cov_y z, (dsf z z)^2)."""
     cov_x, cov_y = transac._raster_cov(cfg)
-
-    def sigma(z):
-        sz = cfg.depth_std_factor * z * z
-        return torch.stack([cov_x * z, cov_y * z, sz * sz], -1)
-
-    m2 = transac.mahalanobis_sq_planes(T, p1, p2, sigma(p1[:, 2]), sigma(p2[:, 2]))
-    ok = (m2 <= cfg.max_mahalanobis * cfg.max_mahalanobis) & valid
-    return ok, ok.sum(-1).to(torch.int32), torch.where(ok, m2, 0.0).sum(-1)
+    sz = cfg.depth_std_factor * z * z
+    return torch.stack([cov_x * z, cov_y * z, sz * sz], -1)
 
 
-def model_kernel_a(p1, p2, w, valid, cfg, u=None, draws=None):
-    """Kernel A on one problem: (T_h (H, 4, 4), count (H,), sum m^2 (H,),
-    the sampled slots (H, 4))."""
+def _model_pair(T, p1, p2, cfg, cam=None):
+    """pair_inlier of csrc/mahal.cu for poses T (..., 4, 4) on one problem:
+    (inlier test before validity (..., N), error (..., N)). Mahalanobis: m^2
+    in the kernels' order; the others: q = R p1 + t summed left to right,
+    delta = sqrt((dx^2 + dy^2) + dz^2), error delta^2, and the model's test
+    (reprojection: both depths clamped at 1e-6)."""
+    if cfg.error_model == "mahalanobis":
+        m2 = transac.mahalanobis_sq_planes(T, p1, p2, _sigma(p1[:, 2], cfg),
+                                           _sigma(p2[:, 2], cfg))
+        return m2 <= cfg.max_mahalanobis * cfg.max_mahalanobis, m2
+    lead = T.shape[:-2]
+    x1, y1, z1 = (p1[:, k].expand(lead + p1.shape[:1]) for k in range(3))
+    x2, y2, z2 = (p2[:, k].expand(lead + p2.shape[:1]) for k in range(3))
+    r = [[T[..., i, j, None] for j in range(4)] for i in range(3)]
+    q = [r[i][0] * x1 + r[i][1] * y1 + r[i][2] * z1 + r[i][3] for i in range(3)]
+    d0, d1, d2 = q[0] - x2, q[1] - y2, q[2] - z2
+    delta = torch.sqrt(d0 * d0 + d1 * d1 + d2 * d2)
+    if cfg.error_model == "euclidean":
+        ok = delta <= cfg.inlier_threshold_m
+    elif cfg.error_model == "adaptive_euclidean":
+        zm = 0.5 * (z1 + z2)
+        ok = delta <= cfg.inlier_threshold_m + cfg.adaptive_depth_coeff * zm * zm
+    else:
+        zq = torch.where(q[2] < 1e-6, torch.full_like(q[2], 1e-6), q[2])
+        zt = torch.where(z2 < 1e-6, torch.full_like(z2, 1e-6), z2)
+        du = (cam.fx * q[0] / zq + cam.cx) - (cam.fx * x2 / zt + cam.cx)
+        dv = (cam.fy * q[1] / zq + cam.cy) - (cam.fy * y2 / zt + cam.cy)
+        ok = torch.sqrt(du * du + dv * dv) <= cfg.reproj_threshold_px
+        if cfg.error_model == "both":
+            ok = ok & (delta <= cfg.inlier_threshold_m)
+    return ok, delta * delta
+
+
+def _model_score(T, p1, p2, valid, cfg, cam=None):
+    """(inlier flags, count, sum of errors) of poses T (..., 4, 4) on one
+    problem under cfg.error_model."""
+    ok, err = _model_pair(T, p1, p2, cfg, cam)
+    ok = ok & valid
+    return ok, ok.sum(-1).to(torch.int32), torch.where(ok, err, 0.0).sum(-1)
+
+
+def model_kernel_a(p1, p2, w, valid, cfg, u=None, draws=None, cam=None):
+    """Kernel A on one problem: (T_h (H, 4, 4), count (H,), sum of errors
+    (H,), the sampled slots (H, S)). Thread 0's fit walks the S slots once
+    for the weight sum, once for the centroids, once for the
+    cross-covariance, each sum left to right."""
     n_valid = int(valid.sum())
     nv = max(n_valid, 1)
     if draws is None:
@@ -132,24 +168,27 @@ def model_kernel_a(p1, p2, w, valid, cfg, u=None, draws=None):
     idx = torch.zeros_like(draws)
     if n_valid:
         idx = torch.where(in_range, slots[draws.clamp(0, n_valid - 1)], idx)
-    x1, x2 = p1[idx], p2[idx]                         # (H, 4, 3)
+    x1, x2 = p1[idx], p2[idx]                         # (H, S, 3)
     sw = w[idx] * valid[idx].to(F32)
-    wsum = ((sw[:, 0] + sw[:, 1]) + sw[:, 2]) + sw[:, 3]
+    n_s = idx.shape[1]
+    wsum = torch.zeros(idx.shape[0])
+    for s in range(n_s):
+        wsum = wsum + sw[:, s]
     den = torch.where(wsum < 1e-12, torch.full_like(wsum, 1e-12), wsum)
     wn = sw / den[:, None]
     c1 = torch.zeros(idx.shape[0], 3)
     c2 = torch.zeros(idx.shape[0], 3)
-    for s in range(4):
+    for s in range(n_s):
         c1 = c1 + wn[:, s, None] * x1[:, s]
         c2 = c2 + wn[:, s, None] * x2[:, s]
     S = torch.zeros(idx.shape[0], 9)
-    for s in range(4):
+    for s in range(n_s):
         q1, q2 = x1[:, s] - c1, x2[:, s] - c2
         S = S + torch.stack([wn[:, s] * q1[:, a] * q2[:, b]
                              for a in range(3) for b in range(3)], -1)
     T_h = _pose_matrix(*model_horn_pose(S, c1, c2, wsum))
     T_h[0] = torch.eye(4)
-    _, cnt, err = _model_score(T_h, p1, p2, valid, cfg)
+    _, cnt, err = _model_score(T_h, p1, p2, valid, cfg, cam)
     return T_h, cnt, err, idx
 
 
@@ -173,11 +212,60 @@ def model_argmax(cnt_h, err_h):
     return best
 
 
-def model_kernel_b(T_h, cnt_h, err_h, p1, p2, w, valid, cfg):
+def model_polish(T, p1, p2, inl, cfg):
+    """The Mahalanobis polish of kernel B: mahalanobis_refine_iters rounds,
+    each point's covariance C = R diag(s1) R^T + diag(s2) entry by entry,
+    its Cholesky factor with every pivot floored at 1e-20, forward
+    substitution for the whitened residual and the six Jacobian columns
+    [e0 e1 e2 | (0, -q2, q1) (q2, 0, -q0) (-q1, q0, 0)], the 21 + 6 sums
+    over the inliers, H + 1e-6 I solved with pivoting, exp(xi) T. Kept where
+    finite with >= 3 inliers, else T."""
+    from rgbdslam_tpu_torch.geometry import se3 as tse3
+
+    a, b = _sigma(p1[:, 2], cfg), _sigma(p2[:, 2], cfg)
+    wm = inl.to(F32)
+    T0 = T
+    for _ in range(cfg.mahalanobis_refine_iters):
+        R, t = T[:3, :3], T[:3, 3]
+        q = [R[i, 0] * p1[:, 0] + R[i, 1] * p1[:, 1] + R[i, 2] * p1[:, 2] + t[i]
+             for i in range(3)]
+        d = [q[i] - p2[:, i] for i in range(3)]
+        C = [[R[i, 0] * a[:, 0] * R[l, 0] + R[i, 1] * a[:, 1] * R[l, 1]
+              + R[i, 2] * a[:, 2] * R[l, 2] + (b[:, i] if i == l else 0.0)
+              for l in range(3)] for i in range(3)]
+        l11 = torch.sqrt(torch.clamp_min(C[0][0], 1e-20))
+        l21, l31 = C[1][0] / l11, C[2][0] / l11
+        l22 = torch.sqrt(torch.clamp_min(C[1][1] - l21 * l21, 1e-20))
+        l32 = (C[2][1] - l31 * l21) / l22
+        l33 = torch.sqrt(torch.clamp_min(C[2][2] - l31 * l31 - l32 * l32, 1e-20))
+
+        def fwd(b0, b1, b2):
+            y0 = b0 / l11
+            y1 = (b1 - l21 * y0) / l22
+            return y0, y1, (b2 - l31 * y0 - l32 * y1) / l33
+
+        zero, one = torch.zeros_like(q[0]), torch.ones_like(q[0])
+        Wd = fwd(*d)
+        WJ = [fwd(one, zero, zero), fwd(zero, one, zero), fwd(zero, zero, one),
+              fwd(zero, -q[2], q[1]), fwd(q[2], zero, -q[0]), fwd(-q[1], q[0], zero)]
+        H = torch.zeros(6, 6)
+        g = torch.zeros(6)
+        for j in range(6):
+            for k in range(j, 6):
+                H[j, k] = H[k, j] = ((WJ[j][0] * WJ[k][0] + WJ[j][1] * WJ[k][1]
+                                      + WJ[j][2] * WJ[k][2]) * wm).sum()
+            g[j] = ((WJ[j][0] * Wd[0] + WJ[j][1] * Wd[1] + WJ[j][2] * Wd[2]) * wm).sum()
+        xi = -torch.linalg.solve_ex(H + 1e-6 * torch.eye(6), g[:, None])[0][:, 0]
+        T = tse3.exp(xi) @ T
+    ok = bool(torch.isfinite(T).all()) and int(inl.sum()) >= 3
+    return T if ok else T0
+
+
+def model_kernel_b(T_h, cnt_h, err_h, p1, p2, w, valid, cfg, cam=None):
     """Kernel B on one problem: (T21, inliers, count, rmse, success)."""
     best = model_argmax(cnt_h.numpy(), err_h.numpy())
     T = T_h[best]
-    inl, cnt, err = _model_score(T, p1, p2, valid, cfg)
+    inl, cnt, err = _model_score(T, p1, p2, valid, cfg, cam)
     cnt, rmse = int(cnt), _rmse(int(cnt), float(err))
     for _ in range(cfg.refine_iters):
         wi = w * inl.to(F32)
@@ -190,10 +278,16 @@ def model_kernel_b(T_h, cnt_h, err_h, p1, p2, w, valid, cfg):
         S = torch.stack([(wn * q1[:, a] * q2[:, b]).sum()
                          for a in range(3) for b in range(3)])
         T_new = _pose_matrix(*model_horn_pose(S, c1, c2, wsum))
-        inl2, cnt2, err2 = _model_score(T_new, p1, p2, valid, cfg)
+        inl2, cnt2, err2 = _model_score(T_new, p1, p2, valid, cfg, cam)
         cnt2, rmse2 = int(cnt2), _rmse(int(cnt2), float(err2))
         if cnt2 >= cnt and rmse2 <= rmse:
             T, inl, cnt, rmse = T_new, inl2, cnt2, rmse2
+    if cfg.mahalanobis_refine:
+        T_m = model_polish(T, p1, p2, inl, cfg)
+        inl2, cnt2, err2 = _model_score(T_m, p1, p2, valid, cfg, cam)
+        cnt2, rmse2 = int(cnt2), _rmse(int(cnt2), float(err2))
+        if cnt2 >= cnt and rmse2 <= rmse:
+            T, inl, cnt, rmse = T_m, inl2, cnt2, rmse2
     success = cnt >= cfg.min_inliers and bool(valid.any())
     return T, inl & success, cnt, rmse, success
 
@@ -382,14 +476,158 @@ def test_ransac_on_cpu_is_the_plain_version_and_the_wrapper_refuses():
     assert kernels.LAUNCHES["ransac_se3_fused"] == 0
     with pytest.raises(ValueError):          # CPU tensors: no fallback in the wrapper
         transac.ransac_se3_cuda(p1, p2, w, valid, cfg, draws=draws)
-    with pytest.raises(NotImplementedError):
-        transac.ransac_se3_cuda(p1, p2, w, valid,
-                                RansacConfig(num_hypotheses=32, sample_size=3), draws=draws)
-    for bad in (RansacConfig(error_model="euclidean"), RansacConfig(mahalanobis_refine=True)):
-        with pytest.raises(NotImplementedError):
+    # sample sizes other than 4, the other error models and the polish run
+    # on the CPU as the plain version; the wrapper still takes CUDA tensors
+    # only
+    draws3 = draws[:, :3].contiguous()
+    for ok, d in ((RansacConfig(num_hypotheses=32, sample_size=3), draws3),
+                  (RansacConfig(num_hypotheses=32, error_model="euclidean"), draws),
+                  (RansacConfig(num_hypotheses=32, mahalanobis_refine=True), draws)):
+        a = transac.ransac_se3(p1, p2, w, valid, None, ok, draws=d)
+        b = transac.ransac_se3_ref(p1, p2, w, valid, None, ok, draws=d)
+        assert torch.equal(a.T21, b.T21) and bool(a.success)
+        with pytest.raises(ValueError, match="CUDA"):
+            transac.ransac_se3_cuda(p1, p2, w, valid, ok, draws=d)
+    assert kernels.LAUNCHES["ransac_se3_fused"] == 0
+    for bad in (RansacConfig(error_model="reprojection"), RansacConfig(error_model="both")):
+        with pytest.raises(ValueError, match="camera"):
             transac.ransac_se3(p1, p2, w, valid, None, bad, draws=draws)
-        with pytest.raises(NotImplementedError):
-            transac.ransac_se3_cuda(p1, p2, w, valid, bad, draws=draws)
+    with pytest.raises(ValueError, match="unknown"):
+        transac.ransac_se3(p1, p2, w, valid, None, RansacConfig(error_model="l1"), draws=draws)
+
+
+# ---------------------------------------------------------------------------
+# the configurations: any S, every error model, the polish
+# ---------------------------------------------------------------------------
+
+
+MODEL_CONFIGS = {"S3": dict(sample_size=3), "S5": dict(sample_size=5),
+                 "euclidean": dict(error_model="euclidean"),
+                 "adaptive_euclidean": dict(error_model="adaptive_euclidean"),
+                 "reprojection": dict(error_model="reprojection"),
+                 "both": dict(error_model="both"),
+                 "polish": dict(mahalanobis_refine=True)}
+
+
+def _cams(cfg):
+    """(the port's camera, the JAX package's) for the reprojection models."""
+    if cfg.error_model not in ("reprojection", "both"):
+        return None, None
+    from rgbdslam_tpu.geometry.camera import SYNTHETIC as JSYNTHETIC
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+
+    return SYNTHETIC, JSYNTHETIC
+
+
+def _config_case(name, case):
+    """(problems with (H, S) draws from KEY, the port's config, JAX's)."""
+    probs, H = _case(case)
+    kw = dict(num_hypotheses=H, **MODEL_CONFIGS[name])
+    S = kw.get("sample_size", 4)
+    out = [(p1, p2, w, valid,
+            np.asarray(jax.random.randint(KEY, (H, S), 0, max(int(valid.sum()), 1))))
+           for p1, p2, w, valid, _ in probs]
+    return out, RansacConfig(**kw), JRansacConfig(**kw)
+
+
+@pytest.mark.parametrize("name", list(MODEL_CONFIGS))
+@pytest.mark.parametrize("case", ["unbatched", "batch13"])
+def test_config_model_matches_plain(name, case):
+    """Kernels A and B at S = 3 and 5, under every error model and with the
+    polish, modelled, against the plain halves and the whole plain version
+    (batched as one call): poses atol 5e-5, kernel A's counts exact and
+    sums rtol 1e-5 against the plain scoring of its own poses, the rest as
+    `_same_result`."""
+    probs, cfg, _ = _config_case(name, case)
+    cam, _ = _cams(cfg)
+    models = []
+    for prob in probs:
+        p1, p2, w, valid, draws = _t(*prob)
+        T_h, cnt_h, err_h, idx = model_kernel_a(p1, p2, w, valid, cfg, draws=draws, cam=cam)
+        assert idx.shape == draws.shape
+        pT, pcnt, perr = transac.hypotheses_ref(p1, p2, w, valid, cfg, draws=draws, cam=cam)
+        torch.testing.assert_close(T_h, pT, rtol=0, atol=5e-5, equal_nan=True)
+        ok, err = transac.pair_errors(T_h, p1, p2, cfg, cam)
+        inl = ok & valid
+        assert torch.equal(cnt_h, inl.sum(-1).to(torch.int32))
+        torch.testing.assert_close(err_h, torch.where(inl, err, 0.0).sum(-1), rtol=1e-5,
+                                   atol=1e-6)
+        model = model_kernel_b(T_h, cnt_h, err_h, p1, p2, w, valid, cfg, cam)
+        ref = transac.select_refine_ref(T_h, cnt_h, err_h, p1, p2, w, valid, cfg, cam)
+        _same_result(model, ref.T21, ref.inliers, ref.num_inliers, ref.success)
+        models.append(model)
+    stacked = [torch.stack(x) for x in zip(*(_t(*p) for p in probs))]
+    whole = transac.ransac_se3_ref(*stacked[:4], None, cfg, draws=stacked[4], cam=cam)
+    for i, model in enumerate(models):
+        _same_result(model, whole.T21[i], whole.inliers[i], whole.num_inliers[i],
+                     whole.success[i])
+    if case == "batch13":          # the two padded candidates fail, most others succeed
+        assert not bool(whole.success[4]) and not bool(whole.success[9])
+        assert int(whole.success.sum()) >= 9
+
+
+@pytest.mark.parametrize("name", list(MODEL_CONFIGS))
+def test_config_model_matches_jax(name):
+    """The model against the JAX package's ransac_se3 with its own draws
+    (the camera passed where the model needs one), as `_same_result`: the
+    inlier count within 2 covers a correspondence whose error lies on the
+    threshold, which XLA's CPU code, contracting into FMAs, may put on the
+    other side."""
+    probs, cfg_t, cfg_j = _config_case(name, "unbatched")
+    cam_t, cam_j = _cams(cfg_t)
+    for prob in probs:
+        _, model = _model_run_cfg(prob, cfg_t, cam_t)
+        p1, p2, w, valid, _ = prob
+        rj = jransac.ransac_se3(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(w),
+                                jnp.asarray(valid), KEY, cfg_j, cam_j)
+        _same_result(model, rj.T21, rj.inliers, rj.num_inliers, rj.success)
+        assert model[4]
+
+
+def _model_run_cfg(prob, cfg, cam):
+    p1, p2, w, valid, draws = _t(*prob)
+    T_h, cnt_h, err_h, _ = model_kernel_a(p1, p2, w, valid, cfg, draws=draws, cam=cam)
+    return (T_h, cnt_h, err_h), model_kernel_b(T_h, cnt_h, err_h, p1, p2, w, valid, cfg, cam)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_polish_matches_jax_refine_mahalanobis(seed):
+    """The polish (the model of kernel B's rounds and the plain
+    refine_mahalanobis_ref) against JAX's refine_mahalanobis from the same
+    start and inliers: rtol 1e-4 / atol 5e-5 (f32 sums, triangular solves
+    and a 6x6 solve in three orders over five rounds); the polish moves the
+    pose."""
+    rng = np.random.default_rng(300 + seed)
+    p1, p2, w, valid = _problem(rng, 400, outliers=0.0, p_valid=1.0)
+    p2 = p2 + (rng.normal(size=p2.shape) * (0.002 * p2[:, 2:] ** 2)).astype(np.float32)
+    inl = valid & (rng.uniform(size=400) < 0.9)
+    T0 = np.eye(4, dtype=np.float32)
+    cfg_t, cfg_j = RansacConfig(), JRansacConfig()
+    Tj = np.asarray(jransac.refine_mahalanobis(jnp.asarray(T0), jnp.asarray(p1),
+                                               jnp.asarray(p2), jnp.asarray(inl), cfg_j, 5))
+    tp1, tp2, tinl, tT0 = _t(p1, p2, inl, T0)
+    Tm = model_polish(tT0, tp1, tp2, tinl, cfg_t)
+    Tp = transac.refine_mahalanobis_ref(tT0, tp1, tp2, tinl, cfg_t, 5)
+    np.testing.assert_allclose(Tm.numpy(), Tj, rtol=1e-4, atol=5e-5)
+    np.testing.assert_allclose(Tp.numpy(), Tj, rtol=1e-4, atol=5e-5)
+    assert float(np.abs(Tj - T0).max()) > 1e-3
+    # fewer than three inliers: the start comes back
+    few = np.zeros(400, bool)
+    few[:2] = True
+    np.testing.assert_array_equal(
+        transac.refine_mahalanobis_ref(tT0, tp1, tp2, torch.from_numpy(few), cfg_t).numpy(), T0)
+
+
+def test_reprojection_without_camera_raises_in_both_packages():
+    rng = np.random.default_rng(9)
+    p1, p2, w, valid = _problem(rng, 64)
+    for model in ("reprojection", "both"):
+        with pytest.raises(ValueError, match="camera"):
+            jransac.ransac_se3(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(w),
+                               jnp.asarray(valid), KEY, JRansacConfig(error_model=model))
+        with pytest.raises(ValueError, match="camera"):
+            transac.ransac_se3(*_t(p1, p2, w, valid), torch.Generator().manual_seed(0),
+                               RansacConfig(error_model=model))
 
 
 # ---------------------------------------------------------------------------

@@ -280,12 +280,18 @@ def test_scaled_dispatch_and_wrapper_checks(scaled):
     assert kernels.LAUNCHES["detect_score_map"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         kernels.detect_keypoints_scaled(pyr, quotas, **kw)
-    with pytest.raises(ValueError, match="not a whole number"):
+    # any cell of 1 to 32 pixels passes the shape checks (tiles of whole
+    # cells) and stops at the device check; a wider one names the limit
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.detect_keypoints_scaled(pyr, quotas, **{**kw, "cell_size": 12})
+    with pytest.raises(ValueError, match="cells of 1 to 32"):
+        kernels.detect_keypoints_scaled(pyr, quotas, **{**kw, "cell_size": 33})
     with pytest.raises(ValueError, match="at most 8"):
         kernels.detect_keypoints_scaled(pyr + pyr[-1:], quotas + [1], **kw)
     with pytest.raises(ValueError, match="quotas"):
         kernels.detect_keypoints_scaled(pyr, quotas[:-1], **kw)
-    with pytest.raises(ValueError, match="not a whole number"):
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.detect_keypoints_fused(image.build_pyramid(pyr[0], 2), 64, 12, 15.0, 20.0, 8)
+    with pytest.raises(ValueError, match="cells of 1 to 32"):
+        kernels.detect_keypoints_fused(image.build_pyramid(pyr[0], 2), 64, 33, 15.0, 20.0, 8)
     assert kernels.LAUNCHES["detect_keypoints_scaled"] == 0

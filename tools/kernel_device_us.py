@@ -1,7 +1,8 @@
-"""Device time of K3's scorer alone and of K5 at chip_smoke.py's shapes,
-next to an empty launch's, on one CUDA card.
+"""Device time of K3's scorer alone, of K5 and of the whole half-sample
+detection at chip_smoke.py's shapes, next to an empty launch's, on one CUDA
+card.
 
-  python tools/kernel_device_us.py [--root DIR] [--reps 20]
+  python tools/kernel_device_us.py [--root DIR] [--reps 20] [--detect-cells 16,6]
 
 Imports `rgbdslam_tpu_torch` from the tree at --root (default: this one),
 so one run on a `git archive` copy of an earlier commit and one on this tree
@@ -9,7 +10,10 @@ measure the two versions of the same public entries:
 `kernels.mahal_hypothesis_scores` (H = 256 hypotheses, N = 1024
 correspondences, unbatched and with a batch of 13) and
 `kernels.gicp_gn_normal_equations` (N = 1024), on inputs made on the card
-from a seed. For each entry it prints, from torch.profiler over --reps
+from a seed, and `fast.detect_keypoints` (kernels A and B) on the pyramid of
+one 640x480 synthetic frame at each cell size of --detect-cells, with the
+other extractor defaults (its kernel A is the entry's own kernel). For each
+entry it prints, from torch.profiler over --reps
 calls, the device ops a call (kernels, fills, copies), their device
 microseconds a call and the entry's own kernel's microseconds a launch
 (the mean over the launches the tracer recorded), and the back-to-back
@@ -177,11 +181,26 @@ def gicp_inputs(dev):
     return T0, p1.contiguous(), p2.contiguous(), C1, C2, valid
 
 
+def detection_inputs(dev):
+    """The pyramid of frame 1 of a 24-frame 640x480 synthetic orbit and the
+    extractor defaults."""
+    from rgbdslam_tpu_torch.config import ExtractorConfig
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.ops import image
+
+    ecfg = ExtractorConfig()
+    gray = SyntheticDataset(n_frames=24, cam=SYNTHETIC, device=dev).grab(1)[1]
+    return image.build_pyramid(gray, ecfg.num_levels), ecfg
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
                     help="the tree whose rgbdslam_tpu_torch is measured")
     ap.add_argument("--reps", type=int, default=20, help="calls a window and a round")
+    ap.add_argument("--detect-cells", default="16,6",
+                    help="cell sizes of the detection entries, comma-separated")
     args = ap.parse_args()
     import torch
 
@@ -190,7 +209,7 @@ def main() -> int:
         return 1
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
-    from rgbdslam_tpu_torch.ops import _build, kernels
+    from rgbdslam_tpu_torch.ops import _build, fast, kernels
 
     if not str(Path(kernels.__file__).resolve()).startswith(str(root)):
         raise RuntimeError(f"imported {kernels.__file__}, not the tree at {root}")
@@ -212,6 +231,12 @@ def main() -> int:
         "gicp_gn_normal_equations": (
             lambda: kernels.gicp_gn_normal_equations(*gn, 0.07), "gicp_gn_kernel"),
     }
+    pyr, ecfg = detection_inputs(dev)
+    for cell in (int(c) for c in args.detect_cells.split(",") if c):
+        det = (ecfg.num_features, cell, ecfg.fast_threshold, ecfg.min_response,
+               ecfg.min_border)
+        entries[f"detect_keypoints_cell{cell}"] = (
+            lambda det=det: fast.detect_keypoints(pyr, *det), "detect_cells_kernel")
     out = {"root": str(root), "device": torch.cuda.get_device_name(0), "smi": smi,
            "entries": {}}
     for name, (fn, own) in entries.items():

@@ -5,6 +5,8 @@ the CPU and print its accuracy record: ATE, keyframes, loops, failures.
   python tools/tour_reference_jax.py --loops 1.15 --noise --config noise-robust
   python tools/tour_reference_jax.py --loops 1.15 --detector sift --seeds 0
   python tools/tour_reference_jax.py --loops 1.15 --detector orb --batch 8
+  python tools/tour_reference_jax.py --loops 1.15 --detector orb --config cell6 --seeds 0
+  python tools/tour_reference_jax.py --sweep --config euclidean --seeds 0 1 2 3 4
 
 The configuration is the one chip_smoke.py drives through the PyTorch port
 on the GPU (640x480, default SlamConfig with the loop gates id_interval=12,
@@ -14,7 +16,12 @@ With `--noise` every frame carries the Kinect-class sensor noise of seed s
 (`kinect_noise_fields(s, i, ...)`) and applied by the port's
 `apply_sensor_noise` on the CPU, the same noisy pixels chip_smoke.py feeds
 the port on the card. `--config` adds the CLI's accuracy flags, joined by
-`+` (noise-robust = dense ICP; local-ba; global-ba). `--detector` picks an
+`+` (noise-robust or dense = dense ICP; local-ba; global-ba; cell5, cell6 =
+that grid cell; euclidean, adaptive_euclidean = RANSAC's error model; mahal =
+the Mahalanobis polish of RANSAC's winner; reassociate = GICP's nearest-
+neighbour re-pairing). `--sweep` runs the 48-frame 640x480 sweep through
+`PipelinedOdometry` (batch 8, the RANSAC seed = the run's seed) instead of the
+tour through `SlamSystem`: chip_smoke.py's phase 4 and 11 runs. `--detector` picks an
 extractor variant of the factory (the vocabulary is then the shipped one of
 its descriptor family, or none: the codebook trains online), `--subpixel`
 turns on the detector's subpixel refinement, `--batch B` tracks in batches
@@ -45,8 +52,43 @@ from rgbdslam_tpu.io.synthetic import SyntheticDataset  # noqa: E402
 from rgbdslam_tpu.loop.vocabulary import shipped_vocabulary  # noqa: E402
 from rgbdslam_tpu.slam.system import SlamSystem  # noqa: E402
 
+# SlamConfig fields by name; a dict value replaces fields of that sub-config
 CONFIGS = {"base": {}, "noise-robust": {"use_dense_icp": True},
-           "local-ba": {"use_local_ba": True}, "global-ba": {"use_global_ba": True}}
+           "dense": {"use_dense_icp": True},
+           "local-ba": {"use_local_ba": True}, "global-ba": {"use_global_ba": True},
+           "cell5": {"extractor": {"cell_size": 5}}, "cell6": {"extractor": {"cell_size": 6}},
+           "euclidean": {"ransac": {"error_model": "euclidean"}},
+           "adaptive_euclidean": {"ransac": {"error_model": "adaptive_euclidean"}},
+           "mahal": {"ransac": {"mahalanobis_refine": True}},
+           "reassociate": {"icp": {"reassociate": True}}}
+
+
+def configured(cfg, names: str):
+    """cfg with the +-joined CONFIGS entries applied in order."""
+    for name in names.split("+"):
+        for field, value in CONFIGS[name].items():
+            if isinstance(value, dict):
+                value = dataclasses.replace(getattr(cfg, field), **value)
+            cfg = dataclasses.replace(cfg, **{field: value})
+    return cfg
+
+
+def run_sweep(args, cfg) -> None:
+    """The 48-frame sweep through the JAX package's PipelinedOdometry, one
+    JSON line a seed."""
+    from rgbdslam_tpu.slam.pipeline import PipelinedOdometry
+
+    ds = SyntheticDataset(n_frames=args.frames, cam=SYNTHETIC, trajectory="sweep")
+    frames = [ds.grab(i) for i in range(args.frames)]
+    for seed in args.seeds:
+        ts, poses, stats = PipelinedOdometry(SYNTHETIC, cfg, batch=8, seed=seed).run(frames)
+        rmse, _ = ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)
+        print(json.dumps({
+            "package": "rgbdslam_tpu (JAX, CPU)", "seed": seed, "trajectory": "sweep",
+            "frames": args.frames, "config": args.config, "detector": args.detector,
+            "ate_rmse": round(float(rmse), 5), "failures": int(stats["failures"]),
+            "mean_inliers": int(stats["mean_inliers"]),
+            "finite": bool(np.isfinite(poses).all())}), flush=True)
 
 
 def noisy(frames, seed: int):
@@ -67,7 +109,8 @@ def noisy(frames, seed: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=128)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames of the run (128 on the tour, 48 on the sweep)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--loops", type=float, default=1.0,
                     help="revolutions of the tour (1.15: a real revisit of the start)")
@@ -82,12 +125,19 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=0, metavar="B",
                     help="track in batches of B frames (SlamSystem.track_batch) "
                          "instead of frame by frame")
+    ap.add_argument("--sweep", action="store_true",
+                    help="the 48-frame sweep through PipelinedOdometry (batch 8), "
+                         "default SlamConfig")
     args = ap.parse_args()
-    flags = {"detector": args.detector}
-    for name in args.config.split("+"):
-        flags.update(CONFIGS[name])
-    cfg = dataclasses.replace(
-        SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10)), **flags)
+    if args.sweep:
+        args.frames = args.frames or 48
+        cfg = dataclasses.replace(SlamConfig(), detector=args.detector)
+        run_sweep(args, configured(cfg, args.config))
+        return 0
+    args.frames = args.frames or 128
+    cfg = configured(dataclasses.replace(
+        SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10)),
+        detector=args.detector), args.config)
     if args.subpixel:
         cfg = dataclasses.replace(
             cfg, extractor=dataclasses.replace(cfg.extractor, subpixel=True))

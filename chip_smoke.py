@@ -122,6 +122,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                polish and at N = 8,192). Its modes join the kernels line with
                their launches on these runs (the reprojection models, which
                no SLAM caller reaches, through the public entry).
+ 12. merge   — the multi-session Sim(3) map merge at 640x480: sessions A
+               (tour frames 0-60), B (52-112, depth x1.05) and the control
+               B' (52-112) through SlamSystem(device="cuda"), then
+               merge_maps on the card (tests/test_merge.py's bounds: scales
+               1 +- 0.02 and 1/1.05 +- 0.02, B's spread < 0.02, joint ATE <
+               0.25 m, the control 1 +- 0.02; within 0.01 of the JAX
+               package's scales and 1.5 x its joint ATE + 0.01 m); K2 and
+               the gate kernel once each a candidate pair inside merge_maps,
+               the plain versions forbidden; the merge's joint graph
+               through optimize_sim3_graph and sim3_ransac on the card
+               against the CPU, with their device launches; projection_match
+               card = CPU exactly; pnp_ransac on tour frames (N = 1,024, 30 %
+               outliers), every minimal solver and refit, card against the
+               CPU plain run with the same draws, 0 host syncs a call; the
+               session, merge (BoW / verification / LM) and PnP times.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -2442,6 +2457,393 @@ def scaled_detection_timing(smi, kernels, gray, depth, ecfg):
             "scaled_bound": scaled_bound, "route_ms": route_ms, "build_pair": build_pair}
 
 
+# The JAX package's merge of its own sessions on the same frames (CPU,
+# `python tools/tour_reference_jax.py --merge`): session A's median scale,
+# B's (depth x1.05), the joint ATE, and the equal-scale control's median
+# over every vertex and its joint ATE
+JAX_MERGE = {"median_a": 0.99976646900177, "median_b": 0.9518921375274658,
+             "ate_b": 0.01654749440157859, "median_control": 0.9996808767318726,
+             "ate_control": 0.018868786083069234}
+MERGE_ALPHA = 1.05
+
+# tools/tour_reference_jax.py --merge, its "pnp" record: the JAX package's
+# pnp_ransac (CPU) on phase 12's problems with the same draws. Per pair, the
+# problem's fingerprint (valid rows, the sums of Xw and uv over them); per
+# variant, the success, the inlier count, the translation error (m) and the
+# top three rows of Tcw
+JAX_PNP = {
+    20: {"valid": 166, "sum_Xw": 720.762291289866,
+         "sum_uv": 87685.55148792267,
+         "p3p/ba": (True, 71, 0.009686311,
+                 (-0.8147089, -0.001391072, -0.5798683, 3.814096, 0.07198396, 0.9920197,
+                  -0.1035166, -0.3359418, 0.5753846, -0.126077, -0.808107, -1.296936)),
+         "p3p/epnp+ba": (True, 77, 0.003577123,
+                 (-0.8150983, 0.0004587913, -0.5793231, 3.81751, 0.07370967, 0.9919545,
+                  -0.1029227, -0.3461483, 0.574615, -0.1265937, -0.8085743, -1.291928)),
+         "epnp/ba": (True, 69, 0.01027893,
+                 (-0.8144842, -0.001306952, -0.5801846, 3.812612, 0.07229521, 0.9919751,
+                  -0.1037251, -0.3379386, 0.5756645, -0.126427, -0.8078535, -1.298553)),
+         "epnp/epnp+ba": (True, 77, 0.003576789,
+                 (-0.8150982, 0.0004587793, -0.5793231, 3.817509, 0.07370964, 0.9919546,
+                  -0.1029227, -0.3461481, 0.5746149, -0.1265938, -0.808574, -1.291927)),
+         "dlt6/ba": (False, 1, 4.04573,
+                 (1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+                  0.0, 0.0, 0.0, 0.0, 1.0, 0.0)),
+         "dlt6/epnp+ba": (False, 1, 4.04573,
+                 (1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+                  0.0, 0.0, 0.0, 0.0, 1.0, 0.0))},
+    70: {"valid": 162, "sum_Xw": -715.2242923825979,
+         "sum_uv": 88014.69006633759,
+         "p3p/ba": (True, 70, 0.01822122,
+                 (-0.1258108, 0.0008166208, 0.9920537, -1.967458, -0.01707497, 0.9998499,
+                  -0.002988502, -0.2894511, -0.9919071, -0.01731528, -0.1257779, -2.901222)),
+         "p3p/epnp+ba": (True, 70, 0.01822122,
+                 (-0.1258108, 0.0008166208, 0.9920537, -1.967458, -0.01707497, 0.9998499,
+                  -0.002988502, -0.2894511, -0.9919071, -0.01731528, -0.1257779, -2.901222)),
+         "epnp/ba": (True, 60, 0.01101672,
+                 (-0.1286612, 0.001067659, 0.9916881, -1.983852, -0.01884801, 0.9998161,
+                  -0.003521746, -0.2998073, -0.9915094, -0.01914445, -0.1286175, -2.899317)),
+         "epnp/epnp+ba": (True, 72, 0.02333408,
+                 (-0.1260716, 0.0008548647, 0.9920205, -1.969188, -0.01609384, 0.9998664,
+                  -0.002906916, -0.2833692, -0.9918905, -0.01633191, -0.1260411, -2.900219)),
+         "dlt6/ba": (False, 1, 3.520959,
+                 (1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+                  0.0, 0.0, 0.0, 0.0, 1.0, 0.0)),
+         "dlt6/epnp+ba": (False, 1, 3.520959,
+                 (1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+                  0.0, 0.0, 0.0, 0.0, 1.0, 0.0))},
+}
+
+
+PNP_VARIANTS = tuple((m, r) for m in ("p3p", "epnp", "dlt6") for r in ("ba", "epnp+ba"))
+
+
+def pnp_problem(xyz0, uv1, idx2, valid, Twc0, i: int):
+    """Phase 12's 2D-3D problem on host arrays (tools/tour_reference_jax.py
+    builds the same): frame i's points in the world (xyz0 (N, 3) camera
+    frame, Twc0 its true pose), frame i + 1's undistorted keypoints uv1
+    matched by idx2 / valid, 30 % of the valid rows moved anywhere in the
+    640x480 image, and the (256, S) sample indices of every minimal solver,
+    all drawn from seed i."""
+    rng = np.random.default_rng(i)
+    R, t = Twc0[:3, :3].astype(np.float32), Twc0[:3, 3].astype(np.float32)
+    Xw = (xyz0 @ R.T + t).astype(np.float32)
+    uv = uv1[idx2].astype(np.float32)
+    rows = np.flatnonzero(valid)
+    moved = rng.permutation(rows)[: int(0.3 * rows.size)]
+    uv[moved] = rng.uniform([0.0, 0.0], [639.0, 479.0], (moved.size, 2)).astype(np.float32)
+    draws = {m: rng.choice(rows, (256, s)) for m, s in (("p3p", 3), ("epnp", 4), ("dlt6", 6))}
+    return Xw, uv, valid.copy(), draws
+
+
+
+
+def merge_phase(dev, smi, kernels):
+    """Phase 12: the multi-session Sim(3) map merge at 640x480. Sessions A
+    (tour frames 0-60), B (52-112, depth x1.05) and the control B' (52-112)
+    through SlamSystem(device="cuda") with the shipped vocabulary, then
+    merge_maps(A, B) and merge_maps(A, B') on the card, held to
+    tests/test_merge.py's bounds and within 0.01 (scales) and 1.5 x + 0.01 m
+    (joint ATE) of the JAX package's merge of its own sessions; K2 and its
+    gate kernel launched twice a candidate pair while merge_maps runs, with
+    the plain versions forbidden; the merge's own joint graph through
+    optimize_sim3_graph on the card against the CPU (the float64 cost within
+    1e-6 relative, the poses within 5e-3: the graph is flat along some
+    directions);
+    sim3_ransac's and the LM's device launches; projection_match on the card
+    equal to the CPU; pnp_ransac on 2D-3D problems from consecutive tour
+    frames (pnp_problem: N = 1,024, 30 % of the matches outliers) for every
+    minimal solver and refit on both pairs, with the same draws as its CPU
+    plain run and as the JAX package's run in JAX_PNP: success equal in all
+    three, 0 host syncs a call; Tcw within 1e-4 of the CPU's and of JAX's
+    and inlier masks equal to the CPU's off the gates, but with EPnP's
+    minimal hypotheses, which rounding sets (held by success alone).
+    Returns (launches, batched launches) of the phase's main path: the
+    sessions and the merges, the counts set to 0 just before session A and
+    read after the second merge."""
+    import dataclasses
+
+    from rgbdslam_tpu_torch.config import LoopConfig, SlamConfig
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.frontend.matcher import match_frames, projection_match
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+    from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
+    from rgbdslam_tpu_torch.mapping import merge as merge_mod
+    from rgbdslam_tpu_torch.slam.system import SlamSystem
+    from rgbdslam_tpu_torch.solvers import pnp
+    from rgbdslam_tpu_torch.solvers.pose_graph import optimize_sim3_graph, sim3_graph_cost
+    from rgbdslam_tpu_torch.solvers.ransac_se3 import draw_valid
+
+    t_phase = time.perf_counter()
+    n = 112
+    cfg = SlamConfig(loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
+    voc = shipped_vocabulary("svo_fast")
+    tour = SyntheticDataset(n_frames=n, cam=SYNTHETIC, trajectory="tour", device=dev)
+    frames = [tour.grab(i) for i in range(n)]
+    torch.cuda.synchronize()
+
+    def session(lo, hi, scale=1.0):
+        system = SlamSystem(SYNTHETIC, cfg, seed=0, device=dev)
+        system.load_vocabulary(voc)
+        t0 = time.perf_counter()
+        for ts, gray, depth in frames[lo:hi]:
+            system.track(ts, gray, depth * scale if scale != 1.0 else depth)
+        system.finish()
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0) / (hi - lo)
+        check(system.tracker.stats.failures <= 0.15 * (hi - lo),
+              f"merge session {lo}-{hi}: {system.tracker.stats.failures} tracking failures")
+        return system, ms
+
+    # the merge's inputs to the LM and to sim3_ransac, kept for the checks
+    # below (the wrappers pass everything through unchanged)
+    captured = {"lm": [], "ransac": []}
+    merge_mod_lm, merge_mod_ransac = merge_mod.optimize_sim3_graph, merge_mod.sim3_ransac
+
+    def lm_spy(*a, **k):
+        captured["lm"].append(a)
+        return merge_mod_lm(*a, **k)
+
+    def ransac_spy(*a, **k):
+        captured["ransac"].append(a)
+        return merge_mod_ransac(*a, **k)
+
+    kernels.reset_launch_counts()
+    merge_k2 = {}
+    with plain_versions_forbidden(kernels):
+        sys_a, ms_a = session(0, 60)
+        sys_b, ms_b = session(52, n, MERGE_ALPHA)
+        sys_c, ms_c = session(52, n)
+        results = {}
+        merge_mod.optimize_sim3_graph, merge_mod.sim3_ransac = lm_spy, ransac_spy
+        try:
+            for tag, other in (("b", sys_b), ("control", sys_c)):
+                before = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                res = merge_mod.merge_maps(sys_a, other, max_pairs=4, min_inliers=15)
+                wall = 1000 * (time.perf_counter() - t0)
+                merge_k2[tag] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+                results[tag] = (res, wall)
+        finally:
+            merge_mod.optimize_sim3_graph, merge_mod.sim3_ransac = merge_mod_lm, merge_mod_ransac
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    log(f"[merge] sessions A 0-60, B 52-{n} (depth x{MERGE_ALPHA}), B' 52-{n}: keyframes "
+        f"{sys_a.store.count} / {sys_b.store.count} / {sys_c.store.count}, failures "
+        f"{sys_a.tracker.stats.failures} / {sys_b.tracker.stats.failures} / "
+        f"{sys_c.tracker.stats.failures}; {ms_a:.3f} / {ms_b:.3f} / {ms_c:.3f} ms/frame ({smi})")
+    Ka = sys_a.store.count
+    out = {}
+    for tag, other in (("b", sys_b), ("control", sys_c)):
+        res, wall = results[tag]
+        k2 = merge_k2[tag]
+        check(k2["hamming_match_2nn"] == res.tried and k2["match_gates"] == res.tried
+              and sum(k2.values()) == 2 * res.tried,
+              f"merge {tag}: device launches {k2} for {res.tried} candidate pairs (K2 and "
+              f"the gate kernel once each a pair, nothing else)")
+        ts_all = np.concatenate([sys_a.store.timestamps[:Ka],
+                                 other.store.timestamps[:other.store.count]])
+        order = np.argsort(ts_all)
+        rmse, _ = ate_rmse(ts_all[order], res.Twc[order], tour.timestamps, tour.poses_twc)
+        sa, sb = res.scales[:Ka], res.scales[Ka:]
+        out[tag] = dict(median_a=float(np.median(sa)), median_b=float(np.median(sb)),
+                        std_b=float(np.std(sb)), median_all=float(np.median(res.scales)),
+                        std_all=float(np.std(res.scales)), ate=float(rmse))
+        log(f"[merge] merge_maps(A, {'B' if tag == 'b' else 'the control'}): "
+            f"pairs {res.pairs} of {res.tried} tried, inliers {res.inliers}; scales median A "
+            f"{out[tag]['median_a']:.5f}, B {out[tag]['median_b']:.5f} (std "
+            f"{out[tag]['std_b']:.5f}), all {out[tag]['median_all']:.5f} (std "
+            f"{out[tag]['std_all']:.5f}); joint ATE {rmse:.5f} m; K2 + gate launches "
+            f"{k2['hamming_match_2nn']} + {k2['match_gates']}; {wall:.1f} ms: BoW "
+            f"{res.ms['bow']:.1f}, verification {res.ms['verify']:.1f}, LM {res.ms['lm']:.1f} "
+            f"({smi})")
+        check(np.isfinite(res.Twc).all() and res.Twc.shape == (Ka + other.store.count, 4, 4),
+              f"merge {tag}: bad poses")
+    b, c = out["b"], out["control"]
+    # tests/test_merge.py's bounds
+    check(abs(b["median_a"] - 1.0) < 0.02, f"merge: A's median scale {b['median_a']}")
+    check(abs(b["median_b"] - 1.0 / MERGE_ALPHA) < 0.02, f"merge: B's median scale {b['median_b']}")
+    check(b["std_b"] < 0.02, f"merge: B's scales spread {b['std_b']}")
+    check(b["ate"] < 0.25, f"merge: joint ATE {b['ate']} m")
+    check(abs(c["median_all"] - 1.0) < 0.02 and c["std_all"] < 0.02,
+          f"merge control: median {c['median_all']}, std {c['std_all']}")
+    # against the JAX package's merge of its own sessions on the same frames
+    for key, got in (("median_a", b["median_a"]), ("median_b", b["median_b"]),
+                     ("median_control", c["median_all"])):
+        check(abs(got - JAX_MERGE[key]) < 0.01, f"merge: {key} {got} against JAX's "
+              f"{JAX_MERGE[key]}")
+    for key, got in (("ate_b", b["ate"]), ("ate_control", c["ate"])):
+        check(got <= 1.5 * JAX_MERGE[key] + 0.01, f"merge: {key} {got} m against JAX's "
+              f"{JAX_MERGE[key]} m")
+    log(f"[merge] against the JAX package's merge (CPU, tools/tour_reference_jax.py --merge): "
+        f"scales A {b['median_a']:.5f} / {JAX_MERGE['median_a']:.5f}, B {b['median_b']:.5f} / "
+        f"{JAX_MERGE['median_b']:.5f}, control {c['median_all']:.5f} / "
+        f"{JAX_MERGE['median_control']:.5f}; joint ATE {b['ate']:.5f} / {JAX_MERGE['ate_b']:.5f}"
+        f" m, control {c['ate']:.5f} / {JAX_MERGE['ate_control']:.5f} m")
+
+    parts = {"sessions and merges": time.perf_counter() - t_phase}
+    t_part = time.perf_counter()
+    # the merge's own joint graph through the Sim(3) LM, card against CPU
+    S_in, edges, fixed, iters = captured["lm"][0]
+    S_card, cost_card = optimize_sim3_graph(S_in, edges, fixed, iters)
+    cpu_edges = type(edges)(*[t.cpu() for t in edges])
+    t0 = time.perf_counter()
+    S_cpu, cost_cpu = optimize_sim3_graph(S_in.cpu(), cpu_edges, fixed.cpu(), iters)
+    cpu_ms = 1000 * (time.perf_counter() - t0)
+    lm_err = float((S_card.cpu() - S_cpu).abs().max())
+    # the joint graph is flat along some directions: on the CPU, the same
+    # solve with its edges in another order lands up to 1.6e-3 away at the
+    # same float64 cost (to 2e-8 relative), so the card is held to the CPU's
+    # cost, evaluated in float64, and to the poses within 5e-3
+    e64 = type(edges)(cpu_edges.a, cpu_edges.b, cpu_edges.Z.double(),
+                      cpu_edges.weight.double())
+    c64 = [float(sim3_graph_cost(S.double(), e64, 1.0)) for S in (S_card.cpu(), S_cpu)]
+    cost_rel = abs(c64[0] - c64[1]) / max(c64[1], 1e-12)
+    check(cost_rel <= 1e-6 and lm_err <= 5e-3,
+          f"optimize_sim3_graph on the card against the CPU: float64 costs {c64}, poses "
+          f"{lm_err}")
+    card_ms = cuda_ms(lambda: optimize_sim3_graph(S_in, edges, fixed, iters), iters=2, warmup=0)
+    # every iteration launches the same device work (accept/reject is
+    # masked, no host branch): the launches of the 1- and 2-iteration
+    # solves give the set-up and the iteration's count (profiling the
+    # 12-iteration solve whole costs a minute of the tracer's own time)
+    one, two = (len(counted_device_events(
+        lambda n=n: optimize_sim3_graph(S_in, edges, fixed, n), 1)) for n in (1, 2))
+    lm_launches = one + (iters - 1) * (two - one)
+    ra = captured["ransac"][0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = draw_valid(ra[2], 128, 4, gen)
+    S_r, n_r, _ = merge_mod.sim3_ransac(*ra[:3], draws=draws)
+    S_rc, n_rc, _ = merge_mod.sim3_ransac(*[t.cpu() for t in ra[:3]], draws=draws.cpu())
+    ransac_err = float((S_r.cpu() - S_rc).abs().max())
+    check(int(n_r) == int(n_rc) and ransac_err <= 1e-4,
+          f"sim3_ransac on the card against the CPU: inliers {int(n_r)} / {int(n_rc)}, "
+          f"S21 {ransac_err}")
+    ransac_ms = cuda_ms(lambda: merge_mod.sim3_ransac(*ra[:3], draws=draws), iters=5, warmup=1)
+    ransac_launches = len(counted_device_events(
+        lambda: merge_mod.sim3_ransac(*ra[:3], draws=draws), 1))
+    log(f"[merge] optimize_sim3_graph on the merge's graph ({S_in.shape[0]} vertices, "
+        f"{edges.a.shape[0]} edge slots, {iters} iterations): card against CPU: poses within "
+        f"{lm_err:.3g}, float64 costs {c64[0]:.9g} / {c64[1]:.9g} ({cost_rel:.2g} apart), "
+        f"f32 costs {float(cost_card):.6g} / {float(cost_cpu):.6g}; {card_ms:.1f} ms on the card, "
+        f"{cpu_ms:.1f} ms on the host CPU; {lm_launches} device launches a call ({one} for "
+        f"1 iteration, {two - one} an iteration more, profiler); sim3_ransac (128 hypotheses, {ra[0].shape[0]} slots): card = CPU, "
+        f"inliers {int(n_r)}, S21 within {ransac_err:.3g}, {ransac_ms:.2f} ms, "
+        f"{ransac_launches} device launches a call ({smi})")
+
+    # projection_match and PnP on tour frames: a keyframe-like frame's
+    # features against the next one's
+    parts["LM and sim3_ransac"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    from rgbdslam_tpu_torch.frontend.frame import build_frame_features
+
+    feats = {i: build_frame_features(SYNTHETIC, frames[i][1], frames[i][2], cfg.extractor)
+             for i in (20, 21, 70, 71)}
+    n_slots = feats[20].xyz.shape[0]
+    check(n_slots == 1024, f"PnP slots {n_slots}")
+    pm_rows = []
+    for i in (20, 70):
+        f0, f1 = feats[i], feats[i + 1]
+        T21 = torch.from_numpy((np.linalg.inv(tour.poses_twc[i + 1])
+                                @ tour.poses_twc[i]).astype(np.float32))
+        m_card = projection_match(f0, f1, T21.to(dev), SYNTHETIC)
+        cpu = [dataclasses.replace(f, **{k.name: getattr(f, k.name).cpu()
+                                         for k in dataclasses.fields(f)}) for f in (f0, f1)]
+        m_cpu = projection_match(cpu[0], cpu[1], T21, SYNTHETIC)
+        for a in ("idx2", "dist", "valid"):
+            check(torch.equal(getattr(m_card, a).cpu(), getattr(m_cpu, a)),
+                  f"projection_match {a} on the card differs from the CPU (frames {i}, {i + 1})")
+        pm_rows.append(int(m_cpu.valid.sum()))
+    log(f"[merge] projection_match frames 20->21 and 70->71 on the card = the CPU exactly: "
+        f"{pm_rows} matches")
+
+    parts["projection_match"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    eigh_syncs = sync_calls(lambda: torch.linalg.eigh(torch.eye(12, device=dev)[None]
+                                                      .expand(4, 12, 12)))[0]
+    # 2D-3D problems (pnp_problem: frame i's points in the world, frame
+    # i + 1's keypoints matched by K2, 30 % of the matched rows moved; N =
+    # 1,024 slots), the same as tools/tour_reference_jax.py --merge builds
+    # from the port's CPU features, so the card is held against the JAX
+    # package's pnp_ransac (JAX_PNP) as well as against its own plain run
+    pnp_rows = []
+    for i in (20, 70):
+        f0, f1 = feats[i], feats[i + 1]
+        m = match_frames(f0, f1)
+        Xw_h, uv_h, valid_h, draws_h = pnp_problem(
+            f0.xyz.cpu().numpy(), f1.uv_undist.cpu().numpy(), m.idx2.long().cpu().numpy(),
+            m.valid.cpu().numpy(), tour.poses_twc[i], i)
+        ref = JAX_PNP[i]
+        fp = (int(valid_h.sum()), float(Xw_h[valid_h].astype(np.float64).sum()),
+              float(uv_h[valid_h].astype(np.float64).sum()))
+        check(fp[0] == ref["valid"] and abs(fp[1] - ref["sum_Xw"]) <= 1e-4 * abs(ref["sum_Xw"])
+              and abs(fp[2] - ref["sum_uv"]) <= 1e-6 * ref["sum_uv"],
+              f"PnP problem {i}->{i + 1}: fingerprint {fp} is not the JAX reference's "
+              f"({ref['valid']}, {ref['sum_Xw']}, {ref['sum_uv']})")
+        Xw, uv, valid = (torch.from_numpy(a).to(dev) for a in (Xw_h, uv_h, valid_h))
+        T_true = np.linalg.inv(tour.poses_twc[i + 1]).astype(np.float32)
+        for minimal, refit in PNP_VARIANTS:
+            draws = torch.from_numpy(draws_h[minimal]).to(dev)
+
+            def call():
+                return pnp.pnp_ransac(SYNTHETIC, Xw, uv, valid, minimal=minimal,
+                                      refit=refit, draws=draws)
+            n_sync, first, r_card = sync_calls(call)
+            t_cpu = time.perf_counter()
+            r_cpu = pnp.pnp_ransac(SYNTHETIC, Xw.cpu(), uv.cpu(), valid.cpu(),
+                                   minimal=minimal, refit=refit, draws=draws.cpu())
+            cpu_ms = 1000 * (time.perf_counter() - t_cpu)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms = 1000 * (time.perf_counter() - t0)
+            Tc = r_card.Tcw.cpu()
+            err = float((Tc - r_cpu.Tcw).abs().max())
+            ok_j, n_j, t_err_j, T_j = ref[f"{minimal}/{refit}"]
+            err_j = float(np.abs(Tc.numpy()[:3].reshape(-1) - np.array(T_j)).max())
+            res = pnp.reproj_residuals(SYNTHETIC, r_card.Tcw, Xw, uv).cpu()
+            e2 = torch.sum(res * res, dim=-1)
+            near = (torch.abs(e2 - 9.0) <= 1e-3) | (torch.abs(e2 - pnp.CHI2_TH) <= 1e-3)
+            differ = r_card.inliers.cpu() != r_cpu.inliers
+            t_err = float(np.linalg.norm((np.linalg.inv(Tc.numpy()) @ T_true)[:3, 3]))
+            tag = f"pnp_ransac {minimal}/{refit} frames {i}->{i + 1}"
+            check(bool(r_card.success) == bool(r_cpu.success) == ok_j,
+                  f"{tag}: success {bool(r_card.success)} on the card, {bool(r_cpu.success)} "
+                  f"on the CPU, {ok_j} in the JAX package")
+            check(n_sync == 0, f"{tag}: {n_sync} host syncs ({first})")
+            # EPnP's 4-point hypotheses are set by rounding (the tool's
+            # "epnp_minimal" record: float32 and float64 runs of one solver
+            # give hypotheses a median 0.9-2.1 apart), so their winner is
+            # held by success alone; every other variant by its pose
+            if minimal != "epnp":
+                check(err <= 1e-4 and err_j <= 1e-4,
+                      f"{tag}: Tcw {err} from the CPU's, {err_j} from the JAX package's")
+                check(not bool((differ & ~near).any()),
+                      f"{tag}: {int((differ & ~near).sum())} inlier rows differ off the gates")
+            pnp_rows.append((tag, ms, cpu_ms, err, err_j, int(differ.sum()), int(near.sum()),
+                             int(valid_h.sum()), bool(r_card.success), int(r_card.num_inliers),
+                             t_err, n_j, t_err_j))
+    for (tag, ms, cpu_ms, err, err_j, nd, nn, nv, ok, ninl, t_err, n_j,
+         t_err_j) in pnp_rows:
+        log(f"[merge] {tag} (N {n_slots}, {nv} valid, 30 % of them outliers): {ms:.2f} ms on "
+            f"the card ({smi}), the plain run {cpu_ms:.1f} ms on the host CPU; Tcw within "
+            f"{err:.3g} of the CPU's and {err_j:.3g} of the JAX package's, {nd} inlier rows "
+            f"differ from the CPU's ({nn} within 1e-3 px^2 of a gate); success {ok}, inliers "
+            f"{ninl} (JAX {n_j}), {t_err:.5f} m from the truth (JAX {t_err_j:.5f}), 0 host "
+            f"syncs")
+    log(f"[merge] torch.linalg.eigh makes {eigh_syncs} host sync(s) a call on the card: "
+        f"EPnP and the DLT use pnp.eigh_jacobi")
+    log(f"[merge] launches over the phase's sessions and merges {json.dumps(launches)}; "
+        f"batched {json.dumps(batched)}")
+    parts["PnP"] = time.perf_counter() - t_part
+    log(f"[merge] phase 12 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return launches, batched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3761,6 +4163,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 11
     configs = configs_phase(dev, smi, kernels, ds, frames)
+
+    # ---------------------------------------------------------------- 12
+    launches_merge, batched_merge = merge_phase(dev, smi, kernels)
     log(f"[times] detect_score_map at the sweep's 4 half-sample levels: kernel "
         f"{timing['detect_score_map'][0]:.4f} ms, plain {timing['detect_score_map'][1]:.4f} ms "
         f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
@@ -3772,8 +4177,8 @@ def main() -> int:
                                                      fam["err"])
 
     # launches per entry and main path (the sweep's pipeline, the tour
-    # through the serial, ring and batched modes, the disk, accuracy and
-    # families runs), each path driven with the counts set to 0 just before
+    # through the serial, ring and batched modes, the disk, accuracy,
+    # families and merge runs), each path driven with the counts set to 0 just before
     # it and read just after; an unbatched entry counts its wrapper's
     # unbatched launches, the _b13 entry its batched ones. `off_path` holds
     # the launches through a public entry that no main path reaches, counted
@@ -3785,7 +4190,8 @@ def main() -> int:
              "ring": (launches_ring, batched_ring), "batch": (launches_batch, batched_batch),
              "disk": (launches_disk, batched_disk),
              "accuracy": (launches_accuracy, batched_accuracy),
-             "families": (launches_families, batched_families)}
+             "families": (launches_families, batched_families),
+             "merge": (launches_merge, batched_merge)}
 
     def path_launches(wrapper, b13):
         out = {}

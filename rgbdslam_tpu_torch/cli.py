@@ -38,8 +38,9 @@ observations in world coordinates), octomap.npz + octomap_voxels.ply (the
 occupancy grid rebuilt from every keyframe's cloud under the final poses),
 map_viewer.html and trajectory.png. One JSON line with the counts and,
 against the ground truth (--eval-gt, else <dir>/groundtruth.txt, else the
-synthetic poses), the ATE and RPE. The distributed backend raises "not yet
-ported".
+synthetic poses), the ATE and RPE. `--distributed` runs the plain path on
+one device, as the JAX CLI does ("no-op on 1 device"); with more than one
+CUDA device it raises, the distributed backend being ROADMAP item 26.
 """
 
 from __future__ import annotations
@@ -49,8 +50,6 @@ import json
 import os
 import sys
 import time
-
-WAITING = ("distributed",)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -124,7 +123,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="sliding-window landmark bundle adjustment")
     p.add_argument("--global-ba", action="store_true",
                    help="full-map landmark BA after loop closures and at shutdown")
-    p.add_argument("--distributed", action="store_true", help="not yet ported")
+    p.add_argument("--distributed", action="store_true",
+                   help="the distributed backend: the plain path on one device "
+                        "(several CUDA devices: not yet ported, ROADMAP item 26)")
     return p
 
 
@@ -175,10 +176,6 @@ def _ground_truth(args, ds, n):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    waiting = [f for f in WAITING if getattr(args, f)]
-    if waiting:
-        raise NotImplementedError("not yet ported: --" + ", --".join(
-            f.replace("_", "-") for f in waiting))
     synthetic = args.dataset.startswith("synthetic")
     if not synthetic and (args.width or args.height):
         raise ValueError("--width/--height scale the synthetic camera only")
@@ -198,6 +195,10 @@ def main(argv=None) -> int:
     from rgbdslam_tpu_torch.utils.profiling import StageTimer
 
     device = resolve_device(args.device)
+    if not args.odometry_only and not args.pipelined:
+        from rgbdslam_tpu_torch.slam.system import check_distributed
+
+        check_distributed(SlamConfig(distributed=args.distributed), device)
     if synthetic:
         ds = open_dataset(args.dataset, n_frames=args.frames, cam=_camera(args),
                           device=device)
@@ -213,6 +214,7 @@ def main(argv=None) -> int:
         use_global_ba=args.global_ba,
         detector=args.detector,
         adaptive=args.adaptive,
+        distributed=args.distributed,
     )
     # the limits that stay on the card, before the loader starts
     from rgbdslam_tpu_torch.slam.tracking import check_system_config

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from rgbdslam_tpu_torch.frontend.frame import FrameFeatures
+from rgbdslam_tpu_torch.ops import hamming
 from rgbdslam_tpu_torch.ops import image as image_ops
 from rgbdslam_tpu_torch.ops import kernels
 
@@ -89,6 +90,36 @@ def match_frames(f1: FrameFeatures, f2: FrameFeatures, ratio: float = 0.9) -> Ma
     observations (detected + valid depth, Features/Matcher.cpp:130): the
     train side's validity at idx2 is implied by the matcher's `best < BIG`."""
     return match_descriptors(f1.desc, f1.obs_valid, f2.desc, f2.obs_valid, ratio)
+
+
+def projection_match(f1: FrameFeatures, f2: FrameFeatures, T21: torch.Tensor, cam,
+                     radius: float = 15.0, th_high: int = 100) -> MatchResult:
+    """Projection-guided matching (Matcher::projectionMatch,
+    Features/Matcher.cpp:35-104): frame-1 points projected into frame 2 by
+    T21 (4, 4) (frame-1 camera coordinates to frame-2 camera coordinates),
+    each matched to the frame-2 keypoint of least Hamming distance within
+    `radius` pixels, kept at distance <= `th_high` and when mutual (the
+    reference's first-come train dedup, order-free). The reference walks a
+    spatial hash grid per keypoint; here the window query is a dense masked
+    (N1, N2) distance matrix from `ops.hamming` (its matmul form), as in the
+    JAX package, first index on ties. No host read."""
+    q = f1.xyz @ T21[:3, :3].T + T21[:3, 3]                       # (N1, 3) in camera 2
+    z = torch.clamp_min(q[:, 2], 1e-6)
+    u = cam.fx * q[:, 0] / z + cam.cx
+    v = cam.fy * q[:, 1] / z + cam.cy
+    proj_ok = (f1.obs_valid & (q[:, 2] > 0) & (u >= 0) & (u <= cam.width - 1)
+               & (v >= 0) & (v <= cam.height - 1))
+    duv = torch.stack([u, v], dim=-1)[:, None, :] - f2.uv_undist[None, :, :]
+    in_window = torch.sum(duv * duv, dim=-1) <= radius * radius    # (N1, N2)
+    d = hamming.hamming_distance_matrix(f1.desc, f2.desc, proj_ok, f2.obs_valid,
+                                        impl="matmul")
+    d = torch.where(in_window, d, hamming.BIG_DIST)
+    best_idx = torch.argmin(d, dim=1)
+    best_dist = torch.gather(d, 1, best_idx[:, None])[:, 0]
+    col_best = torch.argmin(d, dim=0)
+    rows = torch.arange(d.shape[0], device=d.device)
+    valid = proj_ok & (col_best[best_idx] == rows) & (best_dist <= th_high)
+    return MatchResult(idx2=best_idx.to(torch.int32), dist=best_dist, valid=valid)
 
 
 def correspondence_weights(p1: torch.Tensor, p2: torch.Tensor,

@@ -47,6 +47,16 @@ CORBS = Camera(468.60, 468.61, 318.27, 243.99, depth_factor=5000.0)
 SYNTHETIC = Camera(525.0, 525.0, 319.5, 239.5, depth_factor=5000.0)
 
 
+def distort_normalized(cam: Camera, xn: torch.Tensor) -> torch.Tensor:
+    """Apply the radial-tangential model to normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_normalized(cam: Camera, xd: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Invert the radial-tangential model by fixed-point iteration
     (cv::undistortPoints semantics, Core/Frame.cpp:251-281)."""
@@ -74,12 +84,30 @@ def undistort_pixels(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     )
 
 
+def project(cam: Camera, pts: torch.Tensor) -> torch.Tensor:
+    """Camera-frame 3D points (..., 3) -> undistorted pixel coords (..., 2),
+    the pinhole model only, as RGBDcamera::project3Dto2D
+    (Core/RGBDcamera.cpp:194-226; keypoints are undistorted upstream)."""
+    z = pts[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-12, 1e-12, z)
+    u = cam.fx * pts[..., 0] * inv_z + cam.cx
+    v = cam.fy * pts[..., 1] * inv_z + cam.cy
+    return torch.stack([u, v], dim=-1)
+
+
 def unproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Undistorted pixel coords (..., 2) + metric depth (...,) -> camera 3D (..., 3)
     (RGBDcamera::unproject, Core/RGBDcamera.cpp:126-161)."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def bearing(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Unit bearing vectors of pixel coords (..., 2) for PnP
+    (RGBDcamera::backproject, Core/RGBDcamera.cpp:99-124)."""
+    v = unproject(cam, uv, torch.ones(uv.shape[:-1], dtype=uv.dtype, device=uv.device))
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
 def depth_to_points(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
@@ -101,6 +129,34 @@ def depth_to_points(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
 def valid_depth(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     """Depth validity mask (finite, within (min_depth, max_depth))."""
     return torch.isfinite(depth) & (depth > cam.min_depth) & (depth < cam.max_depth)
+
+
+def random_keypoints(cam: Camera, generator: torch.Generator, n: int,
+                     border: float = 20.0) -> torch.Tensor:
+    """(n, 2) uniform random pixel locations inside the image, drawn on the
+    generator's device (synthetic-test hook; RGBDcamera::createRandomKeypoint,
+    Core/RGBDcamera.cpp:163-176)."""
+    u = torch.rand((n, 2), generator=generator, device=generator.device)
+    return torch.stack([border + u[:, 0] * (cam.width - 1 - 2 * border),
+                        border + u[:, 1] * (cam.height - 1 - 2 * border)], dim=-1)
+
+
+def random_visible_points(cam: Camera, generator: torch.Generator, n: int,
+                          z_range=(0.5, 4.0)) -> torch.Tensor:
+    """(n, 3) random camera-frame points inside the frustum, at depths in
+    `z_range` (RGBDcamera::createRandomVisiblePoint,
+    Core/RGBDcamera.cpp:178-192)."""
+    uv = random_keypoints(cam, generator, n)
+    z = z_range[0] + (z_range[1] - z_range[0]) * torch.rand(
+        (n,), generator=generator, device=generator.device)
+    return unproject(cam, uv, z)
+
+
+def in_bounds(cam: Camera, uv: torch.Tensor, border: float = 0.0) -> torch.Tensor:
+    """Mask of pixel coords (..., 2) inside the image (Frame bounds check,
+    Core/Frame.cpp:283-315)."""
+    return ((uv[..., 0] >= border) & (uv[..., 0] <= cam.width - 1 - border)
+            & (uv[..., 1] >= border) & (uv[..., 1] <= cam.height - 1 - border))
 
 
 def camera_from_dict(d: dict) -> Camera:

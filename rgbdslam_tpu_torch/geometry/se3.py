@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from rgbdslam_tpu_torch.device import resolve_device
+
 _EPS = 1e-8
 
 
@@ -86,6 +88,21 @@ def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = _bottom_row(R.dtype, R.device).expand(batch + (4,))[..., None, :]
+    return torch.cat([top, bottom], dim=-2)
+
+
+def identity(dtype: torch.dtype = torch.float32, device="cuda") -> torch.Tensor:
+    """The 4x4 identity pose on `device` (the card unless the caller asks
+    for the CPU)."""
+    return torch.eye(4, dtype=dtype, device=resolve_device(device))
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3): (..., 4, 4) -> (..., 6, 6), acting on [rho, phi]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    top = torch.cat([R, hat(t) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -47,7 +47,10 @@ snapshot by an event: taking a snapshot reads nothing from the device
 worker's jobs held). The worker's host work still competes with the
 tracking thread for the interpreter; PERF.md gives what that costs.
 
-Not yet ported (raises): the distributed backend.
+`SlamConfig.distributed` runs the plain single-device path where one
+device is visible (the CPU, or one card), as the JAX package does on one
+device; with more than one CUDA device it raises NotImplementedError: the
+distributed backend across devices is ROADMAP item 26.
 """
 
 from __future__ import annotations
@@ -205,16 +208,26 @@ def kf_core_batched(bank, feats, batch_row: int, meta: torch.Tensor, words, idf,
     return kf_core(bank, feats[batch_row], meta, words, idf, cam, cfg, bow_on, generator)
 
 
+def check_distributed(cfg: SlamConfig, device: torch.device) -> None:
+    """`SlamConfig.distributed` on one visible device (the CPU, or one card)
+    runs the plain path, as the JAX package does (JAX system.py:256-262
+    shards only when device_count() > 1). With several CUDA devices it
+    raises: the distributed backend across devices is ROADMAP item 26."""
+    if cfg.distributed and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "SlamConfig.distributed across several CUDA devices is not yet ported "
+            "(ROADMAP item 26); one device runs the plain path")
+
+
 class SlamSystem:
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  device="cuda"):
-        if cfg.distributed:
-            raise NotImplementedError("SlamConfig.distributed is not yet ported")
+        self.device = resolve_device(device)
+        check_distributed(cfg, self.device)
         if cfg.extractor.num_features > MAX_PACKED_FEATURES:
             raise ValueError("num_features > 4096 breaks the packed track-extension lane")
         self.cam = cam
         self.cfg = cfg
-        self.device = resolve_device(device)
         kf_cfg = cfg.keyframe
         # the Tracker refuses a configuration the device does not take
         self.tracker = Tracker(cam, cfg, seed=seed, device=self.device)

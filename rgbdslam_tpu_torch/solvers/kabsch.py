@@ -68,3 +68,31 @@ def weighted_rigid_transform(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor
     T = se3.from_Rt(R, t)
     degenerate = (wsum[..., 0] <= 1e-12)[..., None, None]
     return torch.where(degenerate, torch.eye(4, dtype=T.dtype, device=T.device), T)
+
+
+def weighted_similarity_transform(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
+                                  iters: int = 30) -> torch.Tensor:
+    """Fit Sim(3) S21 (..., 4, 4) = [[s R, t], [0, 1]] with p2 ~= s R p1 + t,
+    weighted least squares: the scale-aware Umeyama fit (the Eigen::umeyama
+    of Solver/Ransac.cpp:210-245 with its scale free) for cross-session map
+    merging. The rotation is Horn's, as in `weighted_rigid_transform`; the
+    optimal scale under it is s = sum w q2.(R q1) / sum w |q1|^2, floored at
+    1e-6. A zero weight sum gives the identity."""
+    wsum = torch.sum(w, dim=-1, keepdim=True)
+    wn = w / torch.clamp_min(wsum, 1e-12)
+    c1 = torch.sum(wn[..., None] * p1, dim=-2)
+    c2 = torch.sum(wn[..., None] * p2, dim=-2)
+    q1 = p1 - c1[..., None, :]
+    q2 = p2 - c2[..., None, :]
+    S = torch.einsum("...n,...ni,...nj->...ij", wn, q1, q2)
+    quat_wxyz = _horn_quaternion(S, iters)
+    q_xyzw = torch.cat([quat_wxyz[..., 1:], quat_wxyz[..., :1]], dim=-1)
+    R = se3.rotation_from_quat(q_xyzw)
+    rq1 = R @ q1.transpose(-1, -2)                            # (..., 3, N)
+    num = torch.einsum("...n,...in,...ni->...", wn, rq1, q2)
+    den = torch.einsum("...n,...ni,...ni->...", wn, q1, q1)
+    s = torch.clamp_min(num / torch.clamp_min(den, 1e-12), 1e-6)
+    t = c2 - s[..., None] * (R @ c1[..., None])[..., 0]
+    T = se3.from_Rt(s[..., None, None] * R, t)
+    degenerate = (wsum[..., 0] <= 1e-12)[..., None, None]
+    return torch.where(degenerate, torch.eye(4, dtype=T.dtype, device=T.device), T)

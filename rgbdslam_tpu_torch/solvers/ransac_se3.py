@@ -283,14 +283,12 @@ def _uniforms(p1, cfg: RansacConfig, generator, draws) -> Optional[torch.Tensor]
                       generator=generator, device=p1.device)
 
 
-def hypothesis_fits_ref(p1, p2, w, valid, num_hypotheses: int, u=None, draws=None):
-    """T_h (..., H, 4, 4): compact the valid slots, turn the uniforms `u`
-    (..., H, S) into draws (or take `draws`), fit the H hypotheses; slot 0
-    is the identity. In the points' dtype (float64 gives the fits' rounding
-    a yardstick)."""
-    n = p1.shape[-2]
-    lead = p1.shape[:-2]
-    dev = p1.device
+def _valid_slots(valid: torch.Tensor):
+    """(cand (..., N) int64, n_valid (...,)): the indices of the valid slots
+    packed to the front, and their count floored at 1."""
+    n = valid.shape[-1]
+    lead = valid.shape[:-1]
+    dev = valid.device
     pos = torch.cumsum(valid.to(torch.int64), -1) - 1
     # compact the valid indices; invalid slots write to the extra slot n,
     # which is dropped (the JAX scatter's mode="drop")
@@ -299,7 +297,28 @@ def hypothesis_fits_ref(p1, p2, w, valid, num_hypotheses: int, u=None, draws=Non
     cand = cand.scatter(
         -1, slot, torch.arange(n, dtype=torch.int64, device=dev).expand(lead + (n,))
     )[..., :n]
-    n_valid = torch.clamp_min(torch.sum(valid.to(torch.int64), dim=-1), 1)
+    return cand, torch.clamp_min(torch.sum(valid.to(torch.int64), dim=-1), 1)
+
+
+def draw_valid(valid: torch.Tensor, num_hypotheses: int, sample_size: int,
+               generator: torch.Generator) -> torch.Tensor:
+    """(H, S) int64 indices of valid slots of `valid` (N,), uniform with
+    replacement, drawn on the generator's device with no host read (the
+    draws of JAX's `jax.random.choice(p=valid / n_valid)`, not its bits).
+    With no valid slot every draw is 0."""
+    cand, n_valid = _valid_slots(valid)
+    u = torch.rand((num_hypotheses, sample_size), generator=generator, device=valid.device)
+    k = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
+    return cand[k]
+
+
+def hypothesis_fits_ref(p1, p2, w, valid, num_hypotheses: int, u=None, draws=None):
+    """T_h (..., H, 4, 4): compact the valid slots, turn the uniforms `u`
+    (..., H, S) into draws (or take `draws`), fit the H hypotheses; slot 0
+    is the identity. In the points' dtype (float64 gives the fits' rounding
+    a yardstick)."""
+    dev = p1.device
+    cand, n_valid = _valid_slots(valid)
     if draws is None:
         nv = n_valid[..., None, None]
         draws = torch.minimum(torch.floor(u * nv).to(torch.int64), nv - 1)

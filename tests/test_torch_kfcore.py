@@ -270,12 +270,17 @@ def test_cli_full_slam_runs_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field", ["distributed"])
-def test_unported_configuration_raises(field):
+def test_unported_configuration_raises(field, monkeypatch):
+    """The distributed backend across several CUDA devices (ROADMAP item
+    26) is the one configuration still refused; one device runs the plain
+    path (tests/test_torch_distributed_flag.py)."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
         SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(SlamConfig(), **{field: True}),
-                   device="cpu")
+                   device="cuda")
 
 
 def test_unported_modes_raise():
@@ -285,10 +290,11 @@ def test_unported_modes_raise():
     # live export (tests/test_torch_disk_slam.py), dense ICP and bundle
     # adjustment (tests/test_torch_accuracy_slam.py) and the extractor
     # families (tests/test_torch_families_*.py) run since they were ported;
-    # the distributed backend still waits
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(TCFG, distributed=True),
-                   device="cpu")
+    # the distributed backend runs its plain path on one device (F9); across
+    # several CUDA devices it still waits (test_unported_configuration_raises)
+    system = SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(TCFG, distributed=True),
+                        device="cpu")
+    assert system.graph.mesh is None
     from rgbdslam_tpu.frontend.extractor import Extractor as JExtractor
 
     for detector in ("orb", "sift"):

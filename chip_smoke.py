@@ -137,6 +137,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                outliers), every minimal solver and refit, card against the
                CPU plain run with the same draws, 0 host syncs a call; the
                session, merge (BoW / verification / LM) and PnP times.
+ 13. distributed — the distributed backend on meshes of 4 shards of the
+               one card (no scaling figure): the edge-sharded dense and CG
+               LMs and the landmark-sharded BA alone, on tests/
+               test_parallel.py's chain and phase 6's final tour graph and
+               map, against the plain solves on the card and 4 CPU shards
+               (0 host syncs); the 640x480 revisit tour through SlamSystem
+               with distributed=True, pose graph only and with global BA
+               (every solve on the mesh, a loop closed, ATE within 1.5 x the
+               one-device run's + 0.01 m); dp_odometry over the sweep as 4
+               segments of 12 frames (equal to the one-sequence runs, the
+               plain versions forbidden, its launches in the kernels line as
+               `launches_distributed`); the multihost worker's --check on 2
+               processes sharing the card over gloo and 1 over NCCL, and
+               mp_slam's 2 processes on the tour (the peer's mirror
+               complete, every solve joined, within 5 cm of one process).
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -170,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -180,6 +196,7 @@ import torch
 
 ITERS_TIMING = 20
 DEVICE = "cuda"
+REPO = os.path.dirname(os.path.abspath(__file__))
 # the frames of the families' tour (tour_trajectory(128, loops=1.15)) on
 # which the x1.2 detection and the families' builds are held
 X12_PROBE = (0, 25, 50, 75, 100)
@@ -2844,6 +2861,358 @@ def merge_phase(dev, smi, kernels):
     return launches, batched
 
 
+def chain_problem(n: int = 10, seed: int = 0):
+    """tests/test_parallel.py's chain problem (a noisy chain with skip
+    edges) with the port's se3.exp: (truth, estimate, PoseGraphEdges on the
+    CPU)."""
+    from scipy.spatial.transform import Rotation as ScipyRot
+
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
+
+    rng = np.random.default_rng(seed)
+    gt = [np.eye(4, dtype=np.float32)]
+    for _ in range(1, n):
+        d = np.eye(4, dtype=np.float32)
+        d[:3, :3] = ScipyRot.from_rotvec(rng.normal(scale=0.1, size=3)).as_matrix()
+        d[:3, 3] = rng.normal(scale=0.3, size=3)
+        gt.append((gt[-1] @ d).astype(np.float32))
+    est = [gt[0]]
+    for i in range(1, n):
+        xi = torch.from_numpy(rng.normal(scale=0.05, size=(1, 6)).astype(np.float32))
+        est.append((se3.exp(xi)[0].numpy() @ gt[i]).astype(np.float32))
+    a, b, Z = [], [], []
+    for i in range(1, n):
+        a.append(i), b.append(i - 1), Z.append(np.linalg.inv(gt[i]) @ gt[i - 1])
+        if i >= 2:
+            a.append(i), b.append(i - 2), Z.append(np.linalg.inv(gt[i]) @ gt[i - 2])
+    edges = PoseGraphEdges(a=torch.tensor(a), b=torch.tensor(b),
+                           Z=torch.from_numpy(np.stack(Z).astype(np.float32)),
+                           weight=torch.full((len(a),), 100.0))
+    return np.stack(gt), np.stack(est), edges
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_workers(jobs, timeout: float) -> list:
+    """Start every job's processes at once, a job being (module, processes,
+    arguments): `python -m module` as processes 0..n-1 of one
+    torch.distributed job (a TCP store on a free local port). Wait for all;
+    kill every one still running when one fails or the time is up. Returns,
+    a job, each process's last JSON line."""
+    started = []
+    for module, n_proc, args in jobs:
+        port = free_port()
+        started.append((module, [subprocess.Popen(
+            [sys.executable, "-m", module, "--coordinator", f"localhost:{port}",
+             "--num-processes", str(n_proc), "--process-id", str(pid), *args],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(n_proc)]))
+    results = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for module, procs in started:
+            outs = []
+            for pid, p in enumerate(procs):
+                out, err = p.communicate(timeout=max(deadline - time.perf_counter(), 1.0))
+                check(p.returncode == 0,
+                      f"{module} process {pid}: rc {p.returncode}\n{err[-3000:]}")
+                outs.append(json.loads([ln for ln in out.splitlines()
+                                        if ln.startswith("{")][-1]))
+            results.append(outs)
+    finally:
+        for _, procs in started:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return results
+
+
+def distributed_phase(dev, smi, kernels, tour_system, sweep_frames):
+    """Phase 13: the distributed backend on the card, on meshes of 4 shards
+    of cuda:0 (one H100: the shards run one after another, so nothing here
+    is a scaling figure).
+
+    1. The solvers alone: the edge-sharded dense LM and CG LM on
+       tests/test_parallel.py's chain problem and on the final graph of
+       phase 6's serial tour (seed 0); the landmark-sharded BA on that
+       tour's last local-BA window and on its whole map with the graph's
+       edges. Each against the plain solve on the card (and, but for the
+       whole map, the same call on 4 CPU shards), 0 host syncs a solve, ms
+       beside the plain solve.
+    2. Full width: the 128-frame 640x480 revisit tour (tour_trajectory(128,
+       loops=1.15), seed 0, the shipped vocabulary) through SlamSystem with
+       distributed=True on 4 shards of the card, pose graph only and with
+       use_global_ba, beside the one-device run (pose graph only): every
+       solve on the mesh (dist_solves = loops + 1), a loop closed, ATE <=
+       1.5 x the one-device run's + 0.01 m; loop-solve ms beside the
+       one-device run's, the global BA's ms.
+    3. dp_odometry: phase 4's 48-frame sweep as S = 4 segments of 12 frames
+       over 4 shards, RANSAC generators seeded per segment, the plain
+       versions forbidden: the chains equal the one-sequence runs (inliers
+       exact, T21 within 5e-5); the launches those of PERF.md section 2
+       (the detection 1 a frame; K2, its gate, RANSAC and K4 1 a pair).
+    4. The multi-process backend, every process started at once: the
+       multihost worker with --check on 2 processes sharing cuda:0 over
+       gloo and on 1 process over NCCL (its init and collectives), and
+       mp_slam's 2 processes (gloo) on the tour: the peer's mirror holds
+       every vertex and edge and a loop edge, every solve was joined on both
+       sides, the trajectory within 5 cm of item 2's one-device run.
+
+    Returns (launches, batched launches) of item 3, the phase's kernel
+    path: the counts set to 0 just before dp_odometry and read after it."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from rgbdslam_tpu_torch.config import SlamConfig
+    from rgbdslam_tpu_torch.device import virtual_devices
+    from rgbdslam_tpu_torch.eval.ate import ate_rmse
+    from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
+    from rgbdslam_tpu_torch.parallel import dist_ba, dp_odometry, make_mesh
+    from rgbdslam_tpu_torch.parallel.mp_slam import _make_config, run_tracking
+    from rgbdslam_tpu_torch.solvers import ba
+    from rgbdslam_tpu_torch.solvers.cg import optimize_pose_graph_cg
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
+
+    t_phase = time.perf_counter()
+    shards = 4
+    mesh = make_mesh(shards, device=dev)
+    cpu_mesh = make_mesh(shards, device="cpu")
+    check(mesh.devices == (torch.device("cuda", 0),) * shards, f"mesh {mesh}")
+    log(f"[distributed] {mesh}; one card: the shards run in turn, no figure here is a "
+        f"scaling figure ({smi})")
+    parts = {}
+
+    def on(x, d):
+        return type(x)(*(t.to(d) for t in x))
+
+    def max_diff(a, b):
+        return float((a.cpu() - b.cpu()).abs().max())
+
+    # ---- 1. the solvers alone
+    g = tour_system.graph
+    K, E = g.n_vertices, g.n_edges
+    tour_edges = PoseGraphEdges(a=torch.from_numpy(g.e_a[:E]).long(),
+                                b=torch.from_numpy(g.e_b[:E]).long(),
+                                Z=torch.from_numpy(g.e_Z[:E].copy()),
+                                weight=torch.from_numpy(g.e_w[:E].copy()))
+    _, chain_est, chain_edges = chain_problem()
+    problems = {"chain K=10": (torch.from_numpy(chain_est), chain_edges, 10, 1e-4),
+                f"tour graph K={K} E={E}": (torch.from_numpy(g.Twc[:K].copy()), tour_edges,
+                                            10, 1e-3)}
+    for tag, (T0, edges, iters, tol) in problems.items():
+        fixed = torch.arange(T0.shape[0]) == 0
+        T0d, fd, ed = T0.to(dev), fixed.to(dev), on(edges, dev)
+        sharded = dist_ba.shard_edges(ed, mesh)
+        for solver, dist_fn, plain_fn, args in (
+                ("dense LM", dist_ba.distributed_pose_graph_optimize, optimize_pose_graph,
+                 (iters,)),
+                ("CG LM", dist_ba.distributed_pose_graph_optimize_cg, optimize_pose_graph_cg,
+                 (iters, 64))):
+            n_sync, first, (T_d, c_d) = sync_calls(
+                lambda: dist_fn(T0d, sharded, fd, mesh, *args))
+            T_p, _ = plain_fn(T0d, ed, fd, *args)
+            T_c, _ = dist_fn(T0, edges, fixed, cpu_mesh, *args)
+            d_p, d_c = max_diff(T_d, T_p), max_diff(T_d, T_c)
+            check(n_sync == 0, f"{tag} {solver}: {n_sync} host syncs ({first})")
+            check(bool(torch.isfinite(T_d).all()) and bool(torch.isfinite(c_d)),
+                  f"{tag} {solver}: not finite")
+            check(d_p <= tol and d_c <= tol,
+                  f"{tag} {solver}: {d_p:.3g} from the plain solve, {d_c:.3g} from the CPU")
+            # the runs above warmed both up
+            ms_d = cuda_ms(lambda: dist_fn(T0d, sharded, fd, mesh, *args), iters=1, warmup=0)
+            ms_p = cuda_ms(lambda: plain_fn(T0d, ed, fd, *args), iters=1, warmup=0)
+            log(f"[distributed] {tag} {solver} ({iters} iterations) on {shards} shards: "
+                f"{ms_d:.2f} ms against the plain solve's {ms_p:.2f} ms on the card; "
+                f"{d_p:.3g} from the plain solve, {d_c:.3g} from {shards} CPU shards, "
+                f"{n_sync} host syncs ({smi})")
+
+    # the landmark-sharded BA: the tour's last local-BA window (also on the
+    # CPU) and its whole map with the graph's edges (the card alone: the
+    # CPU takes minutes over it)
+    W = tour_system.cfg.ba_window
+    k = K - 1
+    win, _, _ = tour_system.landmarks.window_problem(k - W + 1, k, tour_system.store.poses_cw,
+                                                     device=dev)
+    fixed_w = torch.arange(W, device=dev) == 0
+    glob = tour_system.global_ba_problem(k)
+    check(glob is not None, "the tour's map gives no global BA problem")
+    gpb, _, _, gfixed, gedges = glob
+    gfixed = torch.from_numpy(gfixed).to(dev)
+    cam = tour_system.cam
+    for tag, pb, fixed, edges, iters, on_cpu in (
+            (f"window K={W} L={win.Xw.shape[0]}", win, fixed_w, None, 4, True),
+            (f"map K={gpb.Tcw.shape[0]} L={gpb.Xw.shape[0]} + {E} edges", gpb, gfixed, gedges,
+             6, False)):
+        sh = dist_ba.shard_landmarks(pb, mesh)
+        n_sync, first, (T_d, X_d, _c) = sync_calls(
+            lambda: dist_ba.distributed_local_ba(cam, sh, fixed, mesh, iters, edges=edges))
+        T_p, X_p, _ = ba.local_ba(cam, pb, fixed, iters, edges=edges)
+        L = pb.Xw.shape[0]
+        d_t, d_x = max_diff(T_d, T_p), max_diff(X_d[:L], X_p)
+        msg = f"{d_t:.3g} (poses) and {d_x:.3g} (landmarks) from local_ba"
+        check(n_sync == 0, f"BA {tag}: {n_sync} host syncs ({first})")
+        check(d_t <= 1e-3 and d_x <= 1e-3, f"BA {tag}: {msg}")
+        if on_cpu:
+            T_c, X_c, _ = dist_ba.distributed_local_ba(cam, on(pb, "cpu"), fixed.cpu(),
+                                                      cpu_mesh, iters)
+            c_t, c_x = max_diff(T_d, T_c), max_diff(X_d, X_c)
+            check(c_t <= 1e-3 and c_x <= 1e-3, f"BA {tag}: {c_t:.3g} / {c_x:.3g} from the CPU")
+            msg += f", {c_t:.3g} / {c_x:.3g} from {shards} CPU shards"
+        ms_d = cuda_ms(lambda: dist_ba.distributed_local_ba(cam, sh, fixed, mesh, iters,
+                                                            edges=edges), iters=1, warmup=0)
+        ms_p = cuda_ms(lambda: ba.local_ba(cam, pb, fixed, iters, edges=edges), iters=1,
+                       warmup=0)
+        log(f"[distributed] landmark-sharded BA, {tag}, {iters} iterations on {shards} "
+            f"shards: {ms_d:.2f} ms against local_ba's {ms_p:.2f} ms on the card; {msg}; "
+            f"{n_sync} host syncs ({smi})")
+    parts["solvers"] = time.perf_counter() - t_phase
+
+    # ---- 2. full width: the revisit tour on 4 shards of the card, beside
+    # the one-device run
+    t0 = time.perf_counter()
+    n_tour = 128
+    runs = {}
+    for distributed, gba in ((False, False), (True, False), (True, True)):
+        cfg = dataclasses.replace(_make_config("tour"), distributed=distributed,
+                                  use_global_ba=gba)
+        with virtual_devices(shards):
+            system, ds, wall = run_tracking(cfg, "tour", n_tour, dev)
+        ts, poses = system.camera_trajectory()
+        rmse, _ = ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)
+        runs[(distributed, gba)] = (system, poses, rmse, wall)
+    sp, pp, rp, wp = one_device = runs[(False, False)]
+    check(sp._mesh is None and sp.graph.dist_solves == 0, "tour: a mesh on one device")
+    for gba in (False, True):
+        sd, pd, rd, wd = runs[(True, gba)]
+        tag = "with global BA" if gba else "pose graph only"
+        check(sd._mesh is not None and sd._mesh.size == shards, f"tour {tag}: no mesh")
+        check(sd.graph.dist_solves >= 1 and sd.graph.dist_solves == len(sd.loop_solve_ms) + 1,
+              f"tour {tag}: {sd.graph.dist_solves} solves on the mesh, "
+              f"{len(sd.loop_solve_ms)} loop solves")
+        check(sd.loops_closed >= 1, f"tour {tag}: no loop closed on the mesh")
+        check(rd <= 1.5 * rp + 0.01, f"tour {tag}: ATE {rd:.5f} against {rp:.5f} one-device")
+        if gba:
+            check(len(sd.global_ba_ms) >= 1, "the distributed global BA never ran")
+        diff = float(np.linalg.norm(pd[:, :3, 3] - pp[:, :3, 3], axis=-1).max())
+        log(f"[distributed] tour {tag} on {shards} shards of the card: ATE {rd:.5f} m "
+            f"(one device, pose graph only: {rp:.5f}), keyframes {sd.store.count} "
+            f"({sp.store.count}), loops {sd.loops_closed} ({sp.loops_closed}), solves on the "
+            f"mesh {sd.graph.dist_solves}, loop solves {[round(x, 1) for x in sd.loop_solve_ms]} "
+            f"ms ({[round(x, 1) for x in sp.loop_solve_ms]}), global BA "
+            f"{[round(x, 1) for x in sd.global_ba_ms]} ms, {1e3 * wd / n_tour:.2f} ms/frame "
+            f"({1e3 * wp / n_tour:.2f}); poses within {diff:.4f} m of the one-device run "
+            f"({smi})")
+    parts["tour"] = time.perf_counter() - t0
+
+    # ---- 3. dp_odometry: the sweep as 4 segments of 12 frames
+    t0 = time.perf_counter()
+    S, T = shards, len(sweep_frames) // shards
+    grays = torch.stack([f[1] for f in sweep_frames[:S * T]])
+    depths = torch.stack([f[2] for f in sweep_frames[:S * T]])
+    grays = grays.reshape(S, T, *grays.shape[1:])
+    depths = depths.reshape(S, T, *depths.shape[1:])
+    cfg = SlamConfig()
+    seq_mesh = dp_odometry.make_seq_mesh(shards, device=dev)
+    run_dp = dp_odometry.dp_odometry(SYNTHETIC, cfg, seq_mesh)
+    seeds = [100 + s for s in range(S)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_dp = time.perf_counter()
+    with plain_versions_forbidden(kernels):
+        T21, ninl = run_dp(grays, depths, seeds)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t_dp
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    seq_fn = dp_odometry._sequence_odometry(SYNTHETIC, cfg)
+    for s in range(S):
+        gen = torch.Generator(device=dev).manual_seed(seeds[s])
+        T21_s, ninl_s = seq_fn(grays[s], depths[s], gen)
+        check(torch.equal(ninl_s, ninl[s]), f"dp_odometry segment {s}: inliers "
+              f"{ninl[s].tolist()} against {ninl_s.tolist()}")
+        d = max_diff(T21_s, T21[s])
+        check(d <= 5e-5, f"dp_odometry segment {s}: T21 {d:.3g} from the one-sequence run")
+    expect = {"detect_keypoints_fused": S * T, "hamming_match_2nn": S * (T - 1),
+              "match_gates": S * (T - 1), "ransac_se3_fused": S * (T - 1),
+              "gicp_refine_fused": S * (T - 1)}
+    for name, n in expect.items():
+        check(launches.get(name, 0) == n,
+              f"dp_odometry: {name} launched {launches.get(name, 0)} times, expected {n}")
+    for name in ("detect_score_map", "detect_keypoints_scaled", "mahal_hypothesis_scores",
+                 "gicp_gn_normal_equations"):
+        check(launches.get(name, 0) == 0, f"dp_odometry: {name} launched")
+    ninl_np = ninl.cpu().numpy()
+    check((ninl_np > 30).all(), f"dp_odometry: inliers {ninl_np.tolist()}")
+    log(f"[distributed] dp_odometry: {S} sweep segments of {T} frames at 640x480 over "
+        f"{shards} shards in {1e3 * dp_s:.1f} ms ({1e3 * dp_s / (S * (T - 1)):.2f} ms a frame "
+        f"pair, host clock); inliers min {int(ninl_np.min())} median "
+        f"{float(np.median(ninl_np)):.0f}; equal to the one-sequence runs; launches "
+        f"{json.dumps({k: launches.get(k, 0) for k in expect})} = 1 a frame (detection) and "
+        f"1 a pair (K2, gate, RANSAC, K4), no plain version ({smi})")
+    parts["dp_odometry"] = time.perf_counter() - t0
+
+    # ---- 4. the multi-process backend: the multihost jobs and mp_slam's
+    # two processes, all started at once
+    t0 = time.perf_counter()
+    base = ["--vertices", "48", "--edges", "192", "--iterations", "6",
+            "--cg-iters", "48", "--check"]
+    configs = ((2, "gloo", 2), (1, "nccl", 4))
+    jobs = [("rgbdslam_tpu_torch.parallel.multihost", n_proc,
+             base + ["--backend", backend, "--devices-per-process", str(per)])
+            for n_proc, backend, per in configs]
+    out_dir = tempfile.mkdtemp(prefix="mp_slam_")
+    traj = os.path.join(out_dir, "traj.npz")
+    jobs.append(("rgbdslam_tpu_torch.parallel.mp_slam", 2,
+                 ["--backend", "gloo", "--devices-per-process", "2", "--scene", "tour",
+                  "--frames", str(n_tour), "--out", traj]))
+    *multihost, (r0, r1) = run_workers(jobs, timeout=300)
+    for (n_proc, backend, per), outs in zip(configs, multihost):
+        for r in outs:
+            check(r["check_ok"] and r["equal_one_process"] and r["backend"] == backend
+                  and r["global_devices"] == n_proc * per, f"multihost {backend}: {r}")
+        check(len({r["final_cost"] for r in outs}) == 1, f"multihost {backend}: costs differ")
+        log(f"[distributed] multihost --check, {n_proc} process(es) over {backend} on "
+            f"{outs[0]['device']}, {outs[0]['global_devices']} shards: "
+            f"{outs[0]['max_diff_vs_dense']:.3g} from the dense solve, translation error "
+            f"{outs[0]['max_translation_err']:.3g}, equal to a one-process mesh, "
+            f"{outs[0]['reductions']} reductions ({smi})")
+    check(r0["global_devices"] == 4 and r0["loops_closed"] >= 1 and r0["dist_solves"] >= 2,
+          f"mp_slam: {r0}")
+    n_peer_edges = r1["edges_odometry"] + r1["edges_proximity"] + r1["edges_loop"]
+    check(r1["vertices"] == r0["keyframes"] and n_peer_edges == r0["graph_edges"]
+          and r1["edges_loop"] >= 1, f"mp_slam mirror: {r0} {r1}")
+    check(r1["solves_joined"] == r0["dist_solves"] == r1["dist_solves"],
+          f"mp_slam solves: {r0} {r1}")
+    poses_mp = np.load(traj)["poses_twc"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    poses_one = one_device[1]
+    check(poses_mp.shape == poses_one.shape, "mp_slam: trajectory shape")
+    diff = float(np.linalg.norm(poses_mp[:, :3, 3] - poses_one[:, :3, 3], axis=-1).max())
+    check(diff < 0.05, f"mp_slam: {diff:.4f} m from the one-device run")
+    log(f"[distributed] mp_slam, 2 processes (gloo) sharing the card, the 640x480 tour: "
+        f"ATE {r0['ate_rmse']} m, keyframes {r0['keyframes']}, loops {r0['loops_closed']}, "
+        f"the peer's mirror {r1['vertices']} vertices and {n_peer_edges} edges "
+        f"({r1['edges_loop']} loop), solves joined {r1['solves_joined']} of "
+        f"{r0['dist_solves']}, loop solves {r0['loop_solve_ms']} ms, warm solve "
+        f"{r0['warm_solve_ms']} ms, {r0['fps']} frames/s (the multihost jobs ran beside "
+        f"it); trajectory within {diff:.4f} m of the one-device run ({smi})")
+    parts["multi-process"] = time.perf_counter() - t0
+    log(f"[distributed] phase 13 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return launches, batched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4166,6 +4535,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 12
     launches_merge, batched_merge = merge_phase(dev, smi, kernels)
+
+    # ---------------------------------------------------------------- 13
+    launches_dist, batched_dist = distributed_phase(dev, smi, kernels, tours[0][0], frames)
     log(f"[times] detect_score_map at the sweep's 4 half-sample levels: kernel "
         f"{timing['detect_score_map'][0]:.4f} ms, plain {timing['detect_score_map'][1]:.4f} ms "
         f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
@@ -4191,7 +4563,8 @@ def main() -> int:
              "disk": (launches_disk, batched_disk),
              "accuracy": (launches_accuracy, batched_accuracy),
              "families": (launches_families, batched_families),
-             "merge": (launches_merge, batched_merge)}
+             "merge": (launches_merge, batched_merge),
+             "distributed": (launches_dist, batched_dist)}
 
     def path_launches(wrapper, b13):
         out = {}

@@ -38,9 +38,9 @@ observations in world coordinates), octomap.npz + octomap_voxels.ply (the
 occupancy grid rebuilt from every keyframe's cloud under the final poses),
 map_viewer.html and trajectory.png. One JSON line with the counts and,
 against the ground truth (--eval-gt, else <dir>/groundtruth.txt, else the
-synthetic poses), the ATE and RPE. `--distributed` runs the plain path on
-one device, as the JAX CLI does ("no-op on 1 device"); with more than one
-CUDA device it raises, the distributed backend being ROADMAP item 26.
+synthetic poses), the ATE and RPE. `--distributed` puts the live backend
+solves on a mesh over every visible device (parallel/dist_ba.py), and runs
+the plain path on one device, as the JAX CLI does ("no-op on 1 device").
 """
 
 from __future__ import annotations
@@ -124,8 +124,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--global-ba", action="store_true",
                    help="full-map landmark BA after loop closures and at shutdown")
     p.add_argument("--distributed", action="store_true",
-                   help="the distributed backend: the plain path on one device "
-                        "(several CUDA devices: not yet ported, ROADMAP item 26)")
+                   help="run the live backend solves (pose graph + global BA) sharded "
+                        "over every visible device, the partial sums reduced in shard "
+                        "order (parallel/dist_ba.py); no-op on 1 device")
     return p
 
 
@@ -195,10 +196,13 @@ def main(argv=None) -> int:
     from rgbdslam_tpu_torch.utils.profiling import StageTimer
 
     device = resolve_device(args.device)
-    if not args.odometry_only and not args.pipelined:
-        from rgbdslam_tpu_torch.slam.system import check_distributed
+    if args.distributed and not args.odometry_only and not args.pipelined:
+        from rgbdslam_tpu_torch.slam.system import distributed_mesh
 
-        check_distributed(SlamConfig(distributed=args.distributed), device)
+        # the mesh the system will take, named before the loader starts
+        mesh = distributed_mesh(SlamConfig(distributed=True), device)
+        print(f"distributed: {mesh}" if mesh is not None else
+              "distributed: one device, the plain path", file=sys.stderr)
     if synthetic:
         ds = open_dataset(args.dataset, n_frames=args.frames, cam=_camera(args),
                           device=device)

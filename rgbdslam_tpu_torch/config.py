@@ -252,11 +252,11 @@ class SlamConfig:
     lost_after: int = 3              # consecutive VO failures before LOST
     reloc_min_inliers: int = 20      # RANSAC inliers to accept a candidate
     reloc_max_candidates: int = 3    # top BoW candidates verified per attempt
-    # distributed backend: in the JAX package, with more than one device,
-    # every live pose-graph solve and global BA rides a 1-D device mesh (the
-    # multi-chip analog of the reference's always-on backend thread,
-    # Solver/PoseGraph.cpp:59-103). The port runs the plain path on one
-    # device and raises with several CUDA devices (ROADMAP item 26).
+    # distributed backend: when True and more than one device is visible
+    # (device.device_count), every live pose-graph solve and global BA rides
+    # a 1-D mesh of shards (edge- / landmark-sharded, the partial sums
+    # reduced in shard order, parallel/dist_ba.py): the multi-device analog
+    # of the reference's always-on backend thread (Solver/PoseGraph.cpp:59-103).
     distributed: bool = False
 
 

@@ -29,6 +29,25 @@ from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
 
 
+def track_pair(cfg: SlamConfig, f_prev: FrameFeatures, f_cur: FrameFeatures,
+               generator: torch.Generator, draws=None):
+    """One frame pair's odometry on the device: matching, RANSAC (its
+    samples from `generator`, or the injected `draws`) and the GICP polish
+    selected by the rmse trigger. Returns T21 (frame i-1 -> frame i), the
+    inlier count and success."""
+    m = match_frames(f_prev, f_cur, cfg.matcher.nn_ratio)
+    p1, p2, w, valid = gather_matched_points(f_prev, f_cur, m)
+    res = ransac_se3(p1, p2, w, valid, generator, cfg.ransac, draws=draws)
+    T21 = res.T21
+    if cfg.use_icp_refinement:
+        T_g, conv, _ = gicp_refine(p1, p2, res.inliers, T21, cfg.icp,
+                                   C1=f_prev.surf_cov,
+                                   C2=f_cur.surf_cov[m.idx2.long()])
+        use = (res.rmse >= cfg.icp.rmse_trigger) & conv & res.success
+        T21 = torch.where(use, T_g, T21)
+    return T21, res.num_inliers, res.success
+
+
 class PipelinedOdometry:
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(),
                  batch: int = 8, seed: int = 0, device="cuda"):
@@ -48,18 +67,7 @@ class PipelinedOdometry:
     def track_pair(self, f_prev: FrameFeatures, f_cur: FrameFeatures, draws=None):
         """T21 (frame i-1 -> frame i), inlier count and success, on the
         device; `draws` optionally injects RANSAC's sample indices."""
-        cfg = self.cfg
-        m = match_frames(f_prev, f_cur, cfg.matcher.nn_ratio)
-        p1, p2, w, valid = gather_matched_points(f_prev, f_cur, m)
-        res = ransac_se3(p1, p2, w, valid, self.generator, cfg.ransac, draws=draws)
-        T21 = res.T21
-        if cfg.use_icp_refinement:
-            T_g, conv, _ = gicp_refine(p1, p2, res.inliers, T21, cfg.icp,
-                                       C1=f_prev.surf_cov,
-                                       C2=f_cur.surf_cov[m.idx2.long()])
-            use = (res.rmse >= cfg.icp.rmse_trigger) & conv & res.success
-            T21 = torch.where(use, T_g, T21)
-        return T21, res.num_inliers, res.success
+        return track_pair(self.cfg, f_prev, f_cur, self.generator, draws)
 
     # ------------------------------------------------------------------
     def run(self, frames: Iterable[Tuple[float, object, object]],

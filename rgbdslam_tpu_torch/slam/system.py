@@ -47,10 +47,12 @@ snapshot by an event: taking a snapshot reads nothing from the device
 worker's jobs held). The worker's host work still competes with the
 tracking thread for the interpreter; PERF.md gives what that costs.
 
-`SlamConfig.distributed` runs the plain single-device path where one
-device is visible (the CPU, or one card), as the JAX package does on one
-device; with more than one CUDA device it raises NotImplementedError: the
-distributed backend across devices is ROADMAP item 26.
+`SlamConfig.distributed` with more than one visible device (several
+cards, the virtual shards of `device.set_virtual_devices`, or the
+processes of a torch.distributed job) puts the live solves on a mesh
+(parallel/dist_ba.py): every pose-graph solve is the edge-sharded CG LM and
+the global BA the landmark-sharded BA. With one device it runs the plain
+path, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -208,22 +210,26 @@ def kf_core_batched(bank, feats, batch_row: int, meta: torch.Tensor, words, idf,
     return kf_core(bank, feats[batch_row], meta, words, idf, cam, cfg, bow_on, generator)
 
 
-def check_distributed(cfg: SlamConfig, device: torch.device) -> None:
-    """`SlamConfig.distributed` on one visible device (the CPU, or one card)
-    runs the plain path, as the JAX package does (JAX system.py:256-262
-    shards only when device_count() > 1). With several CUDA devices it
-    raises: the distributed backend across devices is ROADMAP item 26."""
-    if cfg.distributed and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "SlamConfig.distributed across several CUDA devices is not yet ported "
-            "(ROADMAP item 26); one device runs the plain path")
+def distributed_mesh(cfg: SlamConfig, device: torch.device):
+    """The mesh of the distributed backend, as the JAX package takes it
+    (JAX system.py:256-264): with `SlamConfig.distributed` and more than
+    one device of `device`'s type visible (several cards, the virtual
+    shards of device.set_virtual_devices, or the processes of a
+    torch.distributed job), a 1-D mesh over all of them; else None, the
+    plain path (one device)."""
+    from rgbdslam_tpu_torch.device import device_count
+
+    if not cfg.distributed or device_count(device) <= 1:
+        return None
+    from rgbdslam_tpu_torch.parallel.dist_ba import make_mesh
+
+    return make_mesh(device=device)
 
 
 class SlamSystem:
     def __init__(self, cam: Camera, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
-        check_distributed(cfg, self.device)
         if cfg.extractor.num_features > MAX_PACKED_FEATURES:
             raise ValueError("num_features > 4096 breaks the packed track-extension lane")
         self.cam = cam
@@ -242,6 +248,12 @@ class SlamSystem:
             lm_lambda0=cfg.pose_graph.lm_lambda0,
             device=self.device,
         )
+        # the distributed backend (SlamConfig.distributed): the live solves
+        # ride a 1-D mesh over every visible device, the pose-graph edges
+        # sharded in PoseGraph.optimize, the global BA's landmarks in
+        # _global_ba
+        self._mesh = distributed_mesh(cfg, self.device)
+        self.graph.mesh = self._mesh
         self.loop_detector = LoopDetector(cfg.loop, kf_cfg.max_keyframes, seed=seed,
                                           device=self.device)
         self.landmarks = LandmarkStore(cfg.max_landmarks, cfg.max_obs_per_landmark,
@@ -816,11 +828,25 @@ class SlamSystem:
         return True, Tcw.astype(np.float32)
 
     # ------------------------------------------------------------------
-    def _ba_solve(self, problem, fixed: np.ndarray, iterations: int, edges=None):
+    def _ba_solve(self, problem, fixed: np.ndarray, iterations: int, edges=None,
+                  mesh=None):
         """One BA solve on the device and one read of its solution: host
-        (Tcw (K, 4, 4), Xw (L, 3))."""
-        Tcw, Xw, _cost = local_ba(self.cam, problem, upload(fixed, self.device), iterations,
-                                  edges=edges, edge_huber=self.graph.huber_delta)
+        (Tcw (K, 4, 4), Xw (L, 3)). With a mesh the landmark-sharded BA
+        (parallel/dist_ba.py): the landmark blocks sharded, the reduced
+        camera system summed over the shards, the edge factors replicated."""
+        fixed = upload(fixed, self.device)
+        if mesh is not None:
+            from rgbdslam_tpu_torch.parallel.dist_ba import (distributed_local_ba,
+                                                             shard_landmarks)
+
+            L = problem.Xw.shape[0]
+            Tcw, Xw, _cost = distributed_local_ba(
+                self.cam, shard_landmarks(problem, mesh), fixed, mesh, iterations,
+                edges=edges, edge_huber=self.graph.huber_delta)
+            Xw = Xw[:L]
+        else:
+            Tcw, Xw, _cost = local_ba(self.cam, problem, fixed, iterations,
+                                      edges=edges, edge_huber=self.graph.huber_delta)
         K, L = Tcw.shape[0], Xw.shape[0]
         flat = torch.cat([Tcw.reshape(-1), Xw.reshape(-1)]).cpu().numpy()
         return flat[:16 * K].reshape(K, 4, 4), flat[16 * K:].reshape(L, 3)
@@ -847,25 +873,24 @@ class SlamSystem:
         self.tracker.apply_correction(self.store.poses_cw[:k + 1], relocalize=True)
         self.local_ba_ms.append((time.perf_counter() - t0) * 1e3)
 
-    def _global_ba(self, k: int):
-        """Full-map BA (beyond the reference: its backend is pose-graph-only,
-        Solver/PoseGraph.cpp:350-368): every keyframe pose and landmark
-        jointly with the graph's edges as relative-pose factors (weights x
-        `ba_edge_scale`). Keyframe 0 is the gauge, as the pose graph's
-        vertex 0. The keyframes are padded to a power of two with fixed
-        identity poses, and the edges to a power of two with zero weights,
-        as in the JAX package: the same arrays, so the same numbers."""
+    def global_ba_problem(self, k: int):
+        """The full-map BA problem over keyframes 0..k: (problem, lm_ids,
+        kf_ids, fixed, edges), or None under 3 keyframes or 8 landmarks.
+        The keyframes are padded to a power of two with fixed identity
+        poses, the graph's edges (weights x `ba_edge_scale`) to a power of
+        two with zero weights, as in the JAX package: the same arrays, so
+        the same numbers. Keyframe 0 is the gauge, as the pose graph's
+        vertex 0."""
         K = k + 1
         if K < 3:
-            return
-        t0 = time.perf_counter()
+            return None
         pad_k = 4
         while pad_k < K:
             pad_k *= 2
         problem, lm_ids, kf_ids = self.landmarks.window_problem(
             0, k, self.store.poses_cw, pad_k=pad_k, device=self.device)
         if len(lm_ids) < 8:
-            return
+            return None
         fixed = np.zeros((pad_k,), bool)
         fixed[0] = True
         fixed[K:] = True          # the padding keyframes must not move
@@ -884,8 +909,22 @@ class SlamSystem:
         eab = upload(eab, self.device)
         edges = BAEdges(a=eab[0], b=eab[1], Z=upload(eZ, self.device),
                         w=upload(ew, self.device))
+        return problem, lm_ids, kf_ids, fixed, edges
+
+    def _global_ba(self, k: int):
+        """Full-map BA (beyond the reference: its backend is pose-graph-only,
+        Solver/PoseGraph.cpp:350-368): every keyframe pose and landmark
+        jointly with the graph's edges as relative-pose factors
+        (`global_ba_problem`); on a mesh the landmark-sharded BA."""
+        K = k + 1
+        t0 = time.perf_counter()
+        built = self.global_ba_problem(k)
+        if built is None:
+            return
+        problem, lm_ids, kf_ids, fixed, edges = built
+        g = self.graph
         Tcw_opt, Xw_opt = self._ba_solve(problem, fixed, self.cfg.global_ba_iterations,
-                                         edges)
+                                         edges, self._mesh)
         Tcw_opt = Tcw_opt[:K]
         self.landmarks.update_from_solution(lm_ids, Xw_opt)
         self.store.poses_cw[:K] = Tcw_opt

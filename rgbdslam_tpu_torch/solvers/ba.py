@@ -32,6 +32,7 @@ import torch
 
 from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
+from rgbdslam_tpu_torch.mesh import Mesh
 from rgbdslam_tpu_torch.solvers.pose_graph import _huber_cost, _lm_update
 from rgbdslam_tpu_torch.solvers.ransac_se3 import _inv3x3
 
@@ -120,9 +121,14 @@ def _ba_cost(cam: Camera, Tcw, Xw, problem: BAProblem, huber_delta: float,
     ok = problem.obs_valid & problem.lm_valid[:, None] & (z > 0.05)
     cost = _huber_cost(torch.linalg.norm(r, dim=-1), ok.to(Tcw.dtype), huber_delta)
     if edges is not None:
-        r_e = _edge_residuals(Tcw[edges.a], Tcw[edges.b], edges.Z)
-        cost = cost + _huber_cost(torch.linalg.norm(r_e, dim=-1), edges.w, edge_huber)
+        cost = cost + _edge_cost(Tcw, edges, edge_huber)
     return cost
+
+
+def _edge_cost(Tcw, edges: BAEdges, edge_huber: float):
+    """The edge factors' robust cost at Tcw."""
+    r_e = _edge_residuals(Tcw[edges.a], Tcw[edges.b], edges.Z)
+    return _huber_cost(torch.linalg.norm(r_e, dim=-1), edges.w, edge_huber)
 
 
 def _edge_residual_jacobians(Tcw_a, Tcw_b, Z):
@@ -142,6 +148,182 @@ def _edge_residual_jacobians(Tcw_a, Tcw_b, Z):
     return r, J[:, :6], J[:, 6:]
 
 
+class _Observations(NamedTuple):
+    """The fixed parts of a problem's (or a landmark shard's) observation
+    table: observing keyframes, their one-hot rows (L, M, K), (u, v, z)
+    measurements and which carry a depth."""
+    kf: torch.Tensor
+    onehot: torch.Tensor
+    meas: torch.Tensor
+    has_z: torch.Tensor
+
+
+def _observations(problem: BAProblem, K: int) -> _Observations:
+    kf = problem.obs_kf.long()
+    # the observing keyframes as one-hot rows: each scatter of the normal
+    # equations becomes a product with these
+    return _Observations(
+        kf=kf, onehot=torch.nn.functional.one_hot(kf, K).to(problem.Tcw.dtype),
+        meas=torch.cat([problem.obs_uv, problem.obs_z[..., None]], dim=-1),
+        has_z=problem.obs_z > 0)
+
+
+def _landmark_system(cam: Camera, problem: BAProblem, ob: _Observations, Tcw, Xw, lam,
+                     huber_delta: float):
+    """The landmarks' reduced camera system: H (K, 6, K, 6) and g (K, 6)
+    with the landmark blocks eliminated, the un-pruned robust cost that the
+    accept/reject compares, and what the landmark back-substitution needs
+    (G, H_ll^-1, b_l, w). Over a shard of the landmarks it is that shard's
+    share of the sums."""
+    K = Tcw.shape[0]
+    dtype, dev = Tcw.dtype, Tcw.device
+    uvz_hat, Jc, Jl, inv_sigma_z = _reproj_jacobians(cam, Tcw[ob.kf], Xw[:, None, :])
+    z = uvz_hat[..., 2]
+    # the depth row in pixel-comparable units; no depth -> row off
+    sz = torch.where(ob.has_z, inv_sigma_z, 0.0)
+    scale = torch.stack([torch.ones_like(sz), torch.ones_like(sz), sz], dim=-1)
+    r = (uvz_hat - ob.meas) * scale
+    Jc = Jc * scale[..., None]
+    Jl = Jl * scale[..., None]
+
+    ok0 = problem.obs_valid & problem.lm_valid[:, None] & (z > 0.05)
+    r_norm = torch.linalg.norm(r, dim=-1)
+    # gross-outlier pruning (wrong data associations): beyond 10x the
+    # Huber width an observation contributes nothing
+    # (Solver/PnPSolver.cpp:117-124's chi^2 demotion idea)
+    ok = ok0 & (r_norm < 10.0 * huber_delta)
+    w_h = torch.where(r_norm > huber_delta,
+                      huber_delta / torch.clamp_min(r_norm, 1e-9), 1.0)
+    w = w_h * ok.to(dtype)                                 # (L, M)
+    # accept/reject compares the un-pruned cost, as _ba_cost evaluates
+    # the candidate (the prune shapes the quadratic model only)
+    cost = _huber_cost(r_norm, ok0.to(dtype), huber_delta)
+
+    # landmark blocks
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hll = torch.einsum("lmri,lmrj,lm->lij", Jl, Jl, w) + (lam + 1e-6) * eye3
+    bl = torch.einsum("lmri,lmr,lm->li", Jl, r, w)
+    Hll_inv = _inv3x3(Hll)
+    # camera blocks, rhs and the coupling G = Jc^T W Jl per observation
+    Hcc_o = torch.einsum("lmri,lmrj,lm->lmij", Jc, Jc, w)   # (L, M, 6, 6)
+    bc_o = torch.einsum("lmri,lmr,lm->lmi", Jc, r, w)       # (L, M, 6)
+    G = torch.einsum("lmri,lmrj,lm->lmij", Jc, Jl, w)       # (L, M, 6, 3)
+
+    # the camera blocks on the diagonal and the rhs, less the landmarks'
+    # Schur terms: S = sum_l U_l V_l^T with U_l (6K, 3) holding G_l,m
+    # H_ll^-1 at its keyframe's rows and V_l holding G_l,m
+    eye_k = torch.eye(K, dtype=dtype, device=dev)
+    GHinv = torch.einsum("lmij,ljk->lmik", G, Hll_inv)        # (L, M, 6, 3)
+    U = torch.einsum("lma,lmik->laik", ob.onehot, GHinv)      # (L, K, 6, 3)
+    V = torch.einsum("lma,lmik->laik", ob.onehot, G)
+    H = (torch.einsum("ab,aij->aibj", eye_k, torch.einsum("lma,lmij->aij", ob.onehot, Hcc_o))
+         - torch.einsum("laik,lbjk->aibj", U, V))              # (K, 6, K, 6)
+    # rhs reduction: g_red = g - G Hll^-1 bl
+    g = torch.einsum("lma,lmi->ai", ob.onehot,
+                     bc_o - torch.einsum("lmik,lk->lmi", GHinv, bl))   # (K, 6)
+    return H, g, cost, (G, Hll_inv, bl, w)
+
+
+def _edge_ends(edges: BAEdges, K: int) -> torch.Tensor:
+    """The edges' ends as one-hot rows (2, E, K)."""
+    return torch.nn.functional.one_hot(
+        torch.stack([edges.a.long(), edges.b.long()]), K).to(edges.Z.dtype)
+
+
+def _edge_system(Tcw, edges: BAEdges, ends, edge_huber: float):
+    """The relative-pose factors' share of the camera system: H_e (K, 6, K,
+    6), g_e (K, 6) and their robust cost. They touch poses only, so they
+    are independent of the landmark elimination."""
+    r_e, Ja, Jb = torch.func.vmap(_edge_residual_jacobians)(
+        Tcw[edges.a.long()], Tcw[edges.b.long()], edges.Z)
+    rn_e = torch.linalg.norm(r_e, dim=-1)
+    hub = torch.where(rn_e > edge_huber, edge_huber / torch.clamp_min(rn_e, 1e-9), 1.0)
+    we = (edges.w * hub)[:, None, None]
+    Jab = torch.stack([Ja, Jb])                                # (2, E, 6, 6)
+    blocks = we * torch.einsum("seri,terj->steij", Jab, Jab)   # (2, 2, E, 6, 6)
+    rows = torch.einsum("sea,steij->teaij", ends, blocks)      # (2, E, K, 6, 6)
+    He = torch.einsum("teaij,teb->aibj", rows, ends)
+    ge = torch.einsum("sea,sei->ai", ends,
+                      we[:, :, 0] * torch.einsum("seri,er->sei", Jab, r_e))
+    return He, ge, _huber_cost(rn_e, edges.w, edge_huber)
+
+
+def _pose_step(H, g, lam, fixed_kf):
+    """The gauge prior, Marquardt damping and the dense solve of the reduced
+    camera system: the pose increment xi (K, 6), 0 on the fixed keyframes."""
+    K = fixed_kf.shape[0]
+    Hm = H.reshape(K * 6, K * 6)
+    gv = g.reshape(K * 6)
+    fixed6 = fixed_kf[:, None].expand(K, 6).reshape(K * 6)
+    diag_boost = torch.where(fixed6, 1e9, lam + 1e-8)
+    Hm = Hm + torch.diag(diag_boost) + lam * torch.diag(torch.diagonal(Hm))
+    xi = -torch.linalg.solve_ex(Hm, gv[:, None], check_errors=False)[0][:, 0]
+    return torch.where(fixed_kf[:, None], 0.0, xi.reshape(K, 6))
+
+
+def _landmark_step(problem: BAProblem, ob: _Observations, back, xi):
+    """The landmark back-substitution dX = -Hll^-1 (bl + sum_m G^T xi[kf])
+    (L, 3), 0 on landmarks without a weighted observation."""
+    G, Hll_inv, bl, w = back
+    Gt_xi = torch.einsum("lmij,lmi->lj", G, xi[ob.kf])
+    dX = -torch.einsum("lij,lj->li", Hll_inv, bl + Gt_xi)
+    obs_cnt = torch.sum(w, dim=1)
+    return torch.where((problem.lm_valid & (obs_cnt > 0))[:, None], dX, 0.0)
+
+
+def _schur_lm(cam: Camera, shards, fixed_kf, mesh: Mesh, iterations: int, huber_delta: float,
+              lm_lambda0: float, edges: Optional[BAEdges], edge_huber: float, adaptive: bool):
+    """The Schur-complement LM over the landmark shards of `mesh` (one
+    BAProblem a local shard, the poses replicated; the plain solve: the
+    whole problem on Mesh([device])). Each shard builds its landmarks'
+    share of the reduced camera system, H, g and the cost summed over the
+    mesh in one reduction an iteration; the relative-pose factors of
+    `edges` (replicated, E << L) are added after the reduction, the
+    replicated pose step is solved on the home device, and each shard
+    back-substitutes its own landmarks. The candidate's cost is one scalar
+    reduction. Returns (Tcw, Xw of every shard in shard order, cost) on the
+    home device."""
+    Tcw = shards[0].Tcw.to(mesh.home)
+    K = Tcw.shape[0]
+    dtype = Tcw.dtype
+    fixed_kf = fixed_kf.to(mesh.home)
+    obs = [_observations(pb, K) for pb in shards]
+    if edges is not None:
+        edges = BAEdges(*(t.to(mesh.home) for t in edges))
+        ends = _edge_ends(edges, K)
+    Xw = [pb.Xw for pb in shards]
+    lam = torch.full((), lm_lambda0, dtype=dtype, device=mesh.home)
+    cost = torch.full((), float("inf"), dtype=dtype, device=mesh.home)
+    for _ in range(iterations):
+        systems = [_landmark_system(cam, pb, ob, T_s, X_s, lam_s, huber_delta)
+                   for pb, ob, T_s, X_s, lam_s in zip(shards, obs, mesh.replicate(Tcw), Xw,
+                                                      mesh.replicate(lam))]
+        # the (small) camera system reduced over the landmark shards
+        H, g, cost = mesh.psum([sy[:3] for sy in systems])
+        if edges is not None:
+            He, ge, cost_e = _edge_system(Tcw, edges, ends, edge_huber)
+            H = H + He
+            g = g + ge
+            cost = cost + cost_e
+        xi = _pose_step(H, g, lam, fixed_kf)
+        Xw_cand = [X_s + _landmark_step(pb, ob, sy[3], xi_s)
+                   for pb, ob, sy, X_s, xi_s in zip(shards, obs, systems, Xw,
+                                                    mesh.replicate(xi))]
+        Tcw_cand = se3.exp(xi) @ Tcw
+        if not adaptive:
+            Tcw, Xw = Tcw_cand, Xw_cand
+            continue
+        cost_new = mesh.psum([_ba_cost(cam, T_s, X_s, pb, huber_delta, None, edge_huber)
+                              for pb, T_s, X_s in zip(shards, mesh.replicate(Tcw_cand), Xw_cand)])
+        if edges is not None:
+            cost_new = cost_new + _edge_cost(Tcw_cand, edges, edge_huber)
+        accept = cost_new < cost
+        Xw = [torch.where(acc, Xc, X_s)
+              for acc, Xc, X_s in zip(mesh.replicate(accept), Xw_cand, Xw)]
+        Tcw, lam, cost = _lm_update(accept, lam, cost, cost_new, Tcw, Tcw_cand)
+    return Tcw, mesh.gather(Xw), cost
+
+
 def local_ba(cam: Camera, problem: BAProblem, fixed_kf: torch.Tensor, iterations: int = 5,
              huber_delta: float = 2.45, lm_lambda0: float = 1e-4,
              edges: Optional[BAEdges] = None, edge_huber: float = 1.0,
@@ -155,104 +337,5 @@ def local_ba(cam: Camera, problem: BAProblem, fixed_kf: torch.Tensor, iterations
 
     fixed_kf: (K,) bool gauge anchors. Returns (Tcw_opt (K, 4, 4),
     Xw_opt (L, 3), final cost ()), all on the problem's device, unread."""
-    K = problem.Tcw.shape[0]
-    L, M = problem.obs_kf.shape
-    dtype, dev = problem.Tcw.dtype, problem.Tcw.device
-    kf = problem.obs_kf.long()
-    # the observing keyframes and the edges' ends as one-hot rows: each
-    # scatter of the normal equations becomes a product with these
-    onehot = torch.nn.functional.one_hot(kf, K).to(dtype)            # (L, M, K)
-    meas = torch.cat([problem.obs_uv, problem.obs_z[..., None]], dim=-1)
-    has_z = problem.obs_z > 0
-    fixed6 = fixed_kf[:, None].expand(K, 6).reshape(K * 6)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    if edges is not None:
-        ea, eb = edges.a.long(), edges.b.long()
-        ends = torch.nn.functional.one_hot(torch.stack([ea, eb]), K).to(dtype)   # (2, E, K)
-    eye_k = torch.eye(K, dtype=dtype, device=dev)
-
-    Tcw, Xw = problem.Tcw, problem.Xw
-    lam = torch.full((), lm_lambda0, dtype=dtype, device=dev)
-    cost = torch.full((), float("inf"), dtype=dtype, device=dev)
-    for _ in range(iterations):
-        uvz_hat, Jc, Jl, inv_sigma_z = _reproj_jacobians(cam, Tcw[kf], Xw[:, None, :])
-        z = uvz_hat[..., 2]
-        # the depth row in pixel-comparable units; no depth -> row off
-        sz = torch.where(has_z, inv_sigma_z, 0.0)
-        scale = torch.stack([torch.ones_like(sz), torch.ones_like(sz), sz], dim=-1)
-        r = (uvz_hat - meas) * scale
-        Jc = Jc * scale[..., None]
-        Jl = Jl * scale[..., None]
-
-        ok0 = problem.obs_valid & problem.lm_valid[:, None] & (z > 0.05)
-        r_norm = torch.linalg.norm(r, dim=-1)
-        # gross-outlier pruning (wrong data associations): beyond 10x the
-        # Huber width an observation contributes nothing
-        # (Solver/PnPSolver.cpp:117-124's chi^2 demotion idea)
-        ok = ok0 & (r_norm < 10.0 * huber_delta)
-        w_h = torch.where(r_norm > huber_delta,
-                          huber_delta / torch.clamp_min(r_norm, 1e-9), 1.0)
-        w = w_h * ok.to(dtype)                                 # (L, M)
-        # accept/reject compares the un-pruned cost, as _ba_cost evaluates
-        # the candidate (the prune shapes the quadratic model only)
-        cost = _huber_cost(r_norm, ok0.to(dtype), huber_delta)
-
-        # landmark blocks
-        Hll = torch.einsum("lmri,lmrj,lm->lij", Jl, Jl, w) + (lam + 1e-6) * eye3
-        bl = torch.einsum("lmri,lmr,lm->li", Jl, r, w)
-        Hll_inv = _inv3x3(Hll)
-        # camera blocks, rhs and the coupling G = Jc^T W Jl per observation
-        Hcc_o = torch.einsum("lmri,lmrj,lm->lmij", Jc, Jc, w)   # (L, M, 6, 6)
-        bc_o = torch.einsum("lmri,lmr,lm->lmi", Jc, r, w)       # (L, M, 6)
-        G = torch.einsum("lmri,lmrj,lm->lmij", Jc, Jl, w)       # (L, M, 6, 3)
-
-        # the camera blocks on the diagonal and the rhs, less the landmarks'
-        # Schur terms: S = sum_l U_l V_l^T with U_l (6K, 3) holding G_l,m
-        # H_ll^-1 at its keyframe's rows and V_l holding G_l,m
-        GHinv = torch.einsum("lmij,ljk->lmik", G, Hll_inv)        # (L, M, 6, 3)
-        U = torch.einsum("lma,lmik->laik", onehot, GHinv)         # (L, K, 6, 3)
-        V = torch.einsum("lma,lmik->laik", onehot, G)
-        H = (torch.einsum("ab,aij->aibj", eye_k, torch.einsum("lma,lmij->aij", onehot, Hcc_o))
-             - torch.einsum("laik,lbjk->aibj", U, V))              # (K, 6, K, 6)
-        # rhs reduction: g_red = g - G Hll^-1 bl
-        g = torch.einsum("lma,lmi->ai", onehot,
-                         bc_o - torch.einsum("lmik,lk->lmi", GHinv, bl))   # (K, 6)
-
-        if edges is not None:
-            # relative-pose factors touch poses only, independent of the
-            # landmark elimination above
-            r_e, Ja, Jb = torch.func.vmap(_edge_residual_jacobians)(Tcw[ea], Tcw[eb], edges.Z)
-            rn_e = torch.linalg.norm(r_e, dim=-1)
-            hub = torch.where(rn_e > edge_huber, edge_huber / torch.clamp_min(rn_e, 1e-9), 1.0)
-            we = (edges.w * hub)[:, None, None]
-            Jab = torch.stack([Ja, Jb])                            # (2, E, 6, 6)
-            blocks = we * torch.einsum("seri,terj->steij", Jab, Jab)   # (2, 2, E, 6, 6)
-            rows = torch.einsum("sea,steij->teaij", ends, blocks)     # (2, E, K, 6, 6)
-            H = H + torch.einsum("teaij,teb->aibj", rows, ends)
-            g = g + torch.einsum("sea,sei->ai", ends,
-                                 we[:, :, 0] * torch.einsum("seri,er->sei", Jab, r_e))
-            cost = cost + _huber_cost(rn_e, edges.w, edge_huber)
-
-        Hm = H.reshape(K * 6, K * 6)
-        gv = g.reshape(K * 6)
-        diag_boost = torch.where(fixed6, 1e9, lam + 1e-8)
-        Hm = Hm + torch.diag(diag_boost) + lam * torch.diag(torch.diagonal(Hm))
-        xi = -torch.linalg.solve_ex(Hm, gv[:, None], check_errors=False)[0][:, 0]
-        xi = torch.where(fixed_kf[:, None], 0.0, xi.reshape(K, 6))
-
-        # landmark back-substitution: dX = -Hll^-1 (bl + sum_m G^T xi[kf])
-        Gt_xi = torch.einsum("lmij,lmi->lj", G, xi[kf])
-        dX = -torch.einsum("lij,lj->li", Hll_inv, bl + Gt_xi)
-        obs_cnt = torch.sum(w, dim=1)
-        dX = torch.where((problem.lm_valid & (obs_cnt > 0))[:, None], dX, 0.0)
-
-        Tcw_cand = se3.exp(xi) @ Tcw
-        Xw_cand = Xw + dX
-        if not adaptive:
-            Tcw, Xw = Tcw_cand, Xw_cand
-            continue
-        cost_new = _ba_cost(cam, Tcw_cand, Xw_cand, problem, huber_delta, edges, edge_huber)
-        accept = cost_new < cost
-        Xw = torch.where(accept, Xw_cand, Xw)
-        Tcw, lam, cost = _lm_update(accept, lam, cost, cost_new, Tcw, Tcw_cand)
-    return Tcw, Xw, cost
+    return _schur_lm(cam, (problem,), fixed_kf, Mesh([problem.Tcw.device]), iterations,
+                     huber_delta, lm_lambda0, edges, edge_huber, adaptive)

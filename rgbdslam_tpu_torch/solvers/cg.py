@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from rgbdslam_tpu_torch.geometry import se3
+from rgbdslam_tpu_torch.mesh import Mesh
 from rgbdslam_tpu_torch.solvers.pose_graph import (
     PoseGraphEdges,
     _lm_state,
@@ -48,6 +49,85 @@ def pcg(H_mv, M_inv, b_rhs: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
+def block_diagonal(Haa, Hbb, edges: PoseGraphEdges, K: int) -> torch.Tensor:
+    """The 6x6 diagonal blocks (K, 6, 6) of the edges' H (over a shard of
+    the edges, that shard's share)."""
+    D = torch.zeros((K, 6, 6), dtype=Haa.dtype, device=Haa.device)
+    D.index_put_((edges.a,), Haa, accumulate=True)
+    D.index_put_((edges.b,), Hbb, accumulate=True)
+    return D
+
+
+def gradient(ga, gb, edges: PoseGraphEdges, K: int) -> torch.Tensor:
+    """The rhs g (K, 6) of the edges (over a shard, its share)."""
+    g = torch.zeros((K, 6), dtype=ga.dtype, device=ga.device)
+    g.index_put_((edges.a,), ga, accumulate=True)
+    g.index_put_((edges.b,), gb, accumulate=True)
+    return g
+
+
+def edge_matvec(x, Haa, Hbb, Hab, edges: PoseGraphEdges) -> torch.Tensor:
+    """The edges' H applied to x (K, 6), without damping or gauge prior:
+    one scatter over the edges (over a shard, its share)."""
+    a_idx, b_idx = edges.a, edges.b
+    xa, xb = x[a_idx], x[b_idx]
+    ya = torch.einsum("eij,ej->ei", Haa, xa) + torch.einsum("eij,ej->ei", Hab, xb)
+    yb = torch.einsum("eij,ej->ei", Hbb, xb) + torch.einsum("eji,ej->ei", Hab, xa)
+    y = torch.zeros_like(x)
+    y.index_put_((a_idx,), ya, accumulate=True)
+    y.index_put_((b_idx,), yb, accumulate=True)
+    return y
+
+
+def _cg_lm(Twc, shards, fixed, mesh: Mesh, iterations: int, cg_iters: int,
+           huber_delta: float, lm_lambda0: float, adaptive: bool):
+    """The CG LM over the edge shards of `mesh` (one PoseGraphEdges a local
+    shard; the plain solve: the whole edge set on Mesh([device])). Each
+    shard holds its edges' 6x6 blocks and the replicated O(K) vectors. Per
+    GN iteration the reductions are one (K, 6, 6) psum (the block-Jacobi
+    preconditioner), one (K, 6) psum (the gradient, with the cost riding
+    along) and one scalar psum (the candidate's cost); per CG iteration
+    exactly one (K, 6) psum (the matvec). The solve and the state live on
+    the mesh's home device."""
+    K = Twc.shape[0]
+    fixed = fixed.to(mesh.home)
+    dtype = Twc.dtype
+    fixed_f = fixed[:, None].to(dtype)
+    eye6 = torch.eye(6, dtype=dtype, device=mesh.home)
+    Twc_cur, lam, cost = _lm_state(Twc.to(mesh.home), lm_lambda0)
+    for _ in range(iterations):
+        blocks = [edge_blocks(x, ed, huber_delta)
+                  for x, ed in zip(mesh.replicate(Twc_cur), shards)]
+
+        # block diagonal of H (+ damping, + the gauge prior) for the Jacobi
+        # preconditioner
+        D = mesh.psum([block_diagonal(bl[0], bl[1], ed, K) for bl, ed in zip(blocks, shards)])
+        D = D + lam * eye6 + (fixed_f[..., None] * 1e9) * eye6
+        D_inv = torch.linalg.inv_ex(D)[0]
+        g, cost_it = mesh.psum([(gradient(bl[3], bl[4], ed, K), bl[5])
+                                for bl, ed in zip(blocks, shards)])
+
+        def H_mv(x, blocks=blocks, lam=lam):
+            y = mesh.psum([edge_matvec(xs, bl[0], bl[1], bl[2], ed)
+                           for xs, bl, ed in zip(mesh.replicate(x), blocks, shards)])
+            return y + lam * x + (fixed_f * 1e9) * x
+
+        def M_inv(x, D_inv=D_inv):
+            return torch.einsum("kij,kj->ki", D_inv, x)
+
+        xi = pcg(H_mv, M_inv, -g, cg_iters)
+        xi = torch.where(fixed[:, None], 0.0, xi)
+        Twc_cand = se3.exp(xi) @ Twc_cur
+        if not adaptive:
+            Twc_cur, cost = Twc_cand, cost_it
+            continue
+        cost_new = mesh.psum([graph_cost(x, ed, huber_delta)
+                              for x, ed in zip(mesh.replicate(Twc_cand), shards)])
+        Twc_cur, lam, cost = _lm_update(cost_new < cost_it, lam, cost_it, cost_new,
+                                        Twc_cur, Twc_cand)
+    return Twc_cur, cost
+
+
 def optimize_pose_graph_cg(
     Twc: torch.Tensor,
     edges: PoseGraphEdges,
@@ -61,46 +141,5 @@ def optimize_pose_graph_cg(
     """Levenberg-Marquardt with an inner matrix-free preconditioned CG
     solve. Same problem and convention as optimize_pose_graph, which it
     matches to CG tolerance; memory O(K + E) instead of O(K^2)."""
-    K = Twc.shape[0]
-    dtype, dev = Twc.dtype, Twc.device
-    a_idx, b_idx = edges.a, edges.b
-    fixed_f = fixed[:, None].to(dtype)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    Twc_cur, lam, cost = _lm_state(Twc, lm_lambda0)
-    for _ in range(iterations):
-        Haa, Hbb, Hab, ga, gb, cost_it = edge_blocks(Twc_cur, edges, huber_delta)
-
-        # block diagonal of H (+ damping, + the gauge prior) for the Jacobi
-        # preconditioner
-        D = torch.zeros((K, 6, 6), dtype=dtype, device=dev)
-        D.index_put_((a_idx,), Haa, accumulate=True)
-        D.index_put_((b_idx,), Hbb, accumulate=True)
-        D = D + lam * eye6 + (fixed_f[..., None] * 1e9) * eye6
-        D_inv = torch.linalg.inv_ex(D)[0]
-
-        g = torch.zeros((K, 6), dtype=dtype, device=dev)
-        g.index_put_((a_idx,), ga, accumulate=True)
-        g.index_put_((b_idx,), gb, accumulate=True)
-
-        def H_mv(x, Haa=Haa, Hbb=Hbb, Hab=Hab, lam=lam):
-            xa, xb = x[a_idx], x[b_idx]
-            ya = torch.einsum("eij,ej->ei", Haa, xa) + torch.einsum("eij,ej->ei", Hab, xb)
-            yb = torch.einsum("eij,ej->ei", Hbb, xb) + torch.einsum("eji,ej->ei", Hab, xa)
-            y = torch.zeros_like(x)
-            y.index_put_((a_idx,), ya, accumulate=True)
-            y.index_put_((b_idx,), yb, accumulate=True)
-            return y + lam * x + (fixed_f * 1e9) * x
-
-        def M_inv(x, D_inv=D_inv):
-            return torch.einsum("kij,kj->ki", D_inv, x)
-
-        xi = pcg(H_mv, M_inv, -g, cg_iters)
-        xi = torch.where(fixed[:, None], 0.0, xi)
-        Twc_cand = se3.exp(xi) @ Twc_cur
-        if not adaptive:
-            Twc_cur, cost = Twc_cand, cost_it
-            continue
-        cost_new = graph_cost(Twc_cand, edges, huber_delta)
-        Twc_cur, lam, cost = _lm_update(cost_new < cost_it, lam, cost_it, cost_new,
-                                        Twc_cur, Twc_cand)
-    return Twc_cur, cost
+    return _cg_lm(Twc, (edges,), fixed, Mesh([Twc.device]), iterations, cg_iters,
+                  huber_delta, lm_lambda0, adaptive)

@@ -35,6 +35,7 @@ import torch
 
 from rgbdslam_tpu_torch.device import resolve_device, upload
 from rgbdslam_tpu_torch.geometry import se3, sim3
+from rgbdslam_tpu_torch.mesh import Mesh
 
 
 class PoseGraphEdges(NamedTuple):
@@ -134,41 +135,59 @@ def _lm_state(Twc, lm_lambda0: float):
             torch.full((), float("inf"), dtype=Twc.dtype, device=Twc.device))
 
 
-def _dense_lm(X, edges: PoseGraphEdges, fixed, iterations: int, huber_delta: float,
-              lm_lambda0: float, adaptive: bool, D: int, blocks, exp, cost_of):
-    """The dense LM shared by the SE(3) (D = 6) and Sim(3) (D = 7) graphs:
-    per iteration the edges' blocks (`blocks`), their scatter-add into the
-    dense (D K)^2 system, the gauge prior and Marquardt damping, one damped
-    solve, the left update by `exp` and the masked accept/reject on
-    `cost_of`. No host branch and no host read inside the loop."""
-    K = X.shape[0]
+def _normal_equations(X, edges: PoseGraphEdges, huber_delta: float, K: int, D: int, blocks):
+    """The edges' Gauss-Newton system: their blocks (`blocks`) scattered
+    into the dense H (D K, D K) and the rhs g (D K,), and the robust cost.
+    Over a shard of the edges it is that shard's share of the sums."""
     dtype, dev = X.dtype, X.device
     a, b = edges.a, edges.b
-    fixed_d = fixed[:, None].expand(K, D).reshape(K * D)
-    X_cur, lam, cost = _lm_state(X, lm_lambda0)
-    for _ in range(iterations):
-        Haa, Hbb, Hab, ga, gb, cost_it = blocks(X_cur, edges, huber_delta)
-        Hb = torch.zeros((K, K, D, D), dtype=dtype, device=dev)
-        Hb.index_put_((a, a), Haa, accumulate=True)
-        Hb.index_put_((b, b), Hbb, accumulate=True)
-        Hb.index_put_((a, b), Hab, accumulate=True)
-        Hb.index_put_((b, a), Hab.transpose(-1, -2), accumulate=True)
-        g = torch.zeros((K, D), dtype=dtype, device=dev)
-        g.index_put_((a,), ga, accumulate=True)
-        g.index_put_((b,), gb, accumulate=True)
-        Hm = Hb.permute(0, 2, 1, 3).reshape(K * D, K * D)
-        gv = g.reshape(K * D)
+    Haa, Hbb, Hab, ga, gb, cost = blocks(X, edges, huber_delta)
+    Hb = torch.zeros((K, K, D, D), dtype=dtype, device=dev)
+    Hb.index_put_((a, a), Haa, accumulate=True)
+    Hb.index_put_((b, b), Hbb, accumulate=True)
+    Hb.index_put_((a, b), Hab, accumulate=True)
+    Hb.index_put_((b, a), Hab.transpose(-1, -2), accumulate=True)
+    g = torch.zeros((K, D), dtype=dtype, device=dev)
+    g.index_put_((a,), ga, accumulate=True)
+    g.index_put_((b,), gb, accumulate=True)
+    return Hb.permute(0, 2, 1, 3).reshape(K * D, K * D), g.reshape(K * D), cost
 
-        # gauge prior + Marquardt damping (lam scales the diagonal)
-        diag_boost = torch.where(fixed_d, 1e9, lam + 1e-8)
-        Hm = Hm + torch.diag(diag_boost) + lam * torch.diag(torch.diagonal(Hm))
-        xi = -torch.linalg.solve_ex(Hm, gv[:, None])[0][:, 0].reshape(K, D)
-        xi = torch.where(fixed[:, None], 0.0, xi)
+
+def _damped_step(Hm, gv, lam, fixed, D: int):
+    """The gauge prior and Marquardt damping (lam scales the diagonal), one
+    damped solve: the increment xi (K, D), 0 on the fixed vertices."""
+    K = fixed.shape[0]
+    fixed_d = fixed[:, None].expand(K, D).reshape(K * D)
+    diag_boost = torch.where(fixed_d, 1e9, lam + 1e-8)
+    Hm = Hm + torch.diag(diag_boost) + lam * torch.diag(torch.diagonal(Hm))
+    xi = -torch.linalg.solve_ex(Hm, gv[:, None])[0][:, 0].reshape(K, D)
+    return torch.where(fixed[:, None], 0.0, xi)
+
+
+def _dense_lm(X, shards, fixed, mesh: Mesh, iterations: int, huber_delta: float,
+              lm_lambda0: float, adaptive: bool, D: int, blocks, exp, cost_of):
+    """The dense LM shared by the SE(3) (D = 6) and Sim(3) (D = 7) graphs
+    and by the edge-sharded solve (parallel/dist_ba.py): per iteration each
+    edge shard's blocks (`blocks`) scattered into its dense (D K)^2 system,
+    H, g and the cost summed over the mesh in one reduction, the gauge
+    prior and Marquardt damping, one damped solve on the mesh's home
+    device, the left update by `exp` and the masked accept/reject on the
+    shards' summed `cost_of`. `shards`: one PoseGraphEdges a local shard of
+    `mesh` (the plain solve: the whole edge set on Mesh([device])). No host
+    branch and no host read inside the loop."""
+    K = X.shape[0]
+    fixed = fixed.to(mesh.home)
+    X_cur, lam, cost = _lm_state(X.to(mesh.home), lm_lambda0)
+    for _ in range(iterations):
+        Hm, gv, cost_it = mesh.psum([_normal_equations(x, ed, huber_delta, K, D, blocks)
+                                     for x, ed in zip(mesh.replicate(X_cur), shards)])
+        xi = _damped_step(Hm, gv, lam, fixed, D)
         X_cand = exp(xi) @ X_cur
         if not adaptive:
             X_cur, cost = X_cand, cost_it
             continue
-        cost_new = cost_of(X_cand, edges, huber_delta)
+        cost_new = mesh.psum([cost_of(x, ed, huber_delta)
+                              for x, ed in zip(mesh.replicate(X_cand), shards)])
         X_cur, lam, cost = _lm_update(cost_new < cost_it, lam, cost_it, cost_new,
                                       X_cur, X_cand)
     return X_cur, cost
@@ -193,8 +212,8 @@ def optimize_pose_graph(
     adaptive: True = Levenberg-Marquardt with step accept/reject and the
       x2 / /3 lambda schedule from lm_lambda0; False = fixed-damping
       Gauss-Newton."""
-    return _dense_lm(Twc, edges, fixed, iterations, huber_delta, lm_lambda0, adaptive,
-                     6, edge_blocks, se3.exp, graph_cost)
+    return _dense_lm(Twc, (edges,), fixed, Mesh([Twc.device]), iterations, huber_delta,
+                     lm_lambda0, adaptive, 6, edge_blocks, se3.exp, graph_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -257,8 +276,8 @@ def optimize_sim3_graph(
     solution moves by up to ~2e-3 with the order of the scatter-adds (the
     edges in another order, another device) at the same cost, in either
     package."""
-    return _dense_lm(Swc, edges, fixed, iterations, huber_delta, lm_lambda0, adaptive,
-                     7, sim3_edge_blocks, sim3.exp, sim3_graph_cost)
+    return _dense_lm(Swc, (edges,), fixed, Mesh([Swc.device]), iterations, huber_delta,
+                     lm_lambda0, adaptive, 7, sim3_edge_blocks, sim3.exp, sim3_graph_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +303,18 @@ class PoseGraph:
         self.huber_delta = huber_delta
         self.lm_lambda0 = lm_lambda0    # Levenberg start (PoseGraphConfig)
         self.device = resolve_device(device)
+        # when set (SlamSystem with SlamConfig.distributed and more than one
+        # device), every solve rides the mesh: the edge-sharded LM with the
+        # matrix-free CG inner solve (parallel/dist_ba.py)
+        self.mesh = None
+        self.dist_solves = 0     # solves that rode the mesh
+        # the multi-process publisher hooks (parallel/mp_slam.py): the
+        # tracking process announces every vertex, edge and solve over the
+        # constraint channel, so that backend peers hold the same graph and
+        # join each solve's collectives
+        self.on_vertex = None    # callback(k, Twc (4, 4))
+        self.on_edge = None      # callback(a, b, Z, raw_weight, kind)
+        self.on_solve = None     # callback(iterations, n_vertices, n_edges)
         # the padded vertex count at which the dense (6K)^2 solve gives way
         # to the matrix-free CG solve (solvers/cg.py)
         self.cg_threshold = cg_threshold
@@ -297,20 +328,6 @@ class PoseGraph:
         self.n_edges = 0
         self._edge_keys = set()
 
-    @property
-    def mesh(self):
-        """The device mesh of the distributed solve: None, the plain solve.
-        Setting one raises: the edge-sharded solve across devices is
-        ROADMAP item 26."""
-        return None
-
-    @mesh.setter
-    def mesh(self, value):
-        if value is not None:
-            raise NotImplementedError(
-                "the distributed pose-graph solve across devices is not yet ported "
-                "(ROADMAP item 26)")
-
     def add_vertex(self, Twc: np.ndarray) -> int:
         k = self.n_vertices
         if k >= self.max_vertices:
@@ -321,6 +338,8 @@ class PoseGraph:
             self.max_vertices *= 2
         self.Twc[k] = Twc.astype(np.float32)
         self.n_vertices += 1
+        if self.on_vertex is not None:
+            self.on_vertex(k, self.Twc[k])
         return k
 
     def has_edge(self, a: int, b: int) -> bool:
@@ -329,8 +348,8 @@ class PoseGraph:
     def add_edge(self, a: int, b: int, Z_ab: np.ndarray, weight: float = 1.0,
                  kind: int = 2):
         """Edge with measurement Z = T_{a<-b} (a = the "current" side).
-        kind: provenance tag (1 = odometry, 2 = proximity, 3 = loop closure),
-        no effect on the solve."""
+        kind: provenance tag (1 = odometry, 2 = proximity, 3 = loop closure)
+        for the multi-process publisher, no effect on the solve."""
         if self.n_edges >= self.max_edges:
             E = self.max_edges
             self.e_a = np.concatenate([self.e_a, np.zeros((E,), np.int32)])
@@ -346,6 +365,8 @@ class PoseGraph:
         self.e_w[e] = weight * self.information
         self.n_edges += 1
         self._edge_keys.add((a, b))
+        if self.on_edge is not None:
+            self.on_edge(a, b, self.e_Z[e], float(weight), int(kind))
 
     def edges_spanning(self, lo: int, hi: int):
         """The (a, b) pairs of edges, of any kind, that tie a vertex below
@@ -371,26 +392,54 @@ class PoseGraph:
     def optimize(self, iterations: int = 10) -> np.ndarray:
         """Run the device solve; updates and returns Twc[:n_vertices]. One
         packed upload, one device-to-host copy of the solved poses. Like the
-        reference it needs more than 5 vertices (Solver/PoseGraph.cpp:354)."""
+        reference it needs more than 5 vertices (Solver/PoseGraph.cpp:354).
+        With a mesh of more than one shard the solve is the edge-sharded CG
+        LM (parallel/dist_ba.py)."""
         K, E = self.n_vertices, self.n_edges
         if K <= 5:
             return self.Twc[:K]
-        # everything the solve needs in one pinned upload
-        blob = np.concatenate([
-            self.Twc[:K].ravel(), self.e_Z[:E].ravel(), self.e_w[:E],
-            self.e_a[:E].astype(np.float32), self.e_b[:E].astype(np.float32)])
-        d = upload(blob.astype(np.float32), self.device)
-        o = 0
-        Twc = d[o:o + 16 * K].reshape(K, 4, 4)
-        o += 16 * K
-        Z = d[o:o + 16 * E].reshape(E, 4, 4)
-        o += 16 * E
-        w = d[o:o + E]
-        a = d[o + E:o + 2 * E].to(torch.int64)
-        b = d[o + 2 * E:o + 3 * E].to(torch.int64)
-        edges = PoseGraphEdges(a=a, b=b, Z=Z, weight=w)
-        fixed = torch.arange(K, device=self.device) == 0   # vertex 0 gauge
-        if self._pad(K) >= self.cg_threshold:
+        if self.on_solve is not None:
+            # announce the solve to the backend peers before entering the
+            # collectives (they join it with the same graph; mp_slam.py)
+            self.on_solve(iterations, K, E)
+        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+        if mesh is not None and mesh.spans_processes:
+            # a mesh across processes: every process holds the same full
+            # graph on the host and uploads only its own shards of the edges
+            from rgbdslam_tpu_torch.parallel.multihost import make_global, shard_edges_global
+
+            edges = shard_edges_global(PoseGraphEdges(
+                a=self.e_a[:E], b=self.e_b[:E], Z=self.e_Z[:E], weight=self.e_w[:E]), mesh)
+            fixed = np.zeros((K,), bool)
+            fixed[0] = True                                 # vertex 0 gauge
+            Twc, fixed = make_global(self.Twc[:K], mesh, None), make_global(fixed, mesh, None)
+        else:
+            # everything the solve needs in one pinned upload
+            blob = np.concatenate([
+                self.Twc[:K].ravel(), self.e_Z[:E].ravel(), self.e_w[:E],
+                self.e_a[:E].astype(np.float32), self.e_b[:E].astype(np.float32)])
+            d = upload(blob.astype(np.float32), self.device)
+            o = 0
+            Twc = d[o:o + 16 * K].reshape(K, 4, 4)
+            o += 16 * K
+            Z = d[o:o + 16 * E].reshape(E, 4, 4)
+            o += 16 * E
+            w = d[o:o + E]
+            a = d[o + E:o + 2 * E].to(torch.int64)
+            b = d[o + 2 * E:o + 3 * E].to(torch.int64)
+            edges = PoseGraphEdges(a=a, b=b, Z=Z, weight=w)
+            fixed = torch.arange(K, device=self.device) == 0   # vertex 0 gauge
+        if mesh is not None:
+            # the distributed live path: the edges sharded over the mesh,
+            # the normal equations summed over the shards in shard order,
+            # the matrix-free CG inner solve
+            from rgbdslam_tpu_torch.parallel.dist_ba import distributed_pose_graph_optimize_cg
+
+            Twc_opt, _cost = distributed_pose_graph_optimize_cg(
+                Twc, edges, fixed, mesh, iterations, self.cg_iters, self.huber_delta,
+                self.lm_lambda0)
+            self.dist_solves += 1
+        elif self._pad(K) >= self.cg_threshold:
             # large maps: matrix-free preconditioned CG, O(K + E) memory
             from rgbdslam_tpu_torch.solvers.cg import optimize_pose_graph_cg
 

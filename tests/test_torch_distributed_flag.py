@@ -1,7 +1,9 @@
 """`SlamConfig.distributed` / `--distributed` on one device (F9): the port
 runs its plain path, as the JAX package does on one device (JAX
-system.py:256-262, cli.py:92-95 "no-op on 1 device"), and across several
-CUDA devices raises, naming ROADMAP item 26 (the refusal itself is
+system.py:256-262, cli.py:92-95 "no-op on 1 device"), and with several
+devices builds the distributed backend's mesh (the runs on a mesh are
+tests/test_torch_distributed_system.py and test_torch_distributed_modes.py;
+the mesh of several cards is also
 tests/test_torch_kfcore.py::test_unported_configuration_raises and
 tests/test_torch_pipeline.py::test_cli_rejects_unported_modes).
 
@@ -55,17 +57,20 @@ def test_distributed_flag_degrades_gracefully_on_one_device(monkeypatch):
     """tests/test_distributed_system.py::
     test_distributed_flag_degrades_gracefully_on_one_device on the port: one
     visible CUDA device (the count patched, as the JAX test patches
-    jax.device_count) passes the distributed check that two refuse, and the
-    run, on the CPU, gives poses equal to the distributed=False run."""
+    jax.device_count) gives no mesh, two give a mesh over both cards; the
+    run on the one CPU device gives poses equal to the distributed=False
+    run."""
     cuda = torch.device("cuda")
+    monkeypatch.setattr(system_mod.torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(system_mod.torch.cuda, "device_count", lambda *a, **k: 1)
-    system_mod.check_distributed(_cfg(distributed=True), cuda)
+    assert system_mod.distributed_mesh(_cfg(distributed=True), cuda) is None
     monkeypatch.setattr(system_mod.torch.cuda, "device_count", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-        system_mod.check_distributed(_cfg(distributed=True), cuda)
+    mesh = system_mod.distributed_mesh(_cfg(distributed=True), cuda)
+    assert mesh.size == 2 and mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert system_mod.distributed_mesh(_cfg(distributed=False), cuda) is None
     monkeypatch.undo()
     system = _run(_cfg(distributed=True))
-    assert system.graph.mesh is None
+    assert system.graph.mesh is None and system.graph.dist_solves == 0
     assert system.store.count >= 1
     plain = _run(_cfg(distributed=False))
     _, poses_d = system.camera_trajectory()
@@ -87,10 +92,30 @@ def test_cli_accepts_distributed_on_one_device(tmp_path, capsys):
 
 
 def test_pose_graph_mesh_stays_plain():
+    """No mesh, or a mesh of one shard, keeps the plain solve; a mesh of two
+    shards puts the solve on the edge-sharded CG LM (dist_solves), which
+    lands within CG tolerance of the plain one."""
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.parallel import make_mesh
     from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraph
 
-    pg = PoseGraph(8, 8, device="cpu")
-    pg.mesh = None
-    assert pg.mesh is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-        pg.mesh = object()
+    rng = np.random.default_rng(0)
+    xi = rng.normal(scale=0.2, size=(8, 6)).astype(np.float32)
+    xi[0] = 0
+    truth = se3.exp(torch.from_numpy(xi)).numpy()
+    noisy = se3.exp(torch.from_numpy(xi + rng.normal(scale=0.02, size=(8, 6)).astype(
+        np.float32))).numpy()
+    outs = []
+    for mesh in (None, make_mesh(1, device="cpu"), make_mesh(2, device="cpu")):
+        pg = PoseGraph(8, 16, device="cpu")
+        pg.mesh = mesh
+        assert pg.mesh is mesh
+        for k in range(8):
+            pg.add_vertex(noisy[k] if k else truth[0])
+        for a, b in [(k, k - 1) for k in range(1, 8)] + [(k, k - 2) for k in range(2, 8)]:
+            pg.add_edge(a, b, np.linalg.inv(truth[a]) @ truth[b])
+        outs.append(pg.optimize(10))
+        assert pg.dist_solves == (1 if mesh is not None and mesh.size > 1 else 0)
+    np.testing.assert_array_equal(outs[1], outs[0])
+    np.testing.assert_allclose(outs[2], outs[0], atol=2e-3)
+    np.testing.assert_allclose(outs[2], truth, atol=2e-3)

@@ -277,9 +277,9 @@ def test_eigh_jacobi_card_equals_cpu(dev):
 
 def test_distributed_flag_on_the_card(dev):
     cfg = dataclasses.replace(CFG, distributed=True)
-    if torch.cuda.device_count() > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-            SlamSystem(CAM, cfg, device=dev)
-        return
     system = SlamSystem(CAM, cfg, device=dev)
+    if torch.cuda.device_count() > 1:
+        # several cards: the solves ride a mesh over all of them
+        assert system.graph.mesh.size == torch.cuda.device_count()
+        return
     assert system.graph.mesh is None

@@ -272,15 +272,20 @@ def test_cli_full_slam_runs_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("field", ["distributed"])
 def test_unported_configuration_raises(field, monkeypatch):
     """The distributed backend across several CUDA devices (ROADMAP item
-    26) is the one configuration still refused; one device runs the plain
-    path (tests/test_torch_distributed_flag.py)."""
+    26, ported): two visible cards give SlamSystem's mesh over both, and
+    the field off gives none (one device runs the plain path,
+    tests/test_torch_distributed_flag.py)."""
     import dataclasses
+
+    from rgbdslam_tpu_torch.slam.system import distributed_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-        SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(SlamConfig(), **{field: True}),
-                   device="cuda")
+    cuda = torch.device("cuda")
+    mesh = distributed_mesh(dataclasses.replace(SlamConfig(), **{field: True}), cuda)
+    assert mesh.size == 2 and mesh.axis == "edges"
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert distributed_mesh(SlamConfig(), cuda) is None
 
 
 def test_unported_modes_raise():
@@ -290,11 +295,17 @@ def test_unported_modes_raise():
     # live export (tests/test_torch_disk_slam.py), dense ICP and bundle
     # adjustment (tests/test_torch_accuracy_slam.py) and the extractor
     # families (tests/test_torch_families_*.py) run since they were ported;
-    # the distributed backend runs its plain path on one device (F9); across
-    # several CUDA devices it still waits (test_unported_configuration_raises)
+    # the distributed backend runs its plain path on one device (F9) and
+    # puts the solves on a mesh over several (test_unported_configuration_raises)
     system = SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(TCFG, distributed=True),
                         device="cpu")
     assert system.graph.mesh is None
+    from rgbdslam_tpu_torch.device import virtual_devices
+
+    with virtual_devices(2):
+        system = SlamSystem(Camera(**CAM_ARGS), dataclasses.replace(TCFG, distributed=True),
+                            device="cpu")
+    assert system.graph.mesh is system._mesh and system._mesh.size == 2
     from rgbdslam_tpu.frontend.extractor import Extractor as JExtractor
 
     for detector in ("orb", "sift"):

@@ -96,21 +96,32 @@ def test_cuda_request_without_card_raises(monkeypatch):
                   "--device", "cuda"])
 
 
-def test_cli_rejects_unported_modes(monkeypatch):
+def test_cli_rejects_unported_modes(monkeypatch, capsys):
     # full SLAM, serial odometry (tests/test_torch_system.py), the batched
     # and ring modes (below), disk datasets and the exports
     # (tests/test_torch_disk_slam.py), dense ICP and bundle adjustment
     # (tests/test_torch_accuracy_slam.py) run since they were ported, and
     # --distributed on one device (tests/test_torch_distributed_flag.py);
-    # the distributed backend across several CUDA devices still waits, with
-    # any other flag, refused before the loader starts
+    # the distributed backend across several CUDA devices (ported) names
+    # its mesh over both cards before the loader starts, with any other flag
+    from rgbdslam_tpu_torch.io import datasets
+
+    class LoaderReached(Exception):
+        pass
+
+    def loader(*a, **k):
+        raise LoaderReached
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(datasets, "open_dataset", loader)
     for argv in (["--dataset", "synthetic:sweep", "--distributed"],
                  ["--dataset", "synthetic:sweep", "--dense-icp", "--distributed", "--plot"],
                  ["--dataset", "/data/tum", "--global-ba", "--distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
+        with pytest.raises(LoaderReached):
             cli.main(argv + ["--device", "cuda"])
+        err = capsys.readouterr().err
+        assert "distributed: Mesh(edges: 2 shards" in err and "cuda:0, cuda:1" in err, err
 
 
 def test_cli_pipelined_runs_on_cpu(tmp_path, capsys):

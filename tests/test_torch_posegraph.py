@@ -154,8 +154,13 @@ def test_pose_graph_registry_matches(cg_threshold):
     oj, ot = gj.optimize(10), gt.optimize(10)
     np.testing.assert_allclose(ot, oj, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(gt.Twc[:12], ot)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gt.mesh = object()
+    # with a mesh of two shards (the distributed backend, ported) the same
+    # graph's next solve rides the edge-sharded CG LM, from the optimum
+    from rgbdslam_tpu_torch.parallel import make_mesh
+
+    gt.mesh = make_mesh(2, device="cpu")
+    np.testing.assert_allclose(gt.optimize(10), ot, rtol=0, atol=2e-3)
+    assert gt.dist_solves == 1
 
 
 def test_pose_graph_needs_more_than_five_vertices():

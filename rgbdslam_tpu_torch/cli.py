@@ -220,7 +220,7 @@ def main(argv=None) -> int:
         adaptive=args.adaptive,
         distributed=args.distributed,
     )
-    # the limits that stay on the card, before the loader starts
+    # a configuration the first frame would refuse, before the loader starts
     from rgbdslam_tpu_torch.slam.tracking import check_system_config
 
     check_system_config(cfg, ds.cam, device)

@@ -31,7 +31,9 @@
 //    per-level detection of fast.detect_keypoints_level; no main path
 //    launches it.
 //  * detect_cells_kernel (kernel A), one launch over the tiles of every
-//    level: a flat block index is mapped to (level, tile) through a table
+//    level (of every 32 levels: a launch's table holds 32, and only an x1.2
+//    scale space of more levels needs a second group): a flat block index is
+//    mapped to (level, tile) through a table
 //    passed by value (LevelTable), which gives each level its image, its
 //    cell size in its own pixels, its grid, its first entry in the output and
 //    its border frame. The half-sample pyramid: cell_size >> level, the
@@ -57,11 +59,19 @@
 //    (the tile keeps a 1-pixel halo; neighbours clamped into the level).
 //    The half-sample merge puts a cell with no corner at pixel (0, 0) of
 //    level 0, so the block holding that pixel writes its offsets too.
+//    A cell wider than 32 pixels (a low feature budget: cells of 40 or 64
+//    at 640x480; on the half-sample pyramid only its upper levels, whose
+//    cells halve, on the x1.2 scale space every level) gets a block of its
+//    own that walks the cell's 32 x 16 sub-tiles, each scored with its own
+//    halo, reduces each to its first maximum by value and then index in the
+//    cell's row-major order, and keeps the best over the sub-tiles with the
+//    offsets taken at the sub-tile's winner (big_cell). A level too small
+//    for one cell has no block and no entry.
 //  * detect_select_kernel (kernel B, half-sample), blocks of 16 cells: every
 //    block merges the cell maxima of all levels in level order with strict >
 //    (the lower level keeps ties; a cell with no corner keeps u = v = 0,
 //    level 0), applies score > min_response (else -inf) and keeps the gated
-//    scores and the winning levels in shared memory (5 bytes a cell); then a
+//    scores in shared memory (4 bytes a cell); then a
 //    warp ranks one cell as a stable descending sort does (rank = cells with
 //    a greater score + cells with an equal score and a lower index; the
 //    lanes stride over the scores four a load, without a branch, and add
@@ -73,7 +83,14 @@
 //    ~25 us of one SM's time, so it is spread over 75 blocks; each
 //    pays the merge (three L2 round trips) again. One block of 1,024 threads
 //    took 69 us, 10-19 blocks that walked the scores one dependent
-//    shared-memory load at a time 12-15 us.
+//    shared-memory load at a time 12-15 us. Past what a block's shared
+//    memory holds (58,112 cells: cells of 1 or 2 pixels at 640x480) every
+//    block streams the gated scores through chunks of 8,192 in shared
+//    memory, merging each chunk again from the cell maxima in L2, and adds
+//    its warps' counts over the chunks; a warp merges its own cell's levels
+//    (for its score and, writing, its level). The counts, and so the ranks,
+//    are the same integers. At 76,800 cells that is 5.9e9 comparisons a
+//    detection.
 //    NaN: a NaN maximum never wins the merge (NaN > x is false, in the plain
 //    version too), so the cell keeps what the other levels gave it and the
 //    ranking never sees a NaN.
@@ -84,14 +101,16 @@
 //    maximum is finite and above the gate. Counting is the sum of the
 //    levels' n_l^2, 2.7 M comparisons at 640x480, over 230 blocks. The
 //    levels' slots come out in level order; the caller scales each slot to
-//    level 0 by its level's f32(1.2^l).
+//    level 0 by its level's f32(1.2^l). Past what shared memory holds
+//    (58,112 cells on a level) the maxima stream through chunks as in
+//    kernel B.
 //
 // The whole-image / row-tiled split of the Pallas version existed only for
 // the TPU's VMEM. The input tile and a 6-pixel halo (NMS 1 + box radius 4 + gradient 1) go
 // into shared memory once, zero-filled outside the image like the Pallas
 // kernel; every intermediate (gradients, row box sums, score, corner flags)
 // stays in shared memory (dynamic, sized for the largest level's tile: 36 KB
-// at 32 x 16, 61 KB at 32 x 32).
+// at 32 x 16 and for the sub-tiles of a wider cell, 61 KB at 32 x 32).
 // Semantics kept: gradients are zero on the outer row and column, box sums
 // are zero-padded and separable (row pass, then column pass, adding the +s
 // then the -s neighbour), FAST-10 runs only on the 3-pixel interior with
@@ -316,38 +335,47 @@ detect_kernel(const float* __restrict__ img, int h, int w,
 // kernel A: best corner per grid cell, every level in one launch
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxLevels = 8;
+// Levels a launch's table holds. A detection with more levels (only the
+// x1.2 scale space can have them: the half-sample pyramid stops at the level
+// whose cell has no pixel) runs its kernel A and C launches over groups of
+// kTableLevels levels; kernel B reads no table.
+constexpr int kTableLevels = 32;
 
 // Level l: an h x w image whose cells of cell x cell pixels form a rows x cols
 // grid, written at entries first_cell[l] .. first_cell[l + 1] - 1 by kernel A's
 // blocks first_block[l] .. first_block[l + 1] - 1, each a tw x th tile of
-// whole cells (tiles_x tiles a row; see whole_cell_tile).
+// whole cells (tiles_x tiles a row; see whole_cell_tile), or, for a cell
+// wider than TW pixels, one block a cell (tiles_x = cols) that walks the
+// cell's TW x TH sub-tiles.
 // Border gate: pixel (x, y) takes part iff (x << bshift, y << bshift) lies at
 // least min_border inside a bh x bw frame. The half-sample pyramid: cell =
 // cell_size >> l, the level-0 grid, bshift = l and the level-0 frame; the x1.2
 // scale space: cell = cell_size, the level's own grid, bshift = 0 and its own
 // frame. Kernel C ranks level l's cells into slots first_slot[l] ..
-// first_slot[l] + quota[l] - 1 with blocks first_rank_block[l] .. .
+// first_slot[l] + quota[l] - 1 with blocks first_rank_block[l] .. , and
+// writes base_level + l as their level. Entries are counted from the
+// pointers the launch is given (a group's first level, first cell).
 struct LevelTable {
-  const float* img[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int cell[kMaxLevels];
-  int rows[kMaxLevels];
-  int cols[kMaxLevels];
-  int tiles_x[kMaxLevels];
-  int tw[kMaxLevels];
-  int th[kMaxLevels];
-  int bshift[kMaxLevels];
-  int bh[kMaxLevels];
-  int bw[kMaxLevels];
-  int quota[kMaxLevels];
-  int first_slot[kMaxLevels];
-  int first_cell[kMaxLevels + 1];
-  int first_block[kMaxLevels + 1];
-  int first_rank_block[kMaxLevels + 1];
+  const float* img[kTableLevels];
+  int h[kTableLevels];
+  int w[kTableLevels];
+  int cell[kTableLevels];
+  int rows[kTableLevels];
+  int cols[kTableLevels];
+  int tiles_x[kTableLevels];
+  int tw[kTableLevels];
+  int th[kTableLevels];
+  int bshift[kTableLevels];
+  int bh[kTableLevels];
+  int bw[kTableLevels];
+  int quota[kTableLevels];
+  int first_slot[kTableLevels];
+  int first_cell[kTableLevels + 1];
+  int first_block[kTableLevels + 1];
+  int first_rank_block[kTableLevels + 1];
   int n_levels;
-  int zero_pair;   // also write the offsets of pixel (0, 0) of level 0 at entry first_cell[n_levels]
+  int base_level;
+  int zero_entry;  // >= 0: also write the offsets of pixel (0, 0) of level 0 at this entry
 };
 
 // The level whose range of `first` holds block b (levels without blocks are
@@ -383,8 +411,10 @@ __device__ __forceinline__ float2 tile_offsets(const Tile& s, int px, int py, in
 // A level's tile for cells of c pixels: whole cells, c * max(1, 32 / c)
 // wide and c * max(1, 16 / c) high: 32 x 16 for c = 1, 2, 4, 8, 16 (the
 // fixed instantiation), 30 x 15 for 3 and 5, 30 x 12 for 6, 30 x 10 for 10,
-// 24 x 12 for 12, up to 32 x 32 for 32.
+// 24 x 12 for 12, up to 32 x 32 for 32. A wider cell is walked in sub-tiles
+// of 32 x 16 (big_cell).
 __host__ __device__ __forceinline__ int2 whole_cell_tile(int c) {
+  if (c > TW) return make_int2(TW, TH);
   const int nx = TW / c, ny = TH / c;
   return make_int2(c * (nx > 1 ? nx : 1), c * (ny > 1 ? ny : 1));
 }
@@ -394,6 +424,93 @@ __host__ __device__ __forceinline__ int2 whole_cell_tile(int c) {
 // (at most one a pixel each).
 __host__ __device__ __forceinline__ int cells_bytes(int tw, int th) {
   return tile_bytes(tw, th) + 3 * tw * th * 4;
+}
+
+// (v, i) beats (bv, bi) as the first maximum in row-major order does: a
+// greater value, or an equal one at a lower index. The masked map holds no
+// NaN, so every value compares.
+__device__ __forceinline__ bool first_max_beats(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// Kernel A for one cell wider than a tile (c > TW): the block walks the
+// cell's ceil(c / TW) x ceil(c / TH) sub-tiles of TW x TH pixels, each
+// scored by tile_scores with its own halo; a thread takes one pixel of the
+// sub-tile, the block reduces the sub-tile to its first maximum (value,
+// index in the cell's row-major order) and thread 0 keeps the better of it
+// and the cell's best so far, with the parabola offsets at the sub-tile's
+// winner taken while its raw scores are in shared memory. The index decides
+// ties, so the order of the sub-tiles does not matter: the result is the
+// plain version's argmax (an all -inf cell: index 0, at the cell's first
+// pixel, which the first sub-tile holds). s_red: 2 * kTileThreads / 32 words.
+__device__ __forceinline__ void big_cell(const LevelTable& tab, int lvl, int cell_idx,
+                                         float thr, bool fast_gate, int min_border,
+                                         const Tile& s, float* s_red,
+                                         float* __restrict__ cell_max,
+                                         int* __restrict__ cell_arg,
+                                         float2* __restrict__ cell_off) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tab.cell[lvl], cols = tab.cols[lvl];
+  const int h = tab.h[lvl], w = tab.w[lvl], bs = tab.bshift[lvl];
+  const int cx = cell_idx % cols, cy = cell_idx / cols;
+  const int X0 = cx * c, Y0 = cy * c;             // the cell's first pixel
+  int* s_redi = reinterpret_cast<int*>(s_red + kTileThreads / 32);
+  float best = -INFINITY;                         // thread 0's running winner
+  int barg = 0x7fffffff;
+  float2 boff = make_float2(0.0f, 0.0f);
+  for (int y0 = Y0; y0 < Y0 + c; y0 += TH)
+    for (int x0 = X0; x0 < X0 + c; x0 += TW) {
+      tile_scores(tab.img[lvl], h, w, thr, fast_gate, x0, y0, s);
+      const int tx = tid % TW, ty = tid / TW;
+      const int lx = x0 - X0 + tx, ly = y0 - Y0 + ty;
+      float v = -INFINITY;
+      int idx = 0x7fffffff;
+      if (lx < c && ly < c) {                     // inside the cell, so inside the level
+        const int X = (x0 + tx) << bs, Y = (y0 + ty) << bs;
+        const bool inb = X >= min_border && X < tab.bw[lvl] - min_border
+                      && Y >= min_border && Y < tab.bh[lvl] - min_border;
+        v = inb ? tile_masked(s, tx, ty) : -INFINITY;
+        idx = ly * c + lx;
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, o);
+        const int oi = __shfl_down_sync(0xffffffffu, idx, o);
+        if (first_max_beats(ov, oi, v, idx)) {
+          v = ov;
+          idx = oi;
+        }
+      }
+      if (lane == 0) {
+        s_red[warp] = v;
+        s_redi[warp] = idx;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        for (int k = 1; k < kTileThreads / 32; ++k)
+          if (first_max_beats(s_red[k], s_redi[k], v, idx)) {
+            v = s_red[k];
+            idx = s_redi[k];
+          }
+        if (first_max_beats(v, idx, best, barg)) {
+          best = v;
+          barg = idx;
+          if (cell_off != nullptr)
+            boff = tile_offsets(s, X0 + idx % c, Y0 + idx / c, h, w, x0, y0);
+        }
+        // the half-sample merge's pixel (0, 0) of level 0 lies in the
+        // first sub-tile of cell 0
+        if (cell_off != nullptr && tab.zero_entry >= 0 && lvl == 0 && cell_idx == 0 &&
+            x0 == 0 && y0 == 0)
+          cell_off[tab.zero_entry] = tile_offsets(s, 0, 0, h, w, 0, 0);
+      }
+      __syncthreads();                            // before the next sub-tile's scores
+    }
+  if (tid == 0) {
+    const int e = tab.first_cell[lvl] + cell_idx;
+    cell_max[e] = best;
+    cell_arg[e] = barg;
+    if (cell_off != nullptr) cell_off[e] = boff;
+  }
 }
 
 // kFixed: every level's tile is 32 x 16 (cells of 1, 2, 4, 8 or 16 pixels),
@@ -417,6 +534,13 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_
   const int tw = kFixed ? TW : tab.tw[lvl];
   const int th = kFixed ? TH : tab.th[lvl];
   const int tile = blockIdx.x - tab.first_block[lvl];
+  if (!kFixed && tab.cell[lvl] > TW) {            // a block a cell, over its sub-tiles
+    char* base = reinterpret_cast<char*>(s_dyn);
+    big_cell(tab, lvl, tile, thr, fast_gate != 0, min_border, carve_tile(base, TW, TH),
+             reinterpret_cast<float*>(base + tile_bytes(TW, TH)), cell_max, cell_arg,
+             cell_off);
+    return;
+  }
   const int x0 = (tile % tab.tiles_x[lvl]) * tw;
   const int y0 = (tile / tab.tiles_x[lvl]) * th;
   const int h = tab.h[lvl], w = tab.w[lvl];
@@ -488,8 +612,8 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_
   }
   // the half-sample merge puts a cell with no corner on any level at pixel
   // (0, 0) of level 0: the block holding that pixel writes its offsets too
-  if (cell_off != nullptr && tab.zero_pair && lvl == 0 && tile == 0 && tid == 0)
-    cell_off[tab.first_cell[tab.n_levels]] = tile_offsets(s, 0, 0, h, w, 0, 0);
+  if (cell_off != nullptr && tab.zero_entry >= 0 && lvl == 0 && tile == 0 && tid == 0)
+    cell_off[tab.zero_entry] = tile_offsets(s, 0, 0, h, w, 0, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -499,13 +623,26 @@ detect_cells_kernel(LevelTable tab, const float* __restrict__ thr_ptr, int fast_
 constexpr int kSelThreads = 512;
 constexpr int kSelCells = kSelThreads / 32;           // cells a block ranks: a warp each
 constexpr int kNoCorner = 255;
+// Shared memory a block may take on sm_90 (227 KB): kernels B and C stage
+// every cell's score of a level at once where it fits (up to 58,112 cells),
+// else they stream the scores through chunks of kChunk cells, which every
+// block reads again from L2.
+constexpr int kMaxSmem = 232448;
+constexpr int kChunk = 8192;
+
+// The cells kernels B and C stage at once for a level of n cells.
+int stage_chunk(int n) {
+  const int n_pad = (n + 31) & ~31;
+  return n_pad * (int)sizeof(float) <= kMaxSmem ? (n_pad > 32 ? n_pad : 32) : kChunk;
+}
 
 // The rank of score si at index i among the n_pad scores in shared memory
 // (padded with -inf to a multiple of 32) as a stable descending sort places
 // it: the scores greater, plus the equal ones at a lower index. Called by
 // a whole warp; every lane returns the rank. The lanes stride over the
 // scores four a load, without a branch (the -inf padding lies above every
-// index and counts for nobody).
+// index and counts for nobody). For a chunk, i is counted from the chunk's
+// first cell (negative where cell i comes before it).
 __device__ __forceinline__ int stable_rank(const float* s_scores, int n_pad, float si, int i) {
   const float4* scores = reinterpret_cast<const float4*>(s_scores);
   const int lane = threadIdx.x & 31;
@@ -531,41 +668,41 @@ __device__ __forceinline__ float final_gate(const float* thr_ptr, int scale_gate
   return (t * t) * gate_scale;
 }
 
+// Cell i's best over the levels in level order, strict > (the lower level
+// keeps ties, NaN never wins); level = kNoCorner where no level has a
+// finite-or-better maximum.
+__device__ __forceinline__ float merged_cell(const float* __restrict__ cell_max, int n_levels,
+                                             int n_cells, int i, int& level) {
+  float best = -INFINITY;
+  level = kNoCorner;
+  for (int l = 0; l < n_levels; ++l) {
+    const float m = cell_max[l * n_cells + i];
+    if (m > best) {
+      best = m;
+      level = l;
+    }
+  }
+  return best;
+}
+
+// chunk: the cells a block stages at once (stage_chunk).
 __global__ void __launch_bounds__(kSelThreads)
 detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__ cell_arg,
                      const float2* __restrict__ cell_off, int n_levels, int n_cells,
                      int grid_cols, int cell_size, const float* __restrict__ thr_ptr,
                      int scale_gate, float gate_scale, float min_response_cfg,
-                     int num_features, float* __restrict__ uv, int* __restrict__ level_out,
-                     float* __restrict__ score_out, unsigned char* __restrict__ valid_out) {
-  // gated merged score per cell, padded with -inf to a multiple of 32 cells,
-  // then the winning level per cell
+                     int num_features, int chunk, float* __restrict__ uv,
+                     int* __restrict__ level_out, float* __restrict__ score_out,
+                     unsigned char* __restrict__ valid_out) {
+  // gated merged score per cell of the chunk, padded with -inf to a multiple
+  // of 32 cells
   extern __shared__ float4 s_mem[];
   float* s_sel = reinterpret_cast<float*>(s_mem);
   const int n_pad = (n_cells + 31) & ~31;
-  unsigned char* s_lvl = reinterpret_cast<unsigned char*>(s_sel + n_pad);
   const int tid = threadIdx.x;
   const int k = num_features < n_cells ? num_features : n_cells;
   const float min_response = final_gate(thr_ptr, scale_gate, gate_scale, min_response_cfg);
 
-  // every block merges and gates all cells (a few thousand L2 reads, a cell's
-  // levels loaded together), then ranks its own 16
-  for (int i = tid; i < n_pad; i += kSelThreads) {
-    float m[kMaxLevels];
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l)
-      m[l] = (l < n_levels && i < n_cells) ? cell_max[l * n_cells + i] : -INFINITY;
-    float best = -INFINITY;
-    int level = kNoCorner;
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l)
-      if (m[l] > best) {          // strict: the lower level keeps ties, NaN never wins
-        best = m[l];
-        level = l;
-      }
-    s_sel[i] = best > min_response ? best : -INFINITY;
-    if (i < n_cells) s_lvl[i] = (unsigned char)level;
-  }
   if (blockIdx.x == 0)
     for (int r = k + tid; r < num_features; r += kSelThreads) {   // padding slots
       uv[2 * r] = 0.0f;
@@ -574,20 +711,37 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
       score_out[r] = 0.0f;
       valid_out[r] = 0;
     }
-  __syncthreads();
 
-  // a warp ranks one cell among all cells
+  // a warp ranks one cell among all cells: its merged, gated score first
   const int i = blockIdx.x * kSelCells + (tid >> 5);
-  if (i >= n_cells) return;                  // whole warps leave
-  const float si = s_sel[i];
-  const int rank = stable_rank(s_sel, n_pad, si, i);
-  if ((tid & 31) != 0 || rank >= k) return;
+  const bool mine = i < n_cells;
+  int level = kNoCorner;
+  float si = -INFINITY;
+  if (mine) {
+    const float best = merged_cell(cell_max, n_levels, n_cells, i, level);
+    si = best > min_response ? best : -INFINITY;
+  }
+  int rank = 0;
+  // every block merges and gates all cells (a few thousand L2 reads, a cell's
+  // levels in order), chunk by chunk, and counts for its own 16
+  for (int c0 = 0; c0 < n_pad; c0 += chunk) {
+    const int len = n_pad - c0 < chunk ? n_pad - c0 : chunk;
+    if (c0 > 0) __syncthreads();                 // the last chunk's counts are done
+    for (int j = tid; j < len; j += kSelThreads) {
+      int lv;
+      const float best = c0 + j < n_cells ? merged_cell(cell_max, n_levels, n_cells, c0 + j, lv)
+                                          : -INFINITY;
+      s_sel[j] = best > min_response ? best : -INFINITY;
+    }
+    __syncthreads();
+    if (mine) rank += stable_rank(s_sel, len, si, i - c0);
+  }
+  if (!mine || (tid & 31) != 0 || rank >= k) return;
 
   // the winner of cell i, in level-0 pixel coordinates; a cell with no
   // corner keeps u = v = 0 and level 0. With offsets, the winner moves by
   // its level's, scaled to level 0 (the no-corner cell by those of pixel
   // (0, 0) of level 0, kernel A's extra entry).
-  int level = s_lvl[i];
   int u = 0, v = 0;
   float2 off = make_float2(0.0f, 0.0f);
   if (level == kNoCorner) {
@@ -618,25 +772,27 @@ detect_select_kernel(const float* __restrict__ cell_max, const int* __restrict__
 // kernel C: the per-level selection of the x1.2 scale space
 // ---------------------------------------------------------------------------
 
-// Blocks of 16 cells of one level: the block loads the level's cell maxima
-// (ungated, padded with -inf), a warp ranks one cell among them as a stable
-// descending sort does and, below the level's quota, writes slot
-// first_slot + rank: uv in level pixels (plus the offsets), valid = finite
-// and above the gate, score = valid ? maximum : 0, level l. The level's
-// first block zeroes its slots from n_l to the quota (invalid, level l). An
-// -inf cell ranks by its index and keeps its cell's first pixel.
+// Blocks of 16 cells of one level: the block stages the level's cell maxima
+// (ungated, padded with -inf; every cell at once, or chunks of `chunk`
+// cells), a warp ranks one cell among them as a stable descending sort does
+// and, below the level's quota, writes slot first_slot + rank: uv in level
+// pixels (plus the offsets), valid = finite and above the gate, score =
+// valid ? maximum : 0, level base_level + l. The level's first block zeroes
+// its slots from n_l to the quota (invalid, that level). An -inf cell ranks
+// by its index and keeps its cell's first pixel.
 __global__ void __launch_bounds__(kSelThreads)
 detect_rank_kernel(LevelTable tab, const float* __restrict__ cell_max,
                    const int* __restrict__ cell_arg, const float2* __restrict__ cell_off,
                    const float* __restrict__ thr_ptr, int scale_gate, float gate_scale,
-                   float min_response_cfg, float* __restrict__ uv,
+                   float min_response_cfg, int chunk, float* __restrict__ uv,
                    int* __restrict__ level_out, float* __restrict__ score_out,
                    unsigned char* __restrict__ valid_out) {
   extern __shared__ float4 s_mem[];
   float* s_max = reinterpret_cast<float*>(s_mem);
   const int tid = threadIdx.x;
   const int lvl = level_of(tab.first_rank_block, tab.n_levels, blockIdx.x);
-  const int chunk = blockIdx.x - tab.first_rank_block[lvl];
+  const int out_level = tab.base_level + lvl;
+  const int block = blockIdx.x - tab.first_rank_block[lvl];
   const int n = tab.rows[lvl] * tab.cols[lvl];
   const int n_pad = (n + 31) & ~31;
   const int quota = tab.quota[lvl];
@@ -644,24 +800,29 @@ detect_rank_kernel(LevelTable tab, const float* __restrict__ cell_max,
   const int first = tab.first_cell[lvl];
   const float min_response = final_gate(thr_ptr, scale_gate, gate_scale, min_response_cfg);
 
-  for (int i = tid; i < n_pad; i += kSelThreads)
-    s_max[i] = i < n ? cell_max[first + i] : -INFINITY;
-  if (chunk == 0)
+  if (block == 0)
     for (int r = n + tid; r < quota; r += kSelThreads) {        // padding slots
       const int slot = slot0 + r;
       uv[2 * slot] = 0.0f;
       uv[2 * slot + 1] = 0.0f;
-      level_out[slot] = lvl;
+      level_out[slot] = out_level;
       score_out[slot] = 0.0f;
       valid_out[slot] = 0;
     }
-  __syncthreads();
 
-  const int i = chunk * kSelCells + (tid >> 5);
-  if (i >= n) return;                        // whole warps leave
-  const float si = s_max[i];
-  const int rank = stable_rank(s_max, n_pad, si, i);
-  if ((tid & 31) != 0 || rank >= quota) return;
+  const int i = block * kSelCells + (tid >> 5);
+  const bool mine = i < n;
+  const float si = mine ? cell_max[first + i] : -INFINITY;
+  int rank = 0;
+  for (int c0 = 0; c0 < n_pad; c0 += chunk) {
+    const int len = n_pad - c0 < chunk ? n_pad - c0 : chunk;
+    if (c0 > 0) __syncthreads();                 // the last chunk's counts are done
+    for (int j = tid; j < len; j += kSelThreads)
+      s_max[j] = c0 + j < n ? cell_max[first + c0 + j] : -INFINITY;
+    __syncthreads();
+    if (mine) rank += stable_rank(s_max, len, si, i - c0);
+  }
+  if (!mine || (tid & 31) != 0 || rank >= quota) return;
 
   const int cell = tab.cell[lvl], cols = tab.cols[lvl];
   const int arg = cell_arg[first + i];
@@ -676,15 +837,15 @@ detect_rank_kernel(LevelTable tab, const float* __restrict__ cell_max,
   const int slot = slot0 + rank;
   uv[2 * slot] = fu;
   uv[2 * slot + 1] = fv;
-  level_out[slot] = lvl;
+  level_out[slot] = out_level;
   score_out[slot] = ok ? si : 0.0f;
   valid_out[slot] = ok ? 1 : 0;
 }
 
 // Kernel A's blocks, tiles and the table's entries from each level's cell
-// and grid; false where a level's cell is outside 1..32 or its grid does
-// not fit its image. `fixed` says whether every tile is 32 x 16 and `bytes`
-// gives the dynamic shared memory of the largest tile.
+// and grid; false where a level's cell is below 1 pixel or its grid does not
+// fit its image. `fixed` says whether every tile is 32 x 16 of whole cells
+// and `bytes` gives the dynamic shared memory of the largest tile.
 bool plan_tiles(LevelTable& tab, bool& fixed, int& bytes) {
   int blocks = 0, cells = 0;
   fixed = true;
@@ -692,28 +853,29 @@ bool plan_tiles(LevelTable& tab, bool& fixed, int& bytes) {
   for (int l = 0; l < tab.n_levels; ++l) {
     const int c = tab.cell[l];
     const bool empty = tab.rows[l] == 0 || tab.cols[l] == 0;
-    if (!empty && (c < 1 || c > TW || tab.h[l] < tab.rows[l] * c ||
-                   tab.w[l] < tab.cols[l] * c))
+    if (!empty && (c < 1 || tab.h[l] < tab.rows[l] * c || tab.w[l] < tab.cols[l] * c))
       return false;
+    const bool big = c > TW;                     // a block a cell
     const int2 t = empty ? make_int2(TW, TH) : whole_cell_tile(c);
     tab.tw[l] = t.x;
     tab.th[l] = t.y;
     if (!empty) {
-      fixed = fixed && t.x == TW && t.y == TH;
+      fixed = fixed && !big && t.x == TW && t.y == TH;
       const int b = cells_bytes(t.x, t.y);
       bytes = b > bytes ? b : bytes;
     }
-    tab.tiles_x[l] = empty ? 0 : (tab.cols[l] * c + t.x - 1) / t.x;
+    tab.tiles_x[l] = empty ? 0 : (big ? tab.cols[l] : (tab.cols[l] * c + t.x - 1) / t.x);
     tab.first_block[l] = blocks;
     tab.first_cell[l] = cells;
-    blocks += empty ? 0 : tab.tiles_x[l] * ((tab.rows[l] * c + t.y - 1) / t.y);
+    blocks += empty ? 0 : (big ? tab.rows[l] * tab.cols[l]
+                               : tab.tiles_x[l] * ((tab.rows[l] * c + t.y - 1) / t.y));
     cells += tab.rows[l] * tab.cols[l];
   }
-  for (int l = tab.n_levels; l <= kMaxLevels; ++l) {
+  for (int l = tab.n_levels; l <= kTableLevels; ++l) {
     tab.first_block[l] = blocks;
     tab.first_cell[l] = cells;
   }
-  for (int l = tab.n_levels; l < kMaxLevels; ++l) {
+  for (int l = tab.n_levels; l < kTableLevels; ++l) {
     tab.img[l] = nullptr;
     tab.h[l] = tab.w[l] = tab.cell[l] = tab.rows[l] = tab.cols[l] = tab.tiles_x[l] = 0;
     tab.tw[l] = tab.th[l] = 0;
@@ -735,7 +897,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 cudaError_t launch_cells(const LevelTable& tab, bool fixed, int bytes, const float* thr,
                          int fast_gate, int min_border, float* cell_max, int* cell_arg,
                          float2* off, cudaStream_t st) {
-  const int blocks = tab.first_block[kMaxLevels];
+  const int blocks = tab.first_block[kTableLevels];
+  if (blocks == 0) return cudaSuccess;
   if (fixed) {
     detect_cells_kernel<true><<<blocks, kTileThreads, bytes, st>>>(
         tab, thr, fast_gate, min_border, cell_max, cell_arg, off);
@@ -761,15 +924,15 @@ extern "C" int rgbd_detect_score_map(const void* img, int h, int w, const void* 
 }
 
 // The whole detection of the half-sample pyramid on one stream: kernel A over
-// the tiles that cover the cells of each level, then kernel B. thr: the FAST
-// threshold, one float in device memory; fast_gate 0 for the GFTT mode;
-// scale_gate 1 to gate by thr^2 * gate_scale on the device instead of
-// min_response. imgs, hs, ws: host arrays of n_levels entries, level l of
-// hs[l] x ws[l] pixels holding at least grid_rows x grid_cols cells of
-// (cell_size >> l)^2 pixels, each a divisor of the tile. cell_max, cell_arg:
-// (n_levels, grid_rows * grid_cols); cell_off (n_levels * grid_rows *
-// grid_cols + 1, 2) f32 with `subpixel`, else unused (null): the winners then
-// move by their level's parabola offsets. uv (num_features, 2), level,
+// the tiles that cover the cells of each level (one launch a group of
+// kTableLevels levels), then kernel B. thr: the FAST threshold, one float in
+// device memory; fast_gate 0 for the GFTT mode; scale_gate 1 to gate by
+// thr^2 * gate_scale on the device instead of min_response. imgs, hs, ws:
+// host arrays of n_levels entries, level l of hs[l] x ws[l] pixels holding at
+// least grid_rows x grid_cols cells of (cell_size >> l)^2 pixels. cell_max,
+// cell_arg: (n_levels, grid_rows * grid_cols); cell_off (n_levels * grid_rows
+// * grid_cols + 1, 2) f32 with `subpixel`, else unused (null): the winners
+// then move by their level's parabola offsets. uv (num_features, 2), level,
 // score, valid (num_features,).
 extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, const int* ws,
                                      int n_levels, int cell_size, int grid_rows,
@@ -779,39 +942,43 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
                                      void* cell_max, void* cell_arg, void* cell_off, void* uv,
                                      void* level, void* score, void* valid, void* stream) {
   const int n_cells = grid_rows * grid_cols;
-  if (n_levels < 1 || n_levels > kMaxLevels || n_cells < 1 || num_features < 1)
+  if (n_levels < 1 || n_cells < 1 || num_features < 1 || (cell_size >> (n_levels - 1)) < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  LevelTable tab;
-  tab.n_levels = n_levels;
-  tab.zero_pair = subpixel ? 1 : 0;
-  for (int l = 0; l < n_levels; ++l) {
-    tab.img[l] = (const float*)imgs[l];
-    tab.h[l] = hs[l];
-    tab.w[l] = ws[l];
-    tab.cell[l] = cell_size >> l;
-    tab.rows[l] = grid_rows;
-    tab.cols[l] = grid_cols;
-    tab.bshift[l] = l;
-    tab.bh[l] = hs[0];
-    tab.bw[l] = ws[0];
-    tab.quota[l] = tab.first_slot[l] = 0;
-    if (tab.cell[l] < 1) return (int)cudaErrorInvalidValue;
-  }
-  bool fixed;
-  int tile_smem;
-  if (!plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
   float2* off = subpixel ? (float2*)cell_off : nullptr;
-  const cudaError_t launched = launch_cells(tab, fixed, tile_smem, (const float*)thr, fast_gate,
-                                            min_border, (float*)cell_max, (int*)cell_arg, off,
-                                            st);
-  if (launched != cudaSuccess) return (int)launched;
-  const int bytes = ((n_cells + 31) & ~31) * (int)sizeof(float) + n_cells;
+  for (int g0 = 0; g0 < n_levels; g0 += kTableLevels) {
+    LevelTable tab;
+    tab.n_levels = n_levels - g0 < kTableLevels ? n_levels - g0 : kTableLevels;
+    tab.base_level = g0;
+    tab.zero_entry = (subpixel && g0 == 0) ? n_levels * n_cells : -1;
+    for (int l = 0; l < tab.n_levels; ++l) {
+      tab.img[l] = (const float*)imgs[g0 + l];
+      tab.h[l] = hs[g0 + l];
+      tab.w[l] = ws[g0 + l];
+      tab.cell[l] = cell_size >> (g0 + l);
+      tab.rows[l] = grid_rows;
+      tab.cols[l] = grid_cols;
+      tab.bshift[l] = g0 + l;
+      tab.bh[l] = hs[0];
+      tab.bw[l] = ws[0];
+      tab.quota[l] = tab.first_slot[l] = 0;
+    }
+    bool fixed;
+    int tile_smem;
+    if (!plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
+    const size_t first = (size_t)g0 * n_cells;
+    const cudaError_t launched = launch_cells(
+        tab, fixed, tile_smem, (const float*)thr, fast_gate, min_border,
+        (float*)cell_max + first, (int*)cell_arg + first, off ? off + first : nullptr, st);
+    if (launched != cudaSuccess) return (int)launched;
+  }
+  const int chunk = stage_chunk(n_cells);
+  const int bytes = chunk * (int)sizeof(float);
   const cudaError_t e = allow_smem(detect_select_kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   detect_select_kernel<<<(n_cells + kSelCells - 1) / kSelCells, kSelThreads, bytes, st>>>(
       (const float*)cell_max, (const int*)cell_arg, off, n_levels, n_cells, grid_cols,
-      cell_size, (const float*)thr, scale_gate, gate_scale, min_response, num_features,
+      cell_size, (const float*)thr, scale_gate, gate_scale, min_response, num_features, chunk,
       (float*)uv, (int*)level, (float*)score, (unsigned char*)valid);
   return (int)cudaGetLastError();
 }
@@ -819,13 +986,15 @@ extern "C" int rgbd_detect_keypoints(const void* const* imgs, const int* hs, con
 // The whole detection of the x1.2 scale space on one stream: kernel A over
 // the tiles of every level (each level's own grid of cell_size cells and its
 // own border), then kernel C, each level's cells ranked into its quota of
-// slots. imgs, hs, ws, quotas: host arrays of n_levels entries; a level with
-// quota <= 0 is not read and has no slots. thr, fast_gate, scale_gate,
-// gate_scale, min_response: as rgbd_detect_keypoints. cell_max, cell_arg:
-// (sum of the levels' cells,) in level order; cell_off (that, 2) f32 with
-// `subpixel`, else unused (null). uv (N, 2) in level pixels, level, score,
-// valid (N,), N = the sum of the positive quotas, the levels' slots in
-// level order.
+// slots; one launch of each a group of kTableLevels levels. imgs, hs, ws,
+// quotas: host arrays of n_levels entries; a level with quota <= 0 is not
+// read and has no slots, and a level too small for one cell has none either
+// (its quota, zero with the plain version's caps, only pads). thr,
+// fast_gate, scale_gate, gate_scale, min_response: as rgbd_detect_keypoints.
+// cell_max, cell_arg: (sum of the levels' cells,) in level order; cell_off
+// (that, 2) f32 with `subpixel`, else unused (null). uv (N, 2) in level
+// pixels, level, score, valid (N,), N = the sum of the positive quotas, the
+// levels' slots in level order.
 extern "C" int rgbd_detect_scaled(const void* const* imgs, const int* hs, const int* ws,
                                   const int* quotas, int n_levels, int cell_size,
                                   const void* thr, int fast_gate, int min_border,
@@ -833,49 +1002,67 @@ extern "C" int rgbd_detect_scaled(const void* const* imgs, const int* hs, const 
                                   int subpixel, void* cell_max, void* cell_arg,
                                   void* cell_off, void* uv, void* level, void* score,
                                   void* valid, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || cell_size < 1)
-    return (int)cudaErrorInvalidValue;
+  if (n_levels < 1 || cell_size < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  LevelTable tab;
-  tab.n_levels = n_levels;
-  tab.zero_pair = 0;
-  int slots = 0, rank_blocks = 0, max_cells = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    const bool on = quotas[l] > 0;
-    tab.img[l] = (const float*)imgs[l];
-    tab.h[l] = hs[l];
-    tab.w[l] = ws[l];
-    tab.cell[l] = cell_size;
-    tab.rows[l] = on ? hs[l] / cell_size : 0;
-    tab.cols[l] = on ? ws[l] / cell_size : 0;
-    tab.bshift[l] = 0;
-    tab.bh[l] = hs[l];
-    tab.bw[l] = ws[l];
-    tab.quota[l] = on ? quotas[l] : 0;
-    tab.first_slot[l] = slots;
-    tab.first_rank_block[l] = rank_blocks;
-    const int n = tab.rows[l] * tab.cols[l];
-    slots += tab.quota[l];
-    rank_blocks += on ? (n > kSelCells ? (n + kSelCells - 1) / kSelCells : 1) : 0;
-    max_cells = n > max_cells ? n : max_cells;
-  }
-  for (int l = n_levels; l <= kMaxLevels; ++l) tab.first_rank_block[l] = rank_blocks;
-  bool fixed;
-  int tile_smem;
-  if (slots < 1 || !plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
   float2* off = subpixel ? (float2*)cell_off : nullptr;
-  if (tab.first_block[kMaxLevels] > 0) {
-    const cudaError_t launched = launch_cells(tab, fixed, tile_smem, (const float*)thr,
-                                              fast_gate, min_border, (float*)cell_max,
-                                              (int*)cell_arg, off, st);
-    if (launched != cudaSuccess) return (int)launched;
+  int slots = 0, max_cells = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    if (quotas[l] <= 0) continue;
+    const int n = (hs[l] / cell_size) * (ws[l] / cell_size);
+    max_cells = n > max_cells ? n : max_cells;
+    slots += quotas[l];
   }
-  const int bytes = ((max_cells + 31) & ~31) * (int)sizeof(float);
-  const cudaError_t e = allow_smem(detect_rank_kernel, bytes);
+  if (slots < 1) return (int)cudaErrorInvalidValue;
+  const int chunk = stage_chunk(max_cells);
+  const int rank_bytes = chunk * (int)sizeof(float);
+  const cudaError_t e = allow_smem(detect_rank_kernel, rank_bytes);
   if (e != cudaSuccess) return (int)e;
-  detect_rank_kernel<<<rank_blocks, kSelThreads, bytes, st>>>(
-      tab, (const float*)cell_max, (const int*)cell_arg, off, (const float*)thr, scale_gate,
-      gate_scale, min_response, (float*)uv, (int*)level, (float*)score,
-      (unsigned char*)valid);
-  return (int)cudaGetLastError();
+  size_t cells_before = 0;
+  int slots_before = 0;
+  for (int g0 = 0; g0 < n_levels; g0 += kTableLevels) {
+    LevelTable tab;
+    tab.n_levels = n_levels - g0 < kTableLevels ? n_levels - g0 : kTableLevels;
+    tab.base_level = g0;
+    tab.zero_entry = -1;
+    int group_slots = 0, rank_blocks = 0;
+    for (int l = 0; l < tab.n_levels; ++l) {
+      const int q = quotas[g0 + l];
+      const bool on = q > 0;
+      tab.img[l] = (const float*)imgs[g0 + l];
+      tab.h[l] = hs[g0 + l];
+      tab.w[l] = ws[g0 + l];
+      tab.cell[l] = cell_size;
+      tab.rows[l] = on ? hs[g0 + l] / cell_size : 0;
+      tab.cols[l] = on ? ws[g0 + l] / cell_size : 0;
+      tab.bshift[l] = 0;
+      tab.bh[l] = hs[g0 + l];
+      tab.bw[l] = ws[g0 + l];
+      tab.quota[l] = on ? q : 0;
+      tab.first_slot[l] = slots_before + group_slots;
+      tab.first_rank_block[l] = rank_blocks;
+      const int n = tab.rows[l] * tab.cols[l];
+      group_slots += tab.quota[l];
+      rank_blocks += on ? (n > kSelCells ? (n + kSelCells - 1) / kSelCells : 1) : 0;
+    }
+    for (int l = tab.n_levels; l <= kTableLevels; ++l) tab.first_rank_block[l] = rank_blocks;
+    bool fixed;
+    int tile_smem;
+    if (!plan_tiles(tab, fixed, tile_smem)) return (int)cudaErrorInvalidValue;
+    float* cmax = (float*)cell_max + cells_before;
+    int* carg = (int*)cell_arg + cells_before;
+    float2* coff = off ? off + cells_before : nullptr;
+    const cudaError_t launched = launch_cells(tab, fixed, tile_smem, (const float*)thr,
+                                              fast_gate, min_border, cmax, carg, coff, st);
+    if (launched != cudaSuccess) return (int)launched;
+    if (rank_blocks > 0) {
+      detect_rank_kernel<<<rank_blocks, kSelThreads, rank_bytes, st>>>(
+          tab, cmax, carg, coff, (const float*)thr, scale_gate, gate_scale, min_response,
+          chunk, (float*)uv, (int*)level, (float*)score, (unsigned char*)valid);
+      const cudaError_t r = cudaGetLastError();
+      if (r != cudaSuccess) return (int)r;
+    }
+    cells_before += tab.first_cell[kTableLevels];
+    slots_before += group_slots;
+  }
+  return (int)cudaSuccess;
 }

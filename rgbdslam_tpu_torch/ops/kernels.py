@@ -167,19 +167,18 @@ def detect_score_map_ref(img: torch.Tensor, fast_threshold, use_fast_gate: bool 
     return torch.where(keep, score, float("-inf")), score
 
 
-#: pyramid levels the level table of csrc/detect.cu holds (kMaxLevels)
-DETECT_MAX_LEVELS = 8
-#: cells whose scores and levels (5 bytes each) fit the shared memory a block
-#: may use on sm_90
-DETECT_MAX_CELLS = 46000
-#: the widest cell kernel A's tiles hold (one cell a 32 x 32 tile)
-DETECT_MAX_CELL = 32
+#: the widest cell kernel A's tiles hold whole (csrc/detect.cu TW); a wider
+#: cell is reduced by one block over its 32 x 16 sub-tiles
+DETECT_TILE_CELL = 32
 
 
 def whole_cell_tile(cell: int) -> Tuple[int, int]:
     """(width, height) of kernel A's tile for cells of `cell` pixels: whole
-    cells, cell * max(1, 32 // cell) by cell * max(1, 16 // cell)
+    cells, cell * max(1, 32 // cell) by cell * max(1, 16 // cell), and for a
+    cell wider than 32 pixels the 32 x 16 sub-tile its block walks
     (csrc/detect.cu whole_cell_tile)."""
+    if cell > DETECT_TILE_CELL:
+        return DETECT_TILE_CELL, 16
     return cell * max(1, 32 // cell), cell * max(1, 16 // cell)
 
 
@@ -192,13 +191,9 @@ def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 
 def _detect_level_checks(entry: str, levels: List[torch.Tensor], cells) -> None:
-    """A detection's pyramid against the level table of csrc/detect.cu:
-    each level's cell at most 32 pixels wide and its grid inside its image
-    (checked before the device), then f32 CUDA images."""
+    """A detection's pyramid against its cells: each level's grid inside its
+    image (checked before the device), then f32 CUDA images."""
     for lvl, (img, (cell_l, rows, cols)) in enumerate(zip(levels, cells)):
-        if not 1 <= cell_l <= DETECT_MAX_CELL:
-            raise ValueError(f"{entry}, level {lvl}: cells of {cell_l} pixels; kernel A's "
-                             f"tiles hold cells of 1 to {DETECT_MAX_CELL}")
         if img.shape[0] < rows * cell_l or img.shape[1] < cols * cell_l:
             raise ValueError(f"{entry}, level {lvl}: {tuple(img.shape)} pixels do not hold "
                              f"{rows}x{cols} cells of {cell_l}x{cell_l}")
@@ -209,12 +204,6 @@ def _detect_level_checks(entry: str, levels: List[torch.Tensor], cells) -> None:
 def _whole(entry: str, cell_size, min_border) -> None:
     if int(cell_size) != cell_size or int(min_border) != min_border or cell_size < 1:
         raise ValueError(f"{entry} takes a whole cell_size >= 1 and a whole min_border")
-
-
-def _level_count(entry: str, n_levels: int) -> None:
-    if n_levels > DETECT_MAX_LEVELS:
-        raise ValueError(f"{entry} takes at most {DETECT_MAX_LEVELS} pyramid levels, got "
-                         f"{n_levels}")
 
 
 def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_size: int,
@@ -248,13 +237,11 @@ def detect_keypoints_fused(pyramid: List[torch.Tensor], num_features: int, cell_
         raise ValueError(f"{entry} needs at least one level and one slot")
     levels = pyramid[:fast.used_levels(len(pyramid), cell_size)]
     L = len(levels)
-    _level_count(entry, L)
     h0, w0 = pyramid[0].shape
     grid_rows, grid_cols = h0 // cell_size, w0 // cell_size
     n_cells = grid_rows * grid_cols
-    if not 1 <= n_cells <= DETECT_MAX_CELLS:
-        raise ValueError(f"{entry} ranks 1 to {DETECT_MAX_CELLS} cells in shared memory, "
-                         f"got {n_cells}")
+    if n_cells < 1:
+        raise ValueError(f"{entry}: a {h0}x{w0} image holds no cell of {cell_size} pixels")
     _detect_level_checks(entry, levels, [(cell_size >> lvl, grid_rows, grid_cols)
                                          for lvl in range(L)])
     dev = levels[0].device
@@ -305,7 +292,6 @@ def detect_keypoints_scaled(pyramid: List[torch.Tensor], quotas: List[int], cell
     `fast.detect_scaled_cells_ref` return."""
     entry = "detect_keypoints_scaled"
     _whole(entry, cell_size, min_border)
-    _level_count(entry, len(pyramid))
     if len(quotas) != len(pyramid):
         raise ValueError(f"{entry}: {len(quotas)} quotas for {len(pyramid)} levels")
     n_slots = sum(max(int(q), 0) for q in quotas)
@@ -313,10 +299,6 @@ def detect_keypoints_scaled(pyramid: List[torch.Tensor], quotas: List[int], cell
         raise ValueError(f"{entry} needs at least one slot")
     grids = [(h // cell_size, w // cell_size) if q > 0 else (0, 0)
              for (h, w), q in zip((p.shape for p in pyramid), quotas)]
-    n_max = max(r * c for r, c in grids)
-    if n_max > DETECT_MAX_CELLS:
-        raise ValueError(f"{entry} ranks at most {DETECT_MAX_CELLS} cells of a level in "
-                         f"shared memory, got {n_max}")
     _detect_level_checks(entry, pyramid, [(int(cell_size), r, c) for r, c in grids])
     L = len(pyramid)
     dev = pyramid[0].device

@@ -45,7 +45,6 @@ from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.solvers.dense_icp import dense_icp
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
-from rgbdslam_tpu_torch.ops import fast, kernels
 from rgbdslam_tpu_torch.solvers.ransac_se3 import check_model, ransac_se3
 
 
@@ -104,36 +103,12 @@ def fused_estimate(ref: FrameFeatures, cur: FrameFeatures, cfg: SlamConfig,
 
 
 def check_system_config(cfg: SlamConfig, cam: Camera, device: torch.device) -> None:
-    """Refuse, when a system is built, what would fail on its first frame,
-    naming the limit broken: a reprojection error model (no SLAM caller
-    passes RANSAC a camera, as in the JAX package, which raises there) and,
-    on the card, a detection the kernels of csrc/detect.cu do not take: a
-    cell above kernels.DETECT_MAX_CELL pixels (kernel A's tile), more than
-    DETECT_MAX_LEVELS pyramid levels (its level table), more than
-    DETECT_MAX_CELLS cells on a level (what kernels B and C rank in shared
-    memory). Only the FAST / Shi-Tomasi detections (every variant but star,
-    sift and surf) go through those kernels; their wrappers check the same
-    limits again as guards."""
+    """Refuse, when a system is built, what would fail on its first frame:
+    a reprojection error model (no SLAM caller passes RANSAC a camera, as in
+    the JAX package, which raises there). Nothing else is refused, on either
+    device: the detection kernels of csrc/detect.cu take any cell size,
+    level count and grid that the plain version takes."""
     check_model(cfg.ransac)
-    if device.type != "cuda":
-        return
-    response, _, _, ecfg = Extractor(cam, cfg.extractor, detector=cfg.detector)._resolved()
-    if response != "fast_st":
-        return
-    cell = int(ecfg.cell_size)
-    if cell > kernels.DETECT_MAX_CELL:
-        raise ValueError(f"extractor.cell_size={cell}: kernel A's tiles hold cells of at "
-                         f"most {kernels.DETECT_MAX_CELL} pixels")
-    levels = (fast.used_levels(ecfg.num_levels, cell) if ecfg.scale_factor == 2.0
-              else ecfg.num_levels)
-    if levels > kernels.DETECT_MAX_LEVELS:
-        raise ValueError(f"{levels} pyramid levels: the detection kernels take at most "
-                         f"{kernels.DETECT_MAX_LEVELS}")
-    n_cells = (int(cam.height) // cell) * (int(cam.width) // cell)
-    if n_cells > kernels.DETECT_MAX_CELLS:
-        raise ValueError(f"{n_cells} cells of {cell} pixels on a {cam.width}x{cam.height} "
-                         f"level: the detection kernels rank at most "
-                         f"{kernels.DETECT_MAX_CELLS}")
 
 
 @functools.lru_cache()

@@ -388,8 +388,9 @@ def test_select_model_ranks_nan_and_ties_like_plain(n_feat):
 
 def test_detect_keypoints_dispatch_and_wrapper_checks():
     """CPU tensors take the plain version and launch nothing; the fused
-    wrapper takes CUDA tensors only and refuses what its kernels cannot take
-    before it looks at the device."""
+    wrapper takes CUDA tensors only and, before it looks at the device,
+    checks shapes alone: any cell size and any number of levels reach the
+    device check, an image that holds no cell does not."""
     img = torch.from_numpy(_image("integer", (64, 96), 3))
     pyr = timg.build_pyramid(img, 3)
     kw = dict(num_features=64, cell_size=8, fast_threshold=20.0, min_response=20.0,
@@ -402,19 +403,21 @@ def test_detect_keypoints_dispatch_and_wrapper_checks():
         kernels.detect_keypoints_fused(pyr, **kw)
     with pytest.raises(ValueError, match="whole"):
         kernels.detect_keypoints_fused(pyr, **{**kw, "cell_size": 7.5})
-    with pytest.raises(ValueError, match="at most 8"):
-        kernels.detect_keypoints_fused([img] * 9, **{**kw, "cell_size": 256})
-    with pytest.raises(ValueError, match="cells"):
+    # nine levels of cells of 256 down to 1 pixel: shapes only
+    big = torch.zeros((256, 512))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.detect_keypoints_fused(timg.build_pyramid(big, 9), **{**kw, "cell_size": 256})
+    with pytest.raises(ValueError, match="no cell"):
         kernels.detect_keypoints_fused(pyr, **{**kw, "cell_size": 128})
-    # any cell of 1 to 32 pixels passes the shape checks (kernel A's tiles
-    # are whole cells) and stops at the device check; 33 does not
-    for cell in (3, 5, 6, 10, 12, 24, 32):
+    # any cell passes the shape checks and stops at the device check: of 1
+    # to 32 pixels in tiles of whole cells, wider ones a block a cell over
+    # 32 x 16 sub-tiles
+    for cell in (3, 5, 6, 10, 12, 24, 32, 33, 40, 64):
         with pytest.raises(ValueError, match="CUDA"):
             kernels.detect_keypoints_fused(pyr, **{**kw, "cell_size": cell})
-    with pytest.raises(ValueError, match="cells of 1 to 32"):
-        kernels.detect_keypoints_fused(pyr, **{**kw, "cell_size": 33})
     assert kernels.whole_cell_tile(5) == (30, 15) and kernels.whole_cell_tile(24) == (24, 24)
     assert kernels.whole_cell_tile(16) == (32, 16) and kernels.whole_cell_tile(32) == (32, 32)
+    assert kernels.whole_cell_tile(33) == (32, 16) and kernels.whole_cell_tile(64) == (32, 16)
     assert kernels.LAUNCHES["detect_keypoints_fused"] == 0
     # levels whose cell has no pixel are not read (the plain version's break)
     assert tfast.used_levels(5, 8) == 4 and tfast.used_levels(3, 16) == 3

@@ -628,7 +628,7 @@ def test_detect_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
     kw = dict(num_features=512, cell_size=8, fast_threshold=15.0, min_response=20.0,
               min_border=16)
     ref = fast.detect_keypoints_ref(pyr, **kw)
-    wide = {c: fast.detect_keypoints_ref(pyr, **{**kw, "cell_size": c}) for c in (10, 32)}
+    wide = {c: fast.detect_keypoints_ref(pyr, **{**kw, "cell_size": c}) for c in (10, 32, 33)}
     for name in ("detect_keypoints_ref", "detect_cells_ref", "detect_select_ref"):
         monkeypatch.setattr(fast, name, forbid)
     monkeypatch.setattr(kernels, "detect_score_map_ref", forbid)
@@ -639,12 +639,10 @@ def test_detect_on_card_never_reaches_plain_version(dev, kernels, monkeypatch):
     dark = fast.detect_keypoints(image.build_pyramid(torch.zeros_like(img), 3), **kw)
     assert not bool(dark.valid.any()) and float(dark.uv.abs().sum()) == 0.0
     assert float(dark.score.abs().sum()) == 0.0 and int(dark.level.sum()) == 0
-    # any cell of 1 to 32 pixels runs, in tiles of whole cells (10: 30 x 10,
-    # 32: 32 x 32); a wider cell raises
+    # any cell runs: of 1 to 32 pixels in tiles of whole cells (10: 30 x 10,
+    # 32: 32 x 32), a wider one by a block a cell over its 32 x 16 sub-tiles
     for c, kp in wide.items():
         _same_keypoints(fast.detect_keypoints(pyr, **{**kw, "cell_size": c}), kp)
-    with pytest.raises(ValueError, match="cells of 1 to 32"):
-        fast.detect_keypoints(pyr, **{**kw, "cell_size": 33})
     with pytest.raises(ValueError):
         fast.detect_keypoints([pyr[0], pyr[1].cpu()], **kw)
     # more levels than cells have pixels: the plain version's break

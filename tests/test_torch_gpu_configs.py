@@ -1,6 +1,7 @@
 """The configurations that need the kernel modes added for them, on the card,
 against the plain versions: kernel A of csrc/detect.cu at any cell size
-(tiles of whole cells), K4 past the 3,000 points its shared memory holds and
+(tiles of whole cells, a block a cell past 32 pixels), any number of
+levels, kernels B and C past the cells their shared memory holds, K4 past the 3,000 points its shared memory holds and
 with nearest-neighbour reassociation, and the fused RANSAC at any sample
 size, under every error model, with the Mahalanobis polish and past the
 correspondences kernel B's shared memory holds. Every test here is marked
@@ -149,21 +150,111 @@ def test_scaled_detection_any_cell(dev, kernels, monkeypatch, cell, subpixel):
     assert int(ref.valid.sum()) > 100
 
 
-@pytest.mark.parametrize("cell", [7, 17, 31, 32])
+@pytest.mark.parametrize("cell", [7, 17, 31, 32, 33])
 def test_detection_odd_and_widest_cells(dev, kernels, cell):
     """Cells that fill one tile (17-32: 32 x 32 at most, two pixels a
-    thread) and a prime cell, on an integer image whose levels are no whole
-    number of tiles; 33 is refused before the device."""
+    thread), a prime cell and the narrowest cell a block walks in sub-tiles
+    (33: a 32 x 16 sub-tile and 1-pixel slivers), on an integer image whose
+    levels are no whole number of tiles."""
     from rgbdslam_tpu_torch.ops import fast, image
 
     g = torch.Generator(device=dev).manual_seed(cell)
     img = torch.randint(0, 256, (235, 301), generator=g, device=dev).to(torch.float32)
     pyr = image.build_pyramid(img, 3)
-    kw = dict(num_features=300, cell_size=cell, fast_threshold=20.0, min_response=20.0,
-              min_border=5)
-    _same(kernels.detect_keypoints_fused(pyr, **kw)[0], fast.detect_keypoints_ref(pyr, **kw))
-    with pytest.raises(ValueError, match="cells of 1 to 32"):
-        kernels.detect_keypoints_fused(pyr, **{**kw, "cell_size": 33})
+    for sub in (False, True):
+        kw = dict(num_features=300, cell_size=cell, fast_threshold=20.0, min_response=20.0,
+                  min_border=5, subpixel=sub)
+        _same(kernels.detect_keypoints_fused(pyr, **kw)[0],
+              fast.detect_keypoints_ref(pyr, **kw))
+
+
+WIDE = [33, 40, 64]
+
+
+@pytest.mark.parametrize("cell", WIDE)
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_half_sample_detection_wide_cells(dev, kernels, monkeypatch, cell, subpixel):
+    """Cells wider than a tile at 640x480: kernel A gives a block to each
+    cell of the upper levels (40 -> 40 on level 0, then 20, 10, 5 in tiles
+    of whole cells; 64 -> 64, 32, 16, 8), the cells, offsets and keypoints
+    equal to the plain version's exactly, two launches a detection."""
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    pyr = image.build_pyramid(_frame(dev), 4)
+    kw = dict(num_features=1024, cell_size=cell, fast_threshold=20.0, min_response=20.0,
+              min_border=16, subpixel=subpixel)
+    cells = fast.detect_cells_ref(pyr, cell, 20.0, 16, True, subpixel)
+    ref = fast.detect_keypoints_ref(pyr, **kw)
+    with forbid(monkeypatch):
+        kernels.reset_launch_counts()
+        kp, kcells = kernels.detect_keypoints_fused(pyr, 1024, cell, 20.0, 20.0, 16,
+                                                    subpixel=subpixel)
+        for a, b in zip(kcells, cells):
+            assert torch.equal(a, b)
+        _same(kp, ref)
+        _same(fast.detect_keypoints(pyr, **kw), ref)
+        assert kernels.LAUNCHES["detect_keypoints_fused"] == 2
+    n_cells = (480 // cell) * (640 // cell)
+    assert int(ref.valid.sum()) > n_cells // 2
+
+
+@pytest.mark.parametrize("cell,levels", [(33, 8), (40, 8), (64, 8), (16, 9), (16, 12),
+                                         (40, 12), (8, 40)])
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_scaled_detection_wide_cells_and_many_levels(dev, kernels, monkeypatch, cell, levels,
+                                                     subpixel):
+    """The x1.2 detection at cells wider than a tile (a block a cell on
+    every level), at 9 and 12 levels, at 12 levels of cells of 40 (whose
+    smallest levels hold one cell) and at 40 levels (two groups of kernel
+    A and C launches; the 16-pixel floor of the last levels), against the
+    plain versions, exactly."""
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    pyr = image.build_scaled_pyramid(_frame(dev, seed=40), levels, 1.2)
+    quotas = fast.level_quotas(1024, levels, 1.2, cell, [tuple(p.shape) for p in pyr])
+    args = (pyr, quotas, cell, 20.0, 20.0, 16, True, 20.0, subpixel)
+    pmax, parg, poff = fast.detect_scaled_cells_ref(pyr, quotas, cell, 20.0, 16, True,
+                                                    subpixel)
+    ref = fast.detect_keypoints_scaled_ref(*args)
+    with forbid(monkeypatch):
+        kp, (cmax, carg, coff) = kernels.detect_keypoints_scaled(*args)
+        assert torch.equal(cmax, pmax) and torch.equal(carg, parg)
+        assert (coff is None and poff is None) or torch.equal(coff, poff)
+        _same(kp, ref)
+    assert int(ref.valid.sum()) > 100
+    assert int(kp.level.max()) == max(lvl for lvl, q in enumerate(quotas) if q > 0)
+
+
+@pytest.mark.parametrize("h,w,cell", [(480, 640, 2), (240, 320, 1), (1080, 1920, 6),
+                                      (1080, 1920, 5)])
+def test_detection_past_shared_memory(dev, kernels, monkeypatch, h, w, cell):
+    """76,800 cells (cells of 2 at 640x480, of 1 at 320x240) and 82,944
+    (cells of 5 at 1920x1080): kernel B streams the gated scores through
+    chunks, kernel C (the x1.2 detection at the same cell) a level's maxima
+    where the level holds more than shared memory (58,112 cells); 57,600
+    (cells of 6 at 1920x1080) is the largest grid of these that a block
+    stages whole (230 KB). The ranking, ties included, equals the plain
+    stable sort's."""
+    from rgbdslam_tpu_torch.ops import fast, image
+
+    gray = _frame(dev, h, w, seed=20)
+    assert (h // cell) * (w // cell) > 46000
+    pyr = image.build_pyramid(gray, 3)
+    kw = dict(num_features=4096, cell_size=cell, fast_threshold=20.0, min_response=20.0,
+              min_border=16)
+    cells = fast.detect_cells_ref(pyr, cell, 20.0, 16)
+    ref = fast.detect_keypoints_ref(pyr, **kw)
+    x12 = image.build_scaled_pyramid(gray, 8, 1.2)
+    quotas = fast.level_quotas(4096, 8, 1.2, cell, [tuple(p.shape) for p in x12])
+    args = (x12, quotas, cell, 20.0, 20.0, 16, True, 20.0)
+    ref12 = fast.detect_keypoints_scaled_ref(*args)
+    with forbid(monkeypatch):
+        kp, kcells = kernels.detect_keypoints_fused(pyr, **kw)
+        for a, b in zip(kcells, cells):
+            assert torch.equal(a, b)
+        _same(kp, ref)
+        _same(kernels.detect_keypoints_scaled(*args)[0], ref12)
+    assert int(ref.valid.sum()) > 500 and int(ref12.valid.sum()) > 500
 
 
 # ---------------------------------------------------------------------------
@@ -456,18 +547,38 @@ def test_slam_system_tracks_new_configs(dev, kernels, monkeypatch, num_features,
     assert np.isfinite(poses).all() and len(poses) == len(frames)
 
 
-def test_construction_refuses_the_limits_that_stay(dev):
+def test_construction_refuses_the_limits_that_stay(dev, kernels, monkeypatch):
+    """No detection limit is left on the card: a cell of 40, 76,800 cells
+    (cells of 2 at 640x480) and 12 x1.2 levels build a Tracker, a SlamSystem
+    and a PipelinedOdometry for the card, and each tracks a few tour frames
+    through the kernels alone. What the JAX package refuses, a reprojection
+    error model without a camera, is still refused."""
     from rgbdslam_tpu_torch.config import ExtractorConfig, RansacConfig, SlamConfig
     from rgbdslam_tpu_torch.geometry.camera import SYNTHETIC
     from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
     from rgbdslam_tpu_torch.slam.system import SlamSystem
     from rgbdslam_tpu_torch.slam.tracking import Tracker
 
-    for ecfg, msg in ((ExtractorConfig(cell_size=40), "at most 32"),
-                      (ExtractorConfig(cell_size=2), "46000"),
-                      (ExtractorConfig(scale_factor=1.2, num_levels=9), "at most 8")):
-        for cls in (Tracker, SlamSystem, PipelinedOdometry):
-            with pytest.raises(ValueError, match=msg):
-                cls(SYNTHETIC, SlamConfig(extractor=ecfg), device=dev)
+    _, frames = _tour_frames(dev, 6)
+    for ecfg, detector in ((ExtractorConfig(cell_size=40), "svo_fast"),
+                           (ExtractorConfig(cell_size=40), "orb"),
+                           (ExtractorConfig(cell_size=2), "svo_fast"),
+                           (ExtractorConfig(scale_factor=1.2, num_levels=12), "orb")):
+        cfg = SlamConfig(extractor=ecfg, detector=detector)
+        wrapper = ("detect_keypoints_scaled" if ecfg.scale_factor != 2.0 or detector == "orb"
+                   else "detect_keypoints_fused")
+        for cls in (Tracker, SlamSystem):
+            system = cls(SYNTHETIC, cfg, device=dev)
+            with forbid(monkeypatch):
+                kernels.reset_launch_counts()
+                for f in frames:
+                    system.track(*f)
+            assert kernels.LAUNCHES[wrapper] >= len(frames), (cls, ecfg, kernels.LAUNCHES)
+            _, poses = system.camera_trajectory()
+            assert np.isfinite(poses).all() and len(poses) == len(frames)
+        odo = PipelinedOdometry(SYNTHETIC, cfg, batch=3, seed=0, device=dev)
+        with forbid(monkeypatch):
+            _, poses, _ = odo.run(frames)
+        assert np.isfinite(poses).all() and len(poses) == len(frames)
     with pytest.raises(ValueError, match="camera"):
         SlamSystem(SYNTHETIC, SlamConfig(ransac=RansacConfig(error_model="both")), device=dev)

@@ -318,45 +318,37 @@ def test_gicp_reassociation_recovers_from_bad_pairings():
 
 
 # ---------------------------------------------------------------------------
-# the limits that stay on the card, refused at construction
+# what the card's check accepts (every detection) and refuses (the camera
+# models), at construction
 # ---------------------------------------------------------------------------
 
 
 def test_check_card_config_refuses_the_limits_and_nothing_else():
-    """`check_system_config` for the card: a cell above 32 pixels, more
-    than 8 levels, more than 46,000 cells on a level: refused with the
-    limit named; every other cell size, and the detectors that do not use
-    the detection kernels, pass."""
+    """`check_system_config` for the card refuses only what the JAX package
+    refuses: every cell of 1 to 64 pixels (cells of 1 and 2: 307,200 and
+    76,800 cells a level at 640x480), 4 to 16 levels of the x1.2 scale space
+    and of the half-sample pyramid, every detector, pass; a reprojection
+    error model without a camera does not."""
     cam = SYNTHETIC                                         # 640 x 480
 
     def card_check(cfg, cam):
         check_system_config(cfg, cam, torch.device("cuda"))
 
-    for cell in range(1, 41):
+    for cell in range(1, 65):
         cfg = SlamConfig(extractor=ExtractorConfig(cell_size=cell))
-        n_cells = (480 // cell) * (640 // cell)
-        if cell > 32:
-            with pytest.raises(ValueError, match="at most 32"):
-                card_check(cfg, cam)
-        elif n_cells > 46000:
-            with pytest.raises(ValueError, match="46000"):
-                card_check(cfg, cam)
-        else:
-            card_check(cfg, cam)
-        # star's response goes through no detection kernel
+        card_check(cfg, cam)
+        card_check(dataclasses.replace(cfg, detector="orb"), cam)
         card_check(dataclasses.replace(cfg, detector="star"), cam)
-    # more than 8 levels: the x1.2 scale space (the half-sample pyramid stops
-    # at the level whose cell has no pixel, 5 levels for cells of 16)
-    for levels in (4, 8, 9, 12):
-        x12 = SlamConfig(extractor=ExtractorConfig(num_levels=levels, scale_factor=1.2))
-        if levels > 8:
-            with pytest.raises(ValueError, match="at most 8"):
-                card_check(x12, cam)
-        else:
-            card_check(x12, cam)
+    for levels in range(4, 17):
+        card_check(SlamConfig(extractor=ExtractorConfig(num_levels=levels, scale_factor=1.2)),
+                   cam)
         card_check(SlamConfig(extractor=ExtractorConfig(num_levels=levels)), cam)
-    # orb's default scale space: x1.2 with 8 levels
+        card_check(SlamConfig(detector="orb", extractor=ExtractorConfig(
+            num_levels=levels, scale_factor=1.2, cell_size=40)), cam)
     card_check(SlamConfig(detector="orb"), cam)
+    for model in ("reprojection", "both"):
+        with pytest.raises(ValueError, match="camera"):
+            card_check(SlamConfig(ransac=RansacConfig(error_model=model)), cam)
 
 
 def test_constructors_refuse_on_the_card_only_and_the_camera_models_everywhere():

@@ -270,8 +270,10 @@ def test_orb_build_keypoints_match_jax():
 
 def test_scaled_dispatch_and_wrapper_checks(scaled):
     """CPU tensors take the plain version and launch nothing; the x1.2
-    wrapper takes CUDA tensors only and refuses what its kernels cannot take
-    before it looks at the device, naming the limit."""
+    wrapper takes CUDA tensors only and, before it looks at the device,
+    checks shapes alone: any cell (33 too, walked in sub-tiles) and any
+    number of levels reach the device check; quotas that do not fit the
+    levels, or give no slot, are refused."""
     pyr, shapes, quotas = scaled
     kernels.reset_launch_counts()
     kw = dict(cell_size=CELL, fast_threshold=15.0, min_response=20.0, min_border=BORDER)
@@ -280,18 +282,17 @@ def test_scaled_dispatch_and_wrapper_checks(scaled):
     assert kernels.LAUNCHES["detect_score_map"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         kernels.detect_keypoints_scaled(pyr, quotas, **kw)
-    # any cell of 1 to 32 pixels passes the shape checks (tiles of whole
-    # cells) and stops at the device check; a wider one names the limit
+    for cell in (12, 33, 64):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.detect_keypoints_scaled(pyr, quotas, **{**kw, "cell_size": cell})
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.detect_keypoints_scaled(pyr, quotas, **{**kw, "cell_size": 12})
-    with pytest.raises(ValueError, match="cells of 1 to 32"):
-        kernels.detect_keypoints_scaled(pyr, quotas, **{**kw, "cell_size": 33})
-    with pytest.raises(ValueError, match="at most 8"):
         kernels.detect_keypoints_scaled(pyr + pyr[-1:], quotas + [1], **kw)
     with pytest.raises(ValueError, match="quotas"):
         kernels.detect_keypoints_scaled(pyr, quotas[:-1], **kw)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.detect_keypoints_fused(image.build_pyramid(pyr[0], 2), 64, 12, 15.0, 20.0, 8)
-    with pytest.raises(ValueError, match="cells of 1 to 32"):
-        kernels.detect_keypoints_fused(image.build_pyramid(pyr[0], 2), 64, 33, 15.0, 20.0, 8)
+    with pytest.raises(ValueError, match="slot"):
+        kernels.detect_keypoints_scaled(pyr, [0] * len(pyr), **kw)
+    for cell in (12, 33):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.detect_keypoints_fused(image.build_pyramid(pyr[0], 2), 64, cell, 15.0,
+                                           20.0, 8)
     assert kernels.LAUNCHES["detect_keypoints_scaled"] == 0

@@ -7,6 +7,7 @@ the CPU and print its accuracy record: ATE, keyframes, loops, failures.
   python tools/tour_reference_jax.py --loops 1.15 --detector orb --batch 8
   python tools/tour_reference_jax.py --loops 1.15 --detector orb --config cell6 --seeds 0
   python tools/tour_reference_jax.py --sweep --config euclidean --seeds 0 1 2 3 4
+  python tools/tour_reference_jax.py --sweep --slam --detector orb --config cell40 --seeds 0 1 2
   python tools/tour_reference_jax.py --merge
 
 The configuration is the one chip_smoke.py drives through the PyTorch port
@@ -18,11 +19,14 @@ With `--noise` every frame carries the Kinect-class sensor noise of seed s
 `apply_sensor_noise` on the CPU, the same noisy pixels chip_smoke.py feeds
 the port on the card. `--config` adds the CLI's accuracy flags, joined by
 `+` (noise-robust or dense = dense ICP; local-ba; global-ba; cell5, cell6 =
-that grid cell; euclidean, adaptive_euclidean = RANSAC's error model; mahal =
+that grid cell, also cell2 and cell40; levels12 = the x1.2 scale space with
+12 levels; euclidean, adaptive_euclidean = RANSAC's error model; mahal =
 the Mahalanobis polish of RANSAC's winner; reassociate = GICP's nearest-
 neighbour re-pairing). `--sweep` runs the 48-frame 640x480 sweep through
 `PipelinedOdometry` (batch 8, the RANSAC seed = the run's seed) instead of the
-tour through `SlamSystem`: chip_smoke.py's phase 4 and 11 runs. `--merge` runs
+tour through `SlamSystem`: chip_smoke.py's phase 4 and 11 runs; with `--slam`
+the sweep goes through `SlamSystem` frame by frame instead (the loop gates
+above, the shipped vocabulary): phase 11's detection configurations. `--merge` runs
 chip_smoke.py's phase 12: on the 112-frame tour, session A over frames 0-60,
 session B over frames 52-112 with its depth x1.05 and an equal-scale control
 B' over the same frames, each with the shipped vocabulary and seed 0, then
@@ -69,6 +73,8 @@ CONFIGS = {"base": {}, "noise-robust": {"use_dense_icp": True},
            "dense": {"use_dense_icp": True},
            "local-ba": {"use_local_ba": True}, "global-ba": {"use_global_ba": True},
            "cell5": {"extractor": {"cell_size": 5}}, "cell6": {"extractor": {"cell_size": 6}},
+           "cell2": {"extractor": {"cell_size": 2}}, "cell40": {"extractor": {"cell_size": 40}},
+           "levels12": {"extractor": {"scale_factor": 1.2, "num_levels": 12}},
            "euclidean": {"ransac": {"error_model": "euclidean"}},
            "adaptive_euclidean": {"ransac": {"error_model": "adaptive_euclidean"}},
            "mahal": {"ransac": {"mahalanobis_refine": True}},
@@ -85,19 +91,43 @@ def configured(cfg, names: str):
     return cfg
 
 
+def sweep_slam(cfg, frames, seed: int):
+    """The sweep through SlamSystem frame by frame: (timestamps, poses,
+    stats) as PipelinedOdometry.run returns them."""
+    system = SlamSystem(SYNTHETIC, cfg, seed=seed)
+    vocab = shipped_vocabulary(cfg.detector)
+    if vocab:
+        system.load_vocabulary(vocab)
+    for ts, gray, depth in frames:
+        system.track(ts, gray, depth)
+    system.finish()
+    ts, poses = system.camera_trajectory()
+    st = system.tracker.stats
+    return ts, poses, {"failures": st.failures, "mean_inliers": st.mean_inliers,
+                       "keyframes": int(system.store.count),
+                       "loops_closed": int(system.loops_closed)}
+
+
 def run_sweep(args, cfg) -> None:
-    """The 48-frame sweep through the JAX package's PipelinedOdometry, one
-    JSON line a seed."""
+    """The 48-frame sweep through the JAX package's PipelinedOdometry (with
+    `--slam` through SlamSystem), one JSON line a seed."""
     from rgbdslam_tpu.slam.pipeline import PipelinedOdometry
 
     ds = SyntheticDataset(n_frames=args.frames, cam=SYNTHETIC, trajectory="sweep")
     frames = [ds.grab(i) for i in range(args.frames)]
+    if args.slam:
+        cfg = dataclasses.replace(cfg, loop=LoopConfig(id_interval=12, min_kfs_since_loop=10))
     for seed in args.seeds:
-        ts, poses, stats = PipelinedOdometry(SYNTHETIC, cfg, batch=8, seed=seed).run(frames)
+        if args.slam:
+            ts, poses, stats = sweep_slam(cfg, frames, seed)
+        else:
+            ts, poses, stats = PipelinedOdometry(SYNTHETIC, cfg, batch=8, seed=seed).run(frames)
         rmse, _ = ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)
         print(json.dumps({
             "package": "rgbdslam_tpu (JAX, CPU)", "seed": seed, "trajectory": "sweep",
             "frames": args.frames, "config": args.config, "detector": args.detector,
+            "slam": args.slam, "keyframes": stats.get("keyframes"),
+            "loops_closed": stats.get("loops_closed"),
             "ate_rmse": round(float(rmse), 5), "failures": int(stats["failures"]),
             "mean_inliers": int(stats["mean_inliers"]),
             "finite": bool(np.isfinite(poses).all())}), flush=True)
@@ -339,6 +369,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="the 48-frame sweep through PipelinedOdometry (batch 8), "
                          "default SlamConfig")
+    ap.add_argument("--slam", action="store_true",
+                    help="with --sweep: through SlamSystem frame by frame")
     ap.add_argument("--merge", action="store_true",
                     help="two sessions of the 112-frame tour merged by Sim(3) "
                          "(session B's depth x1.05) and the equal-scale control")

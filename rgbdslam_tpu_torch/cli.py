@@ -110,7 +110,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="ground-truth TUM file for ATE/RPE (default: "
                         "<dataset>/groundtruth.txt, or the synthetic poses)")
     p.add_argument("--profile", action="store_true",
-                   help="print the per-stage timing report to stderr")
+                   help="record the program's spans and print their count, mean and "
+                        "total by name to stderr")
     p.add_argument("--width", type=int, default=None,
                    help="synthetic image width (default 640); the intrinsics scale with it")
     p.add_argument("--height", type=int, default=None, help="synthetic image height")
@@ -177,6 +178,22 @@ def _ground_truth(args, ds, n):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if not args.profile:
+        return _run(args)
+    from rgbdslam_tpu_torch.utils.profiling import SPANS
+
+    SPANS.new_session()
+    SPANS.forced = True
+    try:
+        return _run(args)
+    finally:
+        SPANS.forced = False
+        # the session open at the end: the system's, from its construction
+        # on, or (odometry only) the one opened here
+        print(SPANS.report(), file=sys.stderr)
+
+
+def _run(args) -> int:
     synthetic = args.dataset.startswith("synthetic")
     if not synthetic and (args.width or args.height):
         raise ValueError("--width/--height scale the synthetic camera only")
@@ -193,7 +210,7 @@ def main(argv=None) -> int:
     from rgbdslam_tpu_torch.geometry import se3
     from rgbdslam_tpu_torch.io import trajectory as traj_io
     from rgbdslam_tpu_torch.io.datasets import open_dataset
-    from rgbdslam_tpu_torch.utils.profiling import StageTimer
+    from rgbdslam_tpu_torch.utils.profiling import SPANS
 
     device = resolve_device(args.device)
     if args.distributed and not args.odometry_only and not args.pipelined:
@@ -230,7 +247,6 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     n = min(len(ds), args.frames)
     result = {"frames": int(n), "device": str(device)}
-    timer = StageTimer()
     frames = _frames(args, ds, n, result)
     system = None
     t0 = time.perf_counter()
@@ -239,8 +255,7 @@ def main(argv=None) -> int:
         from rgbdslam_tpu_torch.slam.pipeline import PipelinedOdometry
 
         odo = PipelinedOdometry(ds.cam, cfg, batch=args.pipelined, device=device)
-        with timer.stage("track"):
-            ts_c, poses_c, stats = odo.run(frames)
+        ts_c, poses_c, stats = odo.run(frames)
         result.update(frames=stats["frames"], pipelined=args.pipelined,
                       failures=stats["failures"], mean_inliers=stats["mean_inliers"])
     else:
@@ -300,33 +315,27 @@ def main(argv=None) -> int:
             for item in frames:
                 chunk.append(item)
                 if len(chunk) == args.batch:
-                    with timer.stage("track"):
-                        feed.track_batch(*zip(*chunk))
+                    feed.track_batch(*zip(*chunk))
                     retain(chunk)
                     chunk = []
             if chunk:
-                with timer.stage("track"):
-                    feed.track_batch(*zip(*chunk))
+                feed.track_batch(*zip(*chunk))
                 retain(chunk)
         elif args.ring:
             prev = None
             for item in frames:
-                with timer.stage("track"):
-                    feed.track_pipelined(*item)
+                feed.track_pipelined(*item)
                 retain([item] if prev is None else [prev, item])
                 prev = item
-            with timer.stage("track"):
-                feed.track_pipelined_flush()
+            feed.track_pipelined_flush()
             if prev is not None:
                 retain([prev])
         else:
             for item in frames:
-                with timer.stage("track"):
-                    feed.track(*item)
+                feed.track(*item)
                 retain([item])
         if system is not None:
-            with timer.stage("final_optimize"):
-                system.finish()
+            system.finish()
         ts_c, poses_c = tracker.camera_trajectory()
         ts_k, poses_k = tracker.keyframe_trajectory()
         traj_io.save_tum(os.path.join(args.out_dir, "KeyFrameTrajectory.txt"), ts_k, poses_k)
@@ -358,7 +367,7 @@ def main(argv=None) -> int:
         if args.save_map:
             from rgbdslam_tpu_torch.utils.serialization import save_map
 
-            with timer.stage("save_map"):
+            with SPANS.span("cli.save_map"):
                 save_map(os.path.join(args.out_dir, "map.npz"), system)
         if args.export_ply and K:
             from rgbdslam_tpu_torch.viz.export import save_ply
@@ -371,7 +380,7 @@ def main(argv=None) -> int:
                 ok = store.obs_valid[k]
                 pts.append(store.xyz[k][ok] @ Twc[:3, :3].T + Twc[:3, 3])
                 cols.append(store.intensity[k][ok])
-            with timer.stage("export_ply"):
+            with SPANS.span("cli.export_ply"):
                 save_ply(os.path.join(args.out_dir, "map_points.ply"),
                          np.concatenate(pts), np.concatenate(cols))
         if keeper is not None and keeper.images:
@@ -379,7 +388,7 @@ def main(argv=None) -> int:
             from rgbdslam_tpu_torch.viz.export import save_ply
             from rgbdslam_tpu_torch.viz.octomap_export import build_occupancy_from_keyframes
 
-            with timer.stage("octomap"):
+            with SPANS.span("cli.octomap"):
                 grid = build_occupancy_from_keyframes(ds.cam, keeper.images, store.poses_cw,
                                                       cfg.keyframe, device=device)
                 save_grid(os.path.join(args.out_dir, "octomap.npz"), grid)
@@ -394,7 +403,7 @@ def main(argv=None) -> int:
 
             pw, inten = system.landmarks.world_points()
             poses_twc = se3.inverse_np(store.poses_cw[:K]) if K else None
-            with timer.stage("export_html"):
+            with SPANS.span("cli.export_html"):
                 save_html_viewer(os.path.join(args.out_dir, "map_viewer.html"), pw, inten,
                                  poses_twc)
     if args.plot:
@@ -405,8 +414,6 @@ def main(argv=None) -> int:
             trajs.append(gt[1])
             labels.append("ground truth")
         plot_trajectories(os.path.join(args.out_dir, "trajectory.png"), trajs, labels)
-    if args.profile:
-        print(timer.report(), file=sys.stderr)
     print(json.dumps(result))
     return 0
 

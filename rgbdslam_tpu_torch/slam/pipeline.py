@@ -27,6 +27,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.slam.tracking import check_system_config
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+from rgbdslam_tpu_torch.utils.profiling import spanned
 
 
 def track_pair(cfg: SlamConfig, f_prev: FrameFeatures, f_cur: FrameFeatures,
@@ -70,6 +71,7 @@ class PipelinedOdometry:
         return track_pair(self.cfg, f_prev, f_cur, self.generator, draws)
 
     # ------------------------------------------------------------------
+    @spanned("tracker.pipeline")
     def run(self, frames: Iterable[Tuple[float, object, object]],
             f_ref: FrameFeatures | None = None
             ) -> Tuple[np.ndarray, np.ndarray, dict]:

@@ -46,6 +46,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.solvers.dense_icp import dense_icp
 from rgbdslam_tpu_torch.solvers.icp import gicp_refine
 from rgbdslam_tpu_torch.solvers.ransac_se3 import check_model, ransac_se3
+from rgbdslam_tpu_torch.utils.profiling import SPANS, spanned
 
 
 class TrackerState(enum.Enum):
@@ -156,10 +157,13 @@ def batch_body(ex: Extractor, cfg: SlamConfig, f_prev: FrameFeatures, D: torch.T
     ADAPTIVE x0.7 / x1.3 update of the threshold from this frame's keypoint
     count. Returns the next carry (f_cur, D, depth, thr) and the frame's
     (22,) f32 row [T21 (16) | success | rmse | inliers | kf | n_valid | thr]."""
-    f_cur = ex.build(gray, depth, thr)
-    est = fused_estimate(f_prev, f_cur, cfg, generator)
+    with SPANS.span("tracker.build"):
+        f_cur = ex.build(gray, depth, thr)
+    with SPANS.span("tracker.estimate"):
+        est = fused_estimate(f_prev, f_cur, cfg, generator)
     if cfg.use_dense_icp:
-        est = dense_polish(ex.cam, cfg, est, d_prev, depth)
+        with SPANS.span("tracker.polish"):
+            est = dense_polish(ex.cam, cfg, est, d_prev, depth)
     kf, D_out = keyframe_gate(est[:16].reshape(4, 4), est[16] > 0.5, D, cfg.keyframe)
     n_valid = torch.sum(f_cur.valid).to(torch.float32)
     thr_new = ex.adapt_on_device(thr, n_valid)
@@ -238,8 +242,10 @@ class Tracker:
         """Match + RANSAC + GICP against an arbitrary reference (the ref2
         retry path); returns the packed device row."""
         self.stats.estimates += 1
-        return fused_estimate(ref, cur, self.cfg, self.generator)
+        with SPANS.span("tracker.estimate"):
+            return fused_estimate(ref, cur, self.cfg, self.generator)
 
+    @spanned("tracker.enqueue")
     def _step(self, ref: FrameFeatures, gray: torch.Tensor, depth: torch.Tensor,
               threshold: float, d_prev: Optional[torch.Tensor] = None):
         """One frame's device work: feature build and the fused estimate
@@ -247,14 +253,18 @@ class Tracker:
         given (the ring). Returns (features, packed (20,)): the estimate's 19
         values and the count of detected keypoints (the ADAPTIVE feedback
         reads it from the same copy)."""
-        cur = self._extractor.build(gray, depth, threshold)
+        with SPANS.span("tracker.build"):
+            cur = self._extractor.build(gray, depth, threshold)
         self.stats.estimates += 1
-        packed = fused_estimate(ref, cur, self.cfg, self.generator)
+        with SPANS.span("tracker.estimate"):
+            packed = fused_estimate(ref, cur, self.cfg, self.generator)
         if d_prev is not None:
-            packed = dense_polish(self.cam, self.cfg, packed, d_prev, depth)
+            with SPANS.span("tracker.polish"):
+                packed = dense_polish(self.cam, self.cfg, packed, d_prev, depth)
         return cur, torch.cat([packed, torch.sum(cur.valid).to(torch.float32)[None]])
 
     # ------------------------------------------------------------------
+    @spanned("tracker.track")
     def track(self, timestamp: float, gray, depth) -> np.ndarray:
         """Process one frame; returns Tcw (Tracking::track,
         System/Tracking.cpp:39-75). gray, depth: (H, W) f32 tensors or host
@@ -266,7 +276,8 @@ class Tracker:
         if self.cfg.use_dense_icp:
             self._cur_depth = depth
         if self.state is TrackerState.NOT_INITIALIZED:
-            f = self._extractor(gray, depth)
+            with SPANS.span("tracker.build"):
+                f = self._extractor(gray, depth)
             Tcw = np.eye(4, dtype=np.float32)
             self._initialize(timestamp, f, Tcw)
         else:
@@ -322,7 +333,7 @@ class Tracker:
         refinement (System/Tracking.cpp:121-163). All device work of the
         frame is enqueued, then one copy brings back every scalar the host
         branches on."""
-        ex = self._extractor
+        ex, i = self._extractor, len(self.trajectory)
         for _attempt in range(5):
             # VideoDynamicAdaptedFeatureDetector's <= 5 within-frame
             # re-detections (VideoDynamicAdaptedFeatureDetector.cpp:24-44).
@@ -330,7 +341,8 @@ class Tracker:
             # the under-detection direction re-runs.
             thr = ex.threshold
             f, packed = self._step(self.ref_frame, gray, depth, thr)
-            pk = packed.cpu().numpy()          # the frame's one device read
+            with SPANS.span("tracker.read", i):
+                pk = packed.cpu().numpy()      # the frame's one device read
             n_valid = int(pk[19])
             ex.adapt(n_valid)
             if not (ex.adaptive and n_valid < ex.target_min
@@ -342,7 +354,10 @@ class Tracker:
 
         if not success and self.ref2_frame is not None:
             # anti-drift hover heuristic (System/Tracking.cpp:136-143)
-            pk = self._estimate(self.ref2_frame, f).cpu().numpy()
+            with SPANS.span("tracker.retry", i):
+                est = self._estimate(self.ref2_frame, f)
+                with SPANS.span("tracker.read", i):
+                    pk = est.cpu().numpy()
             ref_Tcw = self.ref2_Tcw
             used_ref2 = True
             T21_host, success, _rmse, n_inl = self._unpack(pk)
@@ -354,10 +369,12 @@ class Tracker:
             # extra read. Skipped after the ref2 retry: only the reference
             # frame's depth is kept, and refining T(ref2 -> cur) against it
             # would converge to T(ref -> cur) and compose it with ref2's pose.
-            T_d = dense_icp(self.cam, self.ref_depth, self._cur_depth,
-                            packed[:16].reshape(4, 4), levels=self.cfg.dense_icp_levels,
-                            max_correction=(0.1, 0.1))
-            T21_host = T_d.cpu().numpy()
+            with SPANS.span("tracker.polish"):
+                T_d = dense_icp(self.cam, self.ref_depth, self._cur_depth,
+                                packed[:16].reshape(4, 4), levels=self.cfg.dense_icp_levels,
+                                max_correction=(0.1, 0.1))
+            with SPANS.span("tracker.read", i):
+                T21_host = T_d.cpu().numpy()
         Tcw = self._finish_vo(f, T21_host, success, n_inl, ref_Tcw)
         self.ref_depth = self._cur_depth
         self._batch_carry = None        # the serial path moved the references
@@ -406,7 +423,8 @@ class Tracker:
         reference. Returns the frame's Tcw."""
         if self.state is not TrackerState.LOST or self.relocalize_fn is None:
             return Tcw
-        ok, Tcw_r = self.relocalize_fn(f)
+        with SPANS.span("tracker.relocalize", len(self.trajectory)):
+            ok, Tcw_r = self.relocalize_fn(f)
         if not ok:
             return Tcw
         Tcw = np.asarray(Tcw_r, dtype=np.float32)
@@ -439,6 +457,7 @@ class Tracker:
         return self.track_batch_complete(
             self.track_batch_dispatch(timestamps, grays, depths))
 
+    @spanned("tracker.dispatch")
     def track_batch_dispatch(self, timestamps, grays, depths) -> dict:
         """Enqueue the batch: the first frame's initialisation when needed
         (its keyframe through `on_keyframe_dispatch`), then `batch_body` for
@@ -457,15 +476,16 @@ class Tracker:
             if self.state is TrackerState.NOT_INITIALIZED:
                 g0 = upload(grays[0], dev).to(torch.float32)
                 d0 = upload(depths[0], dev).to(torch.float32)
-                if ex.adaptive:
-                    # the JAX package's first frame: the host extractor with
-                    # its within-frame re-detections (one read per
-                    # detection), the carry seeded with the threshold it
-                    # leaves
-                    f0 = ex(g0, d0)
-                    thr = torch.full((), ex.threshold, dtype=torch.float32, device=dev)
-                else:
-                    f0 = ex.build(g0, d0, thr)
+                with SPANS.span("tracker.build"):
+                    if ex.adaptive:
+                        # the JAX package's first frame: the host extractor
+                        # with its within-frame re-detections (one read per
+                        # detection), the carry seeded with the threshold it
+                        # leaves
+                        f0 = ex(g0, d0)
+                        thr = torch.full((), ex.threshold, dtype=torch.float32, device=dev)
+                    else:
+                        f0 = ex.build(g0, d0, thr)
                 Tcw0 = np.eye(4, dtype=np.float32)
                 h["init_kf"] = self._initialize(timestamps[0], f0, Tcw0, dispatch=True)
                 self.trajectory.append(TrackedFrame(timestamps[0], Tcw0, Tcw0.copy(), 0, 0))
@@ -500,6 +520,7 @@ class Tracker:
             h["read"] = torch.cat(parts) if len(parts) > 1 else parts[0]
         return h
 
+    @spanned("tracker.complete")
     def track_batch_complete(self, h: dict) -> np.ndarray:
         """One read of the batch's rows, then the host bookkeeping of each
         frame (pose compose, failures and relocalization, keyframes through
@@ -512,7 +533,10 @@ class Tracker:
         out = np.zeros((B, 4, 4), np.float32)
         if h["init_Tcw"] is not None:
             out[0] = h["init_Tcw"]
-        flat = h["read"].cpu().numpy() if h["read"] is not None else None
+        flat = None
+        if h["read"] is not None:
+            with SPANS.span("tracker.read", len(self.trajectory)):
+                flat = h["read"].cpu().numpy()
         if h["init_kf"] is not None:
             self.on_keyframe_complete(h["init_kf"], flat[n * 22:])
         if n == 0:
@@ -542,7 +566,8 @@ class Tracker:
                         and self.relocalize_fn is not None
                         and self.consecutive_failures >= self.cfg.lost_after):
                     self.state = TrackerState.LOST
-                    ok, Tcw_r = self.relocalize_fn(feats[i])
+                    with SPANS.span("tracker.relocalize", len(self.trajectory)):
+                        ok, Tcw_r = self.relocalize_fn(feats[i])
                     if ok:
                         Tcw = np.asarray(Tcw_r, dtype=np.float32)
                         self.state = TrackerState.OK
@@ -569,7 +594,8 @@ class Tracker:
             # back to serial tracking
             self._extractor.threshold = float(pk[-1, 21])
         if pending:
-            blobs = torch.stack([hk["blob"] for hk in pending]).cpu().numpy()
+            with SPANS.span("backend.read"):
+                blobs = torch.stack([hk["blob"] for hk in pending]).cpu().numpy()
             for hk, blob in zip(pending, blobs):
                 self.on_keyframe_complete(hk, blob)
         return out
@@ -582,6 +608,7 @@ class Tracker:
     # one frame late (its blob rides the next frame's read), and the ADAPTIVE
     # feedback lands one frame late (no within-frame re-detection).
     # ------------------------------------------------------------------
+    @spanned("tracker.ring")
     def track_pipelined(self, timestamp: float, gray, depth):
         """Feed frame i into the ring; completes frame i-1 and returns its
         (ts, Tcw), or None when nothing completed yet. Call
@@ -607,15 +634,19 @@ class Tracker:
                       "gen_state": gen_state}
         return out
 
+    @spanned("tracker.flush")
     def track_pipelined_flush(self):
         """Drain the ring: complete the pending frame and the keyframe it
         dispatched. Returns the frame's (ts, Tcw), or None."""
         out = self._pipe_complete()
         h, self._pipe_kf_pending = self._pipe_kf_pending, None
         if h is not None:
-            self.on_keyframe_complete(h, h["blob"].cpu().numpy())
+            with SPANS.span("backend.read"):
+                blob = h["blob"].cpu().numpy()
+            self.on_keyframe_complete(h, blob)
         return out
 
+    @spanned("tracker.complete")
     def _pipe_complete(self):
         """Complete the frame in the ring: one read brings its 20 floats and
         the blob of the keyframe the previous completion dispatched; then the
@@ -623,7 +654,9 @@ class Tracker:
         p, self._pipe = self._pipe, None
         if p is None:
             return None
-        pk_all = p["read"].cpu().numpy()
+        i = len(self.trajectory)
+        with SPANS.span("tracker.read", i):
+            pk_all = p["read"].cpu().numpy()
         if p["kf_h"] is not None:
             # the previous keyframe's backend, before this frame's pose is
             # composed, as in the serial order
@@ -639,8 +672,11 @@ class Tracker:
                 self._retry_generator = torch.Generator(device=self.device)
             self._retry_generator.set_state(p["gen_state"])
             self.stats.estimates += 1
-            pk2 = fused_estimate(self.ref2_frame, f, self.cfg,
-                                 self._retry_generator).cpu().numpy()
+            with SPANS.span("tracker.retry", i):
+                with SPANS.span("tracker.estimate"):
+                    est = fused_estimate(self.ref2_frame, f, self.cfg, self._retry_generator)
+                with SPANS.span("tracker.read", i):
+                    pk2 = est.cpu().numpy()
             T21_host, success, _rmse, n_inl = self._unpack(pk2)
             ref_Tcw = self.ref2_Tcw
 

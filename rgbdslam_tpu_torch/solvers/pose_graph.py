@@ -36,6 +36,7 @@ import torch
 from rgbdslam_tpu_torch.device import resolve_device, upload
 from rgbdslam_tpu_torch.geometry import se3, sim3
 from rgbdslam_tpu_torch.mesh import Mesh
+from rgbdslam_tpu_torch.utils.profiling import SPANS
 
 
 class PoseGraphEdges(NamedTuple):
@@ -179,15 +180,18 @@ def _dense_lm(X, shards, fixed, mesh: Mesh, iterations: int, huber_delta: float,
     fixed = fixed.to(mesh.home)
     X_cur, lam, cost = _lm_state(X.to(mesh.home), lm_lambda0)
     for _ in range(iterations):
-        Hm, gv, cost_it = mesh.psum([_normal_equations(x, ed, huber_delta, K, D, blocks)
-                                     for x, ed in zip(mesh.replicate(X_cur), shards)])
-        xi = _damped_step(Hm, gv, lam, fixed, D)
+        with SPANS.span("lm.linearize"):
+            Hm, gv, cost_it = mesh.psum([_normal_equations(x, ed, huber_delta, K, D, blocks)
+                                         for x, ed in zip(mesh.replicate(X_cur), shards)])
+        with SPANS.span("lm.solve"):
+            xi = _damped_step(Hm, gv, lam, fixed, D)
         X_cand = exp(xi) @ X_cur
         if not adaptive:
             X_cur, cost = X_cand, cost_it
             continue
-        cost_new = mesh.psum([cost_of(x, ed, huber_delta)
-                              for x, ed in zip(mesh.replicate(X_cand), shards)])
+        with SPANS.span("lm.cost"):
+            cost_new = mesh.psum([cost_of(x, ed, huber_delta)
+                                  for x, ed in zip(mesh.replicate(X_cand), shards)])
         X_cur, lam, cost = _lm_update(cost_new < cost_it, lam, cost_it, cost_new,
                                       X_cur, X_cand)
     return X_cur, cost
@@ -449,6 +453,7 @@ class PoseGraph:
         else:
             Twc_opt, _cost = optimize_pose_graph(
                 Twc, edges, fixed, iterations, self.huber_delta, self.lm_lambda0)
-        out = Twc_opt.cpu().numpy()
+        with SPANS.span("lm.read"):
+            out = Twc_opt.cpu().numpy()
         self.Twc[:K] = out
         return out

@@ -21,7 +21,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 import rgbdslam_tpu  # noqa: F401  (pins JAX f32 matmuls)
 from rgbdslam_tpu.config import ExtractorConfig as JExtractorConfig
@@ -41,6 +40,7 @@ from rgbdslam_tpu_torch.slam import system as system_mod
 from rgbdslam_tpu_torch.slam import tracking
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.slam.tracking import TrackerState
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 # tests/test_system.py's extractor at 512 features (time), every accuracy
@@ -53,16 +53,6 @@ JCFG = JSlamConfig(extractor=JExtractorConfig(num_features=512, num_levels=3, ce
                    global_ba_iterations=4)
 TCFG = convert.config_from_jax(JCFG)
 N_FRAMES, B = 12, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,20 +26,11 @@ from rgbdslam_tpu_torch import convert
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
 from rgbdslam_tpu_torch.solvers import ba as tba
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TCAM = Camera(fx=JCAM.fx, fy=JCAM.fy, cx=JCAM.cx, cy=JCAM.cy, width=JCAM.width,
               height=JCAM.height)
 K = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _edges(Tcw_gt, weight=100.0):

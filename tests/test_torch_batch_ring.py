@@ -34,6 +34,7 @@ from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
 from rgbdslam_tpu_torch.ops import fast, image, kernels
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.slam.tracking import Tracker, TrackerState, keyframe_gate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 # tests/test_torch_system.py's configuration (the loop gates shrunk for a
@@ -49,16 +50,6 @@ JACFG = JSlamConfig(extractor=JExtractorConfig(num_features=128, num_levels=2, c
                                                adapt_target_max=120),
                     adaptive=True)
 N_FRAMES, B = 48, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -17,20 +17,10 @@ tests/test_torch_gpu_behaviour.py drives on the card.
 
 import numpy as np
 import pytest
-import torch
 
 import port_behaviour as pb
 from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads a process keep
-    them out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_pose_graph_grows_past_budgets():

@@ -33,18 +33,10 @@ from rgbdslam_tpu_torch.mapping import cloud as tcloud
 from rgbdslam_tpu_torch.mapping import occupancy as tocc
 from rgbdslam_tpu_torch.viz import export as texport
 from rgbdslam_tpu_torch.viz import octomap_export as toct
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 MAX_POINTS = 2048      # 320x240 at stride 6 gives at most 2,160 points
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several test workers run at once: two intra-op threads per process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -35,17 +35,9 @@ from rgbdslam_tpu_torch.geometry import camera as tcamera
 from rgbdslam_tpu_torch.io import datasets as tdatasets
 from rgbdslam_tpu_torch.io import png
 from rgbdslam_tpu_torch.io.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several test workers run at once: two intra-op threads per process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _smooth_image(rng, h=48, w=64, scale=1.0):

@@ -30,21 +30,12 @@ from rgbdslam_tpu_torch.geometry.camera import Camera, depth_to_points
 from rgbdslam_tpu_torch.io.synthetic import (SyntheticDataset, apply_sensor_noise,
                                              kinect_noise_fields)
 from rgbdslam_tpu_torch.solvers import dense_icp as tdense
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # tests/test_dense_icp.py's camera
 CAM_ARGS = dict(fx=160.0, fy=160.0, cx=127.5, cy=95.5, width=256, height=192)
 JCAM, TCAM = JCamera(**CAM_ARGS), Camera(**CAM_ARGS)
 PERTURB = np.r_[0.02, -0.02, 0.02, 0.01, -0.01, 0.01].astype(np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -32,19 +32,9 @@ from rgbdslam_tpu.ops import image as jimg
 from rgbdslam_tpu_torch.ops import fast as tfast
 from rgbdslam_tpu_torch.ops import image as timg
 from rgbdslam_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NEG_INF = float("-inf")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs several workers at once; a torch process that takes
-    every core for its intra-op threads then spends its time waiting for
-    them. Two threads per process keep the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _first_max_scan(x):

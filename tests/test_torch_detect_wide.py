@@ -35,19 +35,10 @@ from rgbdslam_tpu.ops import image as jimg
 from rgbdslam_tpu_torch.ops import fast as tfast
 from rgbdslam_tpu_torch.ops import image as timg
 from rgbdslam_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NEG_INF = float("-inf")
 BIG = 2 ** 31 - 1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads a process keep
-    them out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _image(kind, shape, seed):

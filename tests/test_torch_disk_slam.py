@@ -42,18 +42,10 @@ from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
 from rgbdslam_tpu_torch.slam import system as tsystem
 from rgbdslam_tpu_torch.slam.tracking import Tracker
 from rgbdslam_tpu_torch.utils import serialization as tser
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 N_DISK = 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several test workers run at once: two intra-op threads per process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -126,8 +118,9 @@ def test_cli_on_disk_equals_memory(sequence, tmp_path, monkeypatch, capsys):
         sequence, out, "--save-map", "--export-ply", "--export-octomap", "--export-html",
         "--plot", "--profile"))
     assert res["frames"] == N_DISK and res["loader"] == "cv2"
-    for stage in ("track", "octomap", "save_map", "export_ply", "export_html"):
-        assert stage in err, stage
+    for span in ("tracker.track", "backend.complete", "loop.finish", "cli.octomap",
+                 "cli.save_map", "cli.export_ply", "cli.export_html"):
+        assert span in err, span
 
     # the same frames in memory, the same configuration and vocabulary
     sys_m = tsystem.SlamSystem(Camera(**CAM_ARGS), _cli_cfg(), device="cpu")
@@ -301,21 +294,28 @@ def test_batched_adaptive_first_frame_equals_jax():
     assert np.asarray(kj.valid).sum() >= 60
 
 
-def test_stage_timer_and_device_trace(tmp_path):
-    """utils/profiling.py: stage means and the report, and a torch.profiler
-    trace written where asked (nothing without a directory)."""
-    from rgbdslam_tpu_torch.utils.profiling import StageTimer, device_trace
+def test_profile_report_counts_spans_by_name(monkeypatch):
+    """utils/profiling.py: the `--profile` report (count, mean and total by
+    name, the largest total first) of the spans recorded while the recorder
+    is forced on, parents and indices kept; nothing recorded off."""
+    from rgbdslam_tpu_torch.utils.profiling import SPANS, spanned
 
-    timer = StageTimer(sync=True)
-    for _ in range(3):
-        with timer.stage("a", sync_result=torch.ones(2)):
-            pass
-    with timer.stage("b"):
-        torch.ones(4).sum()
-    assert timer.count["a"] == 3 and timer.count["b"] == 1
-    assert timer.mean_ms("a") >= 0 and timer.report().splitlines()[0].split()[0] in "ab"
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    with device_trace(None):
-        pass
+    @spanned("test.outer")
+    def outer():
+        for _ in range(3):
+            with SPANS.span("test.inner", 7):
+                torch.ones(4).sum()
+
+    spans = SPANS.new_session()
+    outer()
+    assert spans == []
+    monkeypatch.setattr(SPANS, "forced", True)
+    outer()
+    top = [s for s in spans if s.name == "test.outer"]
+    inner = [s for s in spans if s.name == "test.inner"]
+    assert len(top) == 1 and len(inner) == 3 and top[0].parent == -1
+    assert all(s.parent == top[0].id and s.index == 7 for s in inner)
+    assert all(top[0].start_ns <= s.start_ns <= s.end_ns <= top[0].end_ns for s in inner)
+    lines = SPANS.report().splitlines()
+    assert [ln.split()[0] for ln in lines] == ["test.outer", "test.inner"]
+    assert "x     1" in lines[0] and "x     3" in lines[1]

@@ -14,7 +14,6 @@ same frames exactly: one device makes them the same computation.
 import json
 
 import numpy as np
-import pytest
 import torch
 
 from rgbdslam_tpu_torch import cli
@@ -23,6 +22,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
 from rgbdslam_tpu_torch.slam import system as system_mod
 from rgbdslam_tpu_torch.slam.system import SlamSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 
@@ -34,14 +34,6 @@ def _cfg(distributed: bool) -> SlamConfig:
                                   fast_threshold=15.0),
         loop=LoopConfig(id_interval=12, min_kfs_since_loop=10, vocab_size=256),
         distributed=distributed)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(cfg, n=8):

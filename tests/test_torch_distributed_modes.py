@@ -7,8 +7,6 @@ the scale), held to the JAX tests' bounds.
 """
 
 import numpy as np
-import pytest
-import torch
 from test_torch_distributed_system import CAM, SHARDS, run_slam, slam_cfg
 
 from rgbdslam_tpu_torch.device import virtual_devices
@@ -16,14 +14,7 @@ from rgbdslam_tpu_torch.eval.ate import ate_rmse
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
 from rgbdslam_tpu_torch.parallel import dist_ba
 from rgbdslam_tpu_torch.slam.system import SlamSystem
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_distributed_composes_with_batched_tracking():

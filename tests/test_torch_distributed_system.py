@@ -18,8 +18,6 @@ pixels.
 """
 
 import numpy as np
-import pytest
-import torch
 
 from rgbdslam_tpu_torch.config import ExtractorConfig, LoopConfig, SlamConfig
 from rgbdslam_tpu_torch.device import virtual_devices
@@ -28,17 +26,10 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
 from rgbdslam_tpu_torch.parallel import Mesh
 from rgbdslam_tpu_torch.slam.system import SlamSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(100.0, 100.0, 79.5, 59.5, width=160, height=120)
 SHARDS = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def slam_cfg(distributed: bool, global_ba: bool = False) -> SlamConfig:

@@ -29,19 +29,10 @@ from rgbdslam_tpu_torch.config import ExtractorConfig, SlamConfig
 from rgbdslam_tpu_torch.frontend.extractor import Extractor
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.ops import fast, image, kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 EX = dict(num_features=512, cell_size=8, fast_threshold=15.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads per process keep the suite's workers out of each
-    other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

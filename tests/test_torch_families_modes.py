@@ -18,6 +18,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset, tour_trajectory
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.slam.tracking import Tracker, keyframe_gate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(fx=100.0, fy=100.0, cx=79.5, cy=59.5, width=160, height=120)
 # 64 RANSAC hypotheses (256 by default): most of a run's CPU time at this size
@@ -25,16 +26,6 @@ CFG = SlamConfig(extractor=ExtractorConfig(num_features=256, cell_size=8, fast_t
                  loop=LoopConfig(id_interval=12, min_kfs_since_loop=10, vocab_size=64),
                  ransac=RansacConfig(num_hypotheses=64))
 N_FRAMES, B = 8, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads per process keep the suite's workers out of each
-    other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.utils import serialization as tser
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 EX = dict(num_features=512, cell_size=8, fast_threshold=15.0)
@@ -42,16 +43,6 @@ FAMILIES = ["sift"]
 def _jcfg(detector):
     return JSlamConfig(extractor=JExtractorConfig(**EX), detector=detector,
                        loop=JLoopConfig(id_interval=12, min_kfs_since_loop=10, vocab_size=256))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads per process keep the suite's workers out of each
-    other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

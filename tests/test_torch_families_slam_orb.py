@@ -13,9 +13,10 @@ import pytest
 from rgbdslam_tpu.ops import fast as jfast
 
 import test_torch_families_slam as base
-from test_torch_families_slam import (_two_torch_threads, frames,  # noqa: F401
+from test_torch_families_slam import (frames,  # noqa: F401
                                       test_family_last_frame_features_match_jax,
                                       test_family_slam_matches_jax)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

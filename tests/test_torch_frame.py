@@ -19,20 +19,10 @@ from rgbdslam_tpu_torch.convert import frame_features_from_numpy, frame_features
 from rgbdslam_tpu_torch.frontend.frame import build_frame_features as t_build
 from rgbdslam_tpu_torch.geometry.camera import Camera as TCamera
 from rgbdslam_tpu_torch.io import synthetic as tsyn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 EX = dict(num_features=1024, num_levels=3, cell_size=8, fast_threshold=15.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs several workers at once; a torch process that takes
-    every core for its intra-op threads then spends its time waiting for
-    them. Two threads per process keep the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

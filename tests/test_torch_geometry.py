@@ -26,6 +26,7 @@ from rgbdslam_tpu_torch import convert
 from rgbdslam_tpu_torch.geometry import camera as tcam
 from rgbdslam_tpu_torch.geometry import se3 as tse3
 from rgbdslam_tpu_torch.ops import image as timg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

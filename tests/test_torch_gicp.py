@@ -38,19 +38,9 @@ from rgbdslam_tpu_torch.config import IcpConfig
 from rgbdslam_tpu_torch.geometry import camera as tcam
 from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.solvers import icp as ticp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jicp = importlib.import_module("rgbdslam_tpu.solvers.icp")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs several workers at once; a torch process that takes
-    every core for its intra-op threads then spends its time waiting for
-    them. Two threads per process keep the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _problem(seed, N=256, noise=0.004):

@@ -53,16 +53,7 @@ from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.slam.tracking import Tracker, check_system_config
 from rgbdslam_tpu_torch.solvers import icp
 from rgbdslam_tpu_torch.solvers import ransac_se3 as rs
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads per process keep the suite's workers out of each
-    other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(*arrays):

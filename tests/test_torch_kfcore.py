@@ -39,6 +39,7 @@ from rgbdslam_tpu_torch.slam import system as tsystem
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from rgbdslam_tpu_torch.slam.tracking import Tracker
 from rgbdslam_tpu_torch.solvers.ransac_se3 import ransac_se3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 EX = dict(num_features=1024, num_levels=3, cell_size=8, fast_threshold=15.0)
@@ -48,17 +49,6 @@ JCFG = JSlamConfig(extractor=JExtractorConfig(**EX),
                    loop=JLoopConfig(id_interval=12, min_kfs_since_loop=10, vocab_size=256))
 TCFG = convert.config_from_jax(JCFG)
 N_FRAMES = 100
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs several workers at once; a torch process that takes
-    every core for its intra-op threads then spends its time waiting for
-    them. Two threads per process keep the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

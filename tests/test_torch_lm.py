@@ -22,6 +22,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.solvers.ba import BAProblem, _ba_cost, local_ba
 from rgbdslam_tpu_torch.solvers.pose_graph import (PoseGraph, PoseGraphEdges, graph_cost,
                                                    optimize_pose_graph)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(fx=200.0, fy=200.0, cx=80.0, cy=60.0, width=160, height=120)
 T = torch.from_numpy

@@ -28,6 +28,7 @@ from rgbdslam_tpu_torch.loop import codebook as tcodebook
 from rgbdslam_tpu_torch.loop import vocabulary as tvoc
 from rgbdslam_tpu_torch.loop.detector import LoopDetector
 from rgbdslam_tpu_torch.ops import hamming as thamming
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _clustered_descriptors(rng, n, centers=24, flip=0.06):

@@ -7,19 +7,9 @@ no JAX. The card's counterpart is tests/test_torch_gpu_behaviour.py.
 """
 
 import pytest
-import torch
 
 import port_behaviour as pb
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads a process keep
-    them out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("detector,vocname", [

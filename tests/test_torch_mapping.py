@@ -22,6 +22,7 @@ from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.mapping import covisibility as tcovis
 from rgbdslam_tpu_torch.mapping.keyframes import KeyframeStore
 from rgbdslam_tpu_torch.mapping.landmarks import LandmarkStore
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM_ARGS = dict(fx=200.0, fy=200.0, cx=159.5, cy=119.5, width=320, height=240)
 N = 96

@@ -12,6 +12,7 @@ from rgbdslam_tpu.ops.pallas_kernels import hamming_match_2nn as j_match_kernel
 from rgbdslam_tpu_torch.ops import hamming as tham
 from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.frontend import matcher as tmatch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _descs(rng, n, m, p_valid=0.9):

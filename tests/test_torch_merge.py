@@ -31,6 +31,7 @@ from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
 from rgbdslam_tpu_torch.mapping import merge as tmerge
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(130.0, 130.0, 79.5, 59.5, width=160, height=120)
 CFG = SlamConfig(
@@ -42,16 +43,6 @@ CFG = SlamConfig(
 N = 112
 ALPHA = 1.05   # session B's depth miscalibration
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,6 @@ package is tests/test_torch_merge.py.
 
 import numpy as np
 import pytest
-import torch
 
 from rgbdslam_tpu_torch.eval.ate import ate_rmse
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
@@ -18,16 +17,7 @@ from rgbdslam_tpu_torch.loop.vocabulary import shipped_vocabulary
 from rgbdslam_tpu_torch.mapping import merge as tmerge
 from rgbdslam_tpu_torch.slam.system import SlamSystem
 from test_torch_merge import ALPHA, CAM, CFG, N
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

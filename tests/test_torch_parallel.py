@@ -31,17 +31,10 @@ from rgbdslam_tpu_torch.parallel import Mesh, make_mesh, shard_edges
 from rgbdslam_tpu_torch.parallel import dist_ba as tdist
 from rgbdslam_tpu_torch.solvers import ba as tba
 from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TCAM = Camera(fx=JCAM.fx, fy=JCAM.fy, cx=JCAM.cx, cy=JCAM.cy, width=JCAM.width,
               height=JCAM.height)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t_edges(edges):

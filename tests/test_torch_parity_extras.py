@@ -30,6 +30,7 @@ from rgbdslam_tpu_torch.frontend.matcher import match_frames, projection_match
 from rgbdslam_tpu_torch.geometry import camera as tcam
 from rgbdslam_tpu_torch.geometry import se3 as tse3
 from rgbdslam_tpu_torch.io.synthetic import SyntheticDataset
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = tcam.Camera(160.0, 160.0, 127.5, 95.5, width=256, height=192)
 JCAM = jcam.Camera(160.0, 160.0, 127.5, 95.5, width=256, height=192)

@@ -29,20 +29,11 @@ from rgbdslam_tpu.solvers import pnp as jpnp
 from rgbdslam_tpu_torch.geometry import se3
 from rgbdslam_tpu_torch.geometry.camera import Camera
 from rgbdslam_tpu_torch.solvers import pnp as tpnp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAM = Camera(525.0, 525.0, 319.5, 239.5)
 JCAM = JCamera(525.0, 525.0, 319.5, 239.5)
 T = torch.from_numpy
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pnp_scene(rng, n=100, noise_px=0.0):

@@ -13,16 +13,7 @@ from scipy.spatial.transform import Rotation as ScipyRot
 from rgbdslam_tpu_torch.solvers import pnp as tpnp
 from test_torch_pnp import (CAM, T, _exp, _gen, _normalized, _outlier_scene, make_pnp_scene,
                             pose_err)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several workers run at once: two intra-op threads per process keep
-    them out of each other's way (as in tests/test_torch_system.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_motion_only_ba_converges():

@@ -21,6 +21,7 @@ from rgbdslam_tpu_torch import convert
 from rgbdslam_tpu_torch.geometry import se3 as tse3
 from rgbdslam_tpu_torch.solvers import cg as tcg
 from rgbdslam_tpu_torch.solvers import pose_graph as tpg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _exp(xi):

@@ -24,6 +24,7 @@ from rgbdslam_tpu_torch.config import RansacConfig
 from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.solvers import kabsch as tkabsch
 from rgbdslam_tpu_torch.solvers import ransac_se3 as transac
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the JAX solvers package re-exports the function under the module's name
 jransac = importlib.import_module("rgbdslam_tpu.solvers.ransac_se3")

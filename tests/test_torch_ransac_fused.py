@@ -41,6 +41,7 @@ from rgbdslam_tpu_torch.frontend import matcher as tmatch
 from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.solvers import ransac_se3 as transac
 from rgbdslam_tpu_torch.solvers.kabsch import weighted_rigid_transform
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jransac = importlib.import_module("rgbdslam_tpu.solvers.ransac_se3")
 

@@ -43,21 +43,12 @@ from rgbdslam_tpu.ops import fast as jfast
 from rgbdslam_tpu_torch.config import ExtractorConfig
 from rgbdslam_tpu_torch.frontend import frame as tframe
 from rgbdslam_tpu_torch.ops import fast, image, kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CELL = 8
 BORDER = 16          # max(min_border, brief_patch_size // 2 + 1) of the ORB build
 N_SLOTS = 1024       # at 160x120 level 0's quota (436) exceeds its 300 cells, and
                      # levels 3-7 rank every cell, the -inf ones by index
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads per process keep the suite's workers out of each
-    other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

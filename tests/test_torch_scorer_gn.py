@@ -28,18 +28,10 @@ from rgbdslam_tpu.ops.pallas_kernels import mahal_hypothesis_scores as j_mahal
 from rgbdslam_tpu_torch.config import RansacConfig
 from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.solvers.ransac_se3 import _sigma_diag, mahalanobis_sq_planes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TH = 9.0
 H100_SMS = 132
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Several test workers run at once: two intra-op threads each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(*arrays):

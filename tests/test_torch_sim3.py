@@ -24,6 +24,7 @@ from rgbdslam_tpu_torch.geometry import se3 as tse3
 from rgbdslam_tpu_torch.geometry import sim3 as tsim3
 from rgbdslam_tpu_torch.solvers import kabsch as tkabsch
 from rgbdslam_tpu_torch.solvers import pose_graph as tpg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

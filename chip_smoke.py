@@ -157,6 +157,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                processes sharing the card over gloo and 1 over NCCL, and
                mp_slam's 2 processes on the tour (the peer's mirror
                complete, every solve joined, within 5 cm of one process).
+ 14. pose_graph — the loop solve's two kernels (csrc/pose_graph.cu)
+               against the plain jacfwd path on the card, on perturbed chains
+               of K 90 / E 120 and K 119 / E 160 and on phase 6's final tour
+               graphs with their poses perturbed: the normal equations (H, g,
+               the cost against float64 and f32, the same bits twice, the
+               damping), the trial step (poses, cost, lambda, the accept),
+               the 20-iteration solve against the plain one (solve gap under
+               1e-2 of the correction); kernel, plain and bound ms and device
+               us a launch in the kernels line.
 Phase 3 holds every kernel against its plain version: the dense K1, the
 whole detection (kernel A against the plain best-per-cell step, kernel B
 against the plain merge and selection on kernel A's outputs, the whole
@@ -1412,13 +1421,14 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
     def by_kind(syncs):
         return json.dumps({k: [sorted(v["syncs"]), v["calls"]] for k, v in syncs.items()})
 
-    tally = {"frames": 0, "E": 0, "KF": 0, "R": 0}
+    tally = {"frames": 0, "E": 0, "KF": 0, "R": 0, "LM": 0}
 
     def tallied(system, n):
         tally["frames"] += n
         tally["E"] += system.tracker.stats.estimates
         tally["KF"] += system.store.count
         tally["R"] += system.reloc_verifications
+        tally["LM"] += system.graph.dense_iterations
         return system
 
     torch.cuda.synchronize()
@@ -1601,7 +1611,8 @@ def accuracy_phase(dev, smi: str, kernels, tour, tour_frames, voc, dense_off):
         "detect_keypoints_fused": tally["frames"],
         "hamming_match_2nn": E + 2 * KF + R, "match_gates": E + 2 * KF + R,
         "mahal_hypothesis_scores": 0, "ransac_se3_fused": E + KF + R,
-        "gicp_refine_fused": E, "gicp_gn_normal_equations": 0}
+        "gicp_refine_fused": E, "gicp_gn_normal_equations": 0,
+        "pose_graph_normal_equations": tally["LM"], "pose_graph_trial": tally["LM"]}
     log(f"[accuracy] launches over the phase's runs {json.dumps(launches)}; formula with "
         f"frames={tally['frames']}, E={E}, KF={KF}, R={R} -> {json.dumps(expect)}; batched "
         f"{json.dumps(batched)}")
@@ -3181,8 +3192,11 @@ def distributed_phase(dev, smi, kernels, tour_system, sweep_frames):
     from rgbdslam_tpu_torch.parallel import dist_ba, dp_odometry, make_mesh
     from rgbdslam_tpu_torch.parallel.mp_slam import _make_config, run_tracking
     from rgbdslam_tpu_torch.solvers import ba
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.mesh import Mesh
+    from rgbdslam_tpu_torch.solvers import pose_graph as pg
     from rgbdslam_tpu_torch.solvers.cg import optimize_pose_graph_cg
-    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
 
     t_phase = time.perf_counter()
     shards = 4
@@ -3210,12 +3224,18 @@ def distributed_phase(dev, smi, kernels, tour_system, sweep_frames):
     problems = {"chain K=10": (torch.from_numpy(chain_est), chain_edges, 10, 1e-4),
                 f"tour graph K={K} E={E}": (torch.from_numpy(g.Twc[:K].copy()), tour_edges,
                                             10, 1e-3)}
+    def plain_dense(T, ed, f, iters):
+        """The plain dense LM (jacfwd blocks scattered) on T's device: the
+        card's optimize_pose_graph runs the kernels of csrc/pose_graph.cu."""
+        return pg._dense_lm(T, (ed,), f, Mesh([T.device]), iters, 1.0, 1e-4, True, 6,
+                            pg.edge_blocks, se3.exp, pg.graph_cost)
+
     for tag, (T0, edges, iters, tol) in problems.items():
         fixed = torch.arange(T0.shape[0]) == 0
         T0d, fd, ed = T0.to(dev), fixed.to(dev), on(edges, dev)
         sharded = dist_ba.shard_edges(ed, mesh)
         for solver, dist_fn, plain_fn, args in (
-                ("dense LM", dist_ba.distributed_pose_graph_optimize, optimize_pose_graph,
+                ("dense LM", dist_ba.distributed_pose_graph_optimize, plain_dense,
                  (iters,)),
                 ("CG LM", dist_ba.distributed_pose_graph_optimize_cg, optimize_pose_graph_cg,
                  (iters, 64))):
@@ -3411,6 +3431,253 @@ def distributed_phase(dev, smi, kernels, tour_system, sweep_frames):
     log(f"[distributed] phase 13 took {time.perf_counter() - t_phase:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     return launches, batched
+
+
+# The SE(3) LM iteration's kernels (csrc/pose_graph.cu) at their least: an
+# edge's linearization, r = log(Z^-1 Ta^-1 Tb) (two inverses 2 x 18, two
+# products 2 x 36, the log ~80) 188, J = J_r^-1(r) Ad(Tb^-1) (A and B from
+# hat products ~160, M and N ~110) 270, w JtJ's 21 entries 21 x 12 and w Jt r
+# 6 x 12 324, the Huber weight and term 12, and its four blocks and two
+# vectors added into H and g 4 x 36 + 12 156; a vertex's damping 6 x 3. The
+# trial: a vertex's exp(xi) X (the exponential ~60, the product 63) 123 and
+# its 16 writes; an edge's residual 188, its norm and Huber term 19; the
+# cost's sum 1 an edge.
+PG_NE_OPS_PER_EDGE = 188 + 270 + 324 + 12 + 156
+PG_NE_OPS_PER_VERTEX = 18
+PG_TRIAL_OPS_PER_VERTEX = 123
+PG_TRIAL_OPS_PER_EDGE = 188 + 19 + 1
+# what each replaces in the JAX package, which has no kernel there (XLA
+# compiled its jacfwd program whole): the Jacobians, and the residual-only cost
+PG_REPLACES = {"pose_graph_normal_equations": "rgbdslam_tpu/solvers/pose_graph.py:55",
+               "pose_graph_trial": "rgbdslam_tpu/solvers/pose_graph.py:83"}
+
+
+def perturbed_graph(X, edges, seed: int, dev, scale: float = 0.05):
+    """(X, edges, fixed) on `dev`: X's poses moved by exp(noise) (noise ~
+    N(0, scale) in each of the six coordinates; vertex 0 kept and fixed)."""
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
+
+    K = X.shape[0]
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(scale=scale, size=(K, 6))
+    noise[0] = 0.0
+    Xp = (se3.exp(torch.from_numpy(noise)) @ X.double()).float().contiguous()
+    fixed = torch.arange(K) == 0
+    return (Xp.to(dev), PoseGraphEdges(*(t.to(dev).contiguous() for t in edges)),
+            fixed.to(dev))
+
+
+def chain_graph(K: int, E: int, seed: int):
+    """(X, edges) on the CPU: a chain of K poses ~0.2 m apart, E - (K - 1)
+    chords to a vertex 2-12 back and, of those, four loop edges from the
+    last ten vertices to the first four; Z from the poses, weight 100 (a
+    tour's graph by its shape, with consistent measurements)."""
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.solvers.pose_graph import PoseGraphEdges
+
+    rng = np.random.default_rng(seed)
+    step = rng.normal(scale=0.1, size=(K, 6))
+    step[:, 2] += 0.2
+    X = [torch.eye(4, dtype=torch.float64)]
+    for i in range(1, K):
+        X.append(X[-1] @ se3.exp(torch.from_numpy(step[i])))
+    X = torch.stack(X)
+    n = E - (K - 1) - 4
+    a = np.r_[np.arange(1, K), rng.integers(12, K, n), rng.integers(K - 10, K, 4)]
+    b = np.r_[np.arange(K - 1), a[K - 1:K - 1 + n] - rng.integers(2, 13, n),
+              rng.integers(0, 4, 4)]
+    Z = se3.inverse(X[a]) @ X[b]
+    return X.float(), PoseGraphEdges(torch.from_numpy(a).long(), torch.from_numpy(b).long(),
+                                     Z.float().contiguous(), torch.full((E,), 100.0))
+
+
+def pose_graph_phase(dev, smi, kernels, systems):
+    """Phase 14: the loop solve's two kernels against the plain jacfwd path
+    on the card, on graphs of the tours' sizes: perturbed chains of K 90 / E
+    120 and K 119 / E 160 (tour_b32's and live_ring's keyframes and edges),
+    and the final graph of each of phase 6's serial tours with its poses
+    perturbed by ~0.05 (its own Z and weights). For each:
+
+    1. pose_graph_normal_equations undamped (lam 0, no fixed vertex) against
+       `_normal_equations` over `edge_blocks` in float64 and in f32 (H, g
+       within 1e-5 and 1e-4 of max|H| and max|g|, rtol 1e-4; the cost rtol
+       1e-5), the same bits in a second call, and damped (lam 1e-4, vertex
+       0 fixed): off the diagonal, g and the cost the same bits, the
+       diagonal within rtol 1e-6 of `_damped_step`'s damping;
+    2. pose_graph_trial against se3.exp, graph_cost and `_lm_update` on the
+       damped solve's step (accepted), on it reversed (rejected) and without
+       `adaptive`: the poses within 1e-5, the cost rtol 1e-5, lambda rtol
+       1e-6, the accept decision equal;
+    3. optimize_pose_graph (20 iterations, a loop closure's: the kernels)
+       against the plain `_dense_lm` on the card: the largest camera-centre
+       gap over the largest correction (at least 1 cm) under 1e-2, the
+       final costs within 1e-3 of each other on the initial cost's scale,
+       40 launches;
+    4. each kernel's ms beside its plain version's (paired_ms), the whole
+       solve's, and the bound by bytes: H (6K)^2 x 4 B written once, every
+       input once.
+
+    Returns {kernel: {max_abs_err, ms, plain_ms, bound, device_us}} for the
+    kernels line: the times at the first tour's graph; max_abs_err the
+    largest over the graphs of max|H - H_plain| / max|H| (as K5's) and of
+    the trial's poses' max abs gap."""
+    from rgbdslam_tpu_torch.geometry import se3
+    from rgbdslam_tpu_torch.mesh import Mesh
+    from rgbdslam_tpu_torch.solvers import pose_graph as pg
+
+    graphs = {f"chain K={K} E={E}": perturbed_graph(*chain_graph(K, E, K), K, dev)
+              for K, E in ((90, 120), (119, 160))}
+    for i, system in enumerate(systems):
+        g = system.graph
+        K, E = g.n_vertices, g.n_edges
+        edges = pg.PoseGraphEdges(torch.from_numpy(g.e_a[:E]).long(),
+                                  torch.from_numpy(g.e_b[:E]).long(),
+                                  torch.from_numpy(g.e_Z[:E].copy()),
+                                  torch.from_numpy(g.e_w[:E].copy()))
+        graphs[f"tour seed {i} K={K} E={E}"] = perturbed_graph(
+            torch.from_numpy(g.Twc[:K].copy()), edges, 100 + i, dev)
+    err = {"pose_graph_normal_equations": 0.0, "pose_graph_trial": 0.0}
+    out = None
+    for tag, (X, edges, fixed) in graphs.items():
+        K, E = X.shape[0], edges.a.shape[0]
+        zero, free = torch.zeros((), device=dev), torch.zeros_like(fixed)
+        lam = torch.tensor(1e-4, device=dev)
+        # 1. the normal equations
+        H, g, c = kernels.pose_graph_normal_equations(X, *edges, 1.0, zero, free)
+        H2, g2, c2 = kernels.pose_graph_normal_equations(X, *edges, 1.0, zero, free)
+        check(torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(c, c2),
+              f"pose graph {tag}: H, g or the cost differ between two calls")
+        e64 = pg.PoseGraphEdges(edges.a, edges.b, edges.Z.double(), edges.weight.double())
+        H64, g64, c64 = pg._normal_equations(X.double(), e64, 1.0, K, 6, pg.edge_blocks)
+        Hp, gp, cp = pg._normal_equations(X, edges, 1.0, K, 6, pg.edge_blocks)
+        hmax, gmax = float(H64.abs().max()), float(g64.abs().max())
+
+        def close(x, ref, atol):
+            """allclose(x, ref, rtol=1e-4, atol), and max|x - ref| / max|ref|"""
+            diff = (x.double() - ref.double()).abs()
+            ok = bool((diff <= atol + 1e-4 * ref.double().abs()).all())
+            return ok, float(diff.max()) / float(ref.abs().max())
+
+        (ok_h64, d_h64), (ok_g64, d_g64) = close(H, H64, 1e-5 * hmax), close(g, g64, 1e-5 * gmax)
+        (ok_h, d_h), (ok_g, d_g) = close(H, Hp, 1e-4 * hmax), close(g, gp, 1e-4 * gmax)
+        d_c = abs(float(c) - float(cp)) / abs(float(cp))
+        d_c64 = abs(float(c) - float(c64)) / abs(float(c64))
+        check(ok_h64 and ok_g64,
+              f"pose graph {tag}: H, g {d_h64:.3g}, {d_g64:.3g} of max from float64")
+        check(ok_h and ok_g,
+              f"pose graph {tag}: H, g {d_h:.3g}, {d_g:.3g} of max from the plain f32")
+        check(d_c <= 1e-5 and d_c64 <= 1e-5,
+              f"pose graph {tag}: the cost {d_c:.3g} / {d_c64:.3g} from the plain system")
+        Hd, gd, cd = kernels.pose_graph_normal_equations(X, *edges, 1.0, lam, fixed)
+        off = ~torch.eye(6 * K, dtype=torch.bool, device=dev)
+        check(torch.equal(Hd[off], H[off]) and torch.equal(gd, g) and torch.equal(cd, c),
+              f"pose graph {tag}: damping moved more than H's diagonal")
+        d = torch.diagonal(H)
+        fixed_d = fixed[:, None].expand(K, 6).reshape(-1)
+        want = (d + torch.where(fixed_d, 1e9, lam + 1e-8)) + lam * d
+        d_diag = float(((torch.diagonal(Hd) - want).abs() / want.abs()).max())
+        check(d_diag <= 1e-6, f"pose graph {tag}: the damped diagonal {d_diag:.3g} off")
+        err["pose_graph_normal_equations"] = max(err["pose_graph_normal_equations"], d_h)
+        # 2. the trial step
+        sol = torch.linalg.solve_ex(Hd, gd[:, None])[0][:, 0].contiguous()
+        d_x = d_ct = d_lam = 0.0
+        for step, adaptive, accepted in ((sol, True, True), (-sol, True, False),
+                                         (-sol, False, None)):
+            X_k, lam_k, c_k = kernels.pose_graph_trial(X, step.contiguous(), fixed, *edges, 1.0,
+                                                       cd, lam, adaptive)
+            xi = torch.where(fixed[:, None], 0.0, -step.reshape(K, 6))
+            X_cand = se3.exp(xi) @ X
+            c_new = pg.graph_cost(X_cand, edges, 1.0)
+            if adaptive:
+                X_p, lam_p, c_p = pg._lm_update(c_new < cd, lam, cd, c_new, X, X_cand)
+                check(bool(c_new < cd) == accepted,
+                      f"pose graph {tag}: the plain trial "
+                      f"{'rejected' if accepted else 'took'} the step")
+            else:
+                X_p, lam_p, c_p = X_cand, lam, cd
+            d_x = max(d_x, float((X_k - X_p).abs().max()))
+            d_ct = max(d_ct, abs(float(c_k) - float(c_p)) / abs(float(c_p)))
+            d_lam = max(d_lam, abs(float(lam_k) - float(lam_p)) / float(lam_p))
+        check(d_x <= 1e-5 and d_ct <= 1e-5 and d_lam <= 1e-6,
+              f"pose graph {tag}: the trial's poses {d_x:.3g}, cost {d_ct:.3g}, lambda "
+              f"{d_lam:.3g} from the plain step")
+        err["pose_graph_trial"] = max(err["pose_graph_trial"], d_x)
+        # 3. the whole solve
+
+        def kernel_solve():
+            return pg.optimize_pose_graph(X, edges, fixed, 20)
+
+        def plain_solve():
+            return pg._dense_lm(X, (edges,), fixed, Mesh([dev]), 20, 1.0, 1e-4, True, 6,
+                                pg.edge_blocks, se3.exp, pg.graph_cost)
+
+        kernels.reset_launch_counts()
+        T_k, c_k = kernel_solve()
+        n_ne, n_trial = (kernels.LAUNCHES[k] for k in ("pose_graph_normal_equations",
+                                                       "pose_graph_trial"))
+        check(n_ne == 20 and n_trial == 20, f"pose graph {tag}: {n_ne}, {n_trial} launches")
+        T_p, c_p = plain_solve()
+        c0 = float(pg.graph_cost(X, edges, 1.0))
+        cen, cen_p, cen_0 = (t[:, :3, 3].double() for t in (T_k, T_p, X))
+        corr = float(torch.linalg.norm(cen_p - cen_0, dim=-1).max())
+        gap = float(torch.linalg.norm(cen - cen_p, dim=-1).max()) / max(corr, 0.01)
+        check(corr >= 0.01, f"pose graph {tag}: the plain solve moved {corr:.3g} m")
+        check(gap < 1e-2, f"pose graph {tag}: solve gap {gap:.3g}")
+        d_cost = abs(float(c_k) - float(c_p)) / max(float(c_p), 1e-6 * c0)
+        check(d_cost <= 1e-3, f"pose graph {tag}: final cost {float(c_k):.6g} against "
+              f"{float(c_p):.6g} (initial {c0:.6g})")
+        # 4. times
+
+        def kernel_ne():
+            return kernels.pose_graph_normal_equations(X, *edges, 1.0, lam, fixed)
+
+        def plain_ne():
+            return pg._normal_equations(X, edges, 1.0, K, 6, pg.edge_blocks)
+
+        def kernel_trial():
+            return kernels.pose_graph_trial(X, sol, fixed, *edges, 1.0, cd, lam)
+
+        def plain_trial():
+            xi = torch.where(fixed[:, None], 0.0, -sol.reshape(K, 6))
+            X_cand = se3.exp(xi) @ X
+            c_new = pg.graph_cost(X_cand, edges, 1.0)
+            return pg._lm_update(c_new < cd, lam, cd, c_new, X, X_cand)
+
+        ms = {"pose_graph_normal_equations": paired_ms(kernel_ne, plain_ne),
+              "pose_graph_trial": paired_ms(kernel_trial, plain_trial)}
+        solve_ms = paired_ms(kernel_solve, plain_solve)
+        n = 6 * K
+        edge_bytes = (8 + 8 + 64 + 4) * E
+        ne_bytes = 64 * K + edge_bytes + K + 4 + 4 * (n * n + n + 1)
+        trial_bytes = 64 * K + 4 * n + K + edge_bytes + 8 + 64 * K + 8
+        bounds = {"pose_graph_normal_equations": bound(
+                      ne_bytes, PG_NE_OPS_PER_EDGE * E + PG_NE_OPS_PER_VERTEX * K),
+                  "pose_graph_trial": bound(
+                      trial_bytes, PG_TRIAL_OPS_PER_VERTEX * K + PG_TRIAL_OPS_PER_EDGE * E)}
+        log(f"[pose_graph] {tag}: H, g {d_h64:.3g}, {d_g64:.3g} of max|H|, max|g| from float64 "
+            f"({d_h:.3g}, {d_g:.3g} from the plain f32), the cost {d_c:.3g}; the trial's poses "
+            f"{d_x:.3g}, cost {d_ct:.3g}, lambda {d_lam:.3g}; the 20-iteration solve's gap "
+            f"{gap:.3g} of a {corr:.3g} m correction, cost {float(c_k):.6g} against the plain "
+            f"{float(c_p):.6g} (initial {c0:.6g}); ms kernel / plain: normal equations "
+            f"{ms['pose_graph_normal_equations'][0]:.4f} / "
+            f"{ms['pose_graph_normal_equations'][1]:.4f} (bound "
+            f"{bounds['pose_graph_normal_equations'][0]:.6f}), trial "
+            f"{ms['pose_graph_trial'][0]:.4f} / {ms['pose_graph_trial'][1]:.4f} (bound "
+            f"{bounds['pose_graph_trial'][0]:.6f}), solve {solve_ms[0]:.3f} / "
+            f"{solve_ms[1]:.3f} ({smi})")
+        if out is None and tag.startswith("tour"):
+            us = {"pose_graph_normal_equations": device_us_per_launch(
+                      kernel_ne, {"pose_graph_ne_kernel": 1}),
+                  "pose_graph_trial": device_us_per_launch(
+                      kernel_trial, {"pose_graph_trial_kernel": 1})}
+            out = {k: dict(ms=ms[k][0], plain_ms=ms[k][1], bound=bounds[k], device_us=us[k])
+                   for k in ms}
+            log(f"[pose_graph] {tag}: device us a launch {json.dumps(us)}; the kernels "
+                f"line gives this graph's times")
+    for k in out:
+        out[k]["max_abs_err"] = err[k]
+    return out
 
 
 def main() -> int:
@@ -3947,7 +4214,8 @@ def main() -> int:
               "mahal_hypothesis_scores": 0,
               "ransac_se3_fused": pairs * len(seeds),
               "gicp_refine_fused": pairs * len(seeds),
-              "gicp_gn_normal_equations": 0}
+              "gicp_gn_normal_equations": 0,
+              "pose_graph_normal_equations": 0, "pose_graph_trial": 0}
     check(launches_sweep == expect, f"launch counts {launches_sweep} != {expect}")
 
     # ---------------------------------------------------------------- 6
@@ -4019,7 +4287,7 @@ def main() -> int:
     launches_tour = dict(kernels.LAUNCHES)
     batched_tour = dict(kernels.BATCHED_LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    tour_ates, E_all, KF_all, R_all = [], 0, 0, 0
+    tour_ates, E_all, KF_all, R_all, LM_all = [], 0, 0, 0, 0
     for sd, (system, ms, finish_ms) in zip(slam_seeds, tours):
         ts_c, poses_c = system.camera_trajectory()
         rmse, info = ate_rmse(ts_c, poses_c, tour.timestamps, tour.poses_twc)
@@ -4042,6 +4310,7 @@ def main() -> int:
         E_all += st.estimates
         KF_all += K
         R_all += system.reloc_verifications
+        LM_all += system.graph.dense_iterations
     n_loop_seeds = sum(system.loops_closed >= 1 for system, _, _ in tours)
     check(n_loop_seeds >= 2, f"only {n_loop_seeds} of {len(slam_seeds)} seeds closed a BoW loop")
     log(f"[slam] ATE over seeds {list(slam_seeds)}: median "
@@ -4060,7 +4329,8 @@ def main() -> int:
         "mahal_hypothesis_scores": 0,
         "ransac_se3_fused": E_all + KF_all + R_all,
         "gicp_refine_fused": E_all,
-        "gicp_gn_normal_equations": 0}
+        "gicp_gn_normal_equations": 0,
+        "pose_graph_normal_equations": LM_all, "pose_graph_trial": LM_all}
     log(f"[slam] launches over the {len(slam_seeds)} runs {json.dumps(launches_tour)}; "
         f"formula with E={E_all}, KF={KF_all}, R={R_all}: the fused detection = frames x "
         f"seeds, K2 = gates = E + 2 KF + R, fused RANSAC = E + KF + R, the fused gicp_refine "
@@ -4219,7 +4489,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_ring = dict(kernels.LAUNCHES)
     batched_ring = dict(kernels.BATCHED_LAUNCHES)
-    ring_ates, E_all, KF_all, R_all = [], 0, 0, 0
+    ring_ates, E_all, KF_all, R_all, LM_all = [], 0, 0, 0, 0
     for sd, (system, ms, flush_ms, finish_ms) in zip(slam_seeds, rings):
         rmse, poses_c, revisit = tour_gates(f"ring seed {sd}", system)
         ring_ates.append(rmse)
@@ -4233,6 +4503,7 @@ def main() -> int:
         E_all += st.estimates
         KF_all += system.store.count
         R_all += system.reloc_verifications
+        LM_all += system.graph.dense_iterations
     n_loop_seeds = sum(system.loops_closed >= 1 for system, *_ in rings)
     check(n_loop_seeds >= 2, f"ring: only {n_loop_seeds} of {len(slam_seeds)} seeds closed a "
           "BoW loop")
@@ -4242,7 +4513,8 @@ def main() -> int:
         "detect_keypoints_fused": n_tour * len(slam_seeds),
         "hamming_match_2nn": E_all + 2 * KF_all + R_all,
         "match_gates": E_all + 2 * KF_all + R_all,
-        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all})
+        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all,
+        "pose_graph_normal_equations": LM_all, "pose_graph_trial": LM_all})
     log(f"[modes] ring: ATE median {float(np.median(ring_ates)):.5f} m; launches "
         f"{json.dumps(launches_ring)}; the serial formula with E={E_all}, KF={KF_all}, "
         f"R={R_all} -> {json.dumps(expect_ring)}; batched {json.dumps(batched_ring)}")
@@ -4281,7 +4553,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_batch = dict(kernels.LAUNCHES)
     batched_batch = dict(kernels.BATCHED_LAUNCHES)
-    batch_ates, E_all, KF_all, R_all = [], 0, 0, 0
+    batch_ates, E_all, KF_all, R_all, LM_all = [], 0, 0, 0, 0
     for (B, sd), (system, wall_ms, finish_ms) in zip(batch_runs, batches):
         rmse, poses_c, revisit = tour_gates(f"batch {B} seed {sd}", system)
         batch_ates.append(rmse)
@@ -4302,6 +4574,7 @@ def main() -> int:
         E_all += st.estimates
         KF_all += K
         R_all += system.reloc_verifications
+        LM_all += system.graph.dense_iterations
     check(float(np.median(batch_ates)) < 0.05,
           f"batch: median tour ATE {float(np.median(batch_ates))} m >= 0.05 m")
     p_db, p_seq = batches[0][0].camera_trajectory()[1], seq_system.camera_trajectory()[1]
@@ -4314,12 +4587,14 @@ def main() -> int:
     E_all += seq_system.tracker.stats.estimates
     KF_all += seq_system.store.count
     R_all += seq_system.reloc_verifications
+    LM_all += seq_system.graph.dense_iterations
     n_runs = len(batch_runs) + 1
     expect_batch = dict(expect_tour, **{
         "detect_keypoints_fused": n_tour * n_runs,
         "hamming_match_2nn": E_all + 2 * KF_all + R_all,
         "match_gates": E_all + 2 * KF_all + R_all,
-        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all})
+        "ransac_se3_fused": E_all + KF_all + R_all, "gicp_refine_fused": E_all,
+        "pose_graph_normal_equations": LM_all, "pose_graph_trial": LM_all})
     log(f"[modes] batch: ATE median {float(np.median(batch_ates)):.5f} m over "
         f"{len(batch_runs)} runs; launches {json.dumps(launches_batch)}; formula with "
         f"E={E_all} (frames - 1 per run, no retry), KF={KF_all}, R={R_all} -> "
@@ -4738,9 +5013,12 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 13
     launches_dist, batched_dist = distributed_phase(dev, smi, kernels, tours[0][0], frames)
+
+    # ---------------------------------------------------------------- 14
+    pose_graph = pose_graph_phase(dev, smi, kernels, [system for system, _, _ in tours])
     log(f"[times] host seconds in the measuring helpers (calls, s): "
         f"{json.dumps({k: [n, round(t, 1)] for k, (n, t) in COSTS.items()})}; "
-        f"phases 1-13 took {time.perf_counter() - T_START:.1f} s")
+        f"phases 1-14 took {time.perf_counter() - T_START:.1f} s")
     log(f"[times] detect_score_map at the sweep's 4 half-sample levels: kernel "
         f"{timing['detect_score_map'][0]:.4f} ms, plain {timing['detect_score_map'][1]:.4f} ms "
         f"(phase 5); the kernels line gives the families path's 8 x1.2 levels ({smi})")
@@ -4816,6 +5094,17 @@ def main() -> int:
              "max_abs_err": results[k]["max_abs_err"],
              "ms": timing[k][0], "plain_ms": timing[k][1],
              "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None})
+    # phase 14's loop-solve kernels: launches on the main paths (the SLAM
+    # runs' loop closures and finish())
+    for k, e in pose_graph.items():
+        per_path = path_launches(k, False)
+        line["kernels"].append(
+            {"name": k, "route": "cuda", "source": "rgbdslam_tpu_torch/csrc/pose_graph.cu",
+             "replaces": PG_REPLACES[k], "launches": sum(per_path.values()),
+             **{f"launches_{path}": n for path, n in per_path.items()},
+             "launches_off_path": 0, "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+             "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+             "library_ms": None, "device_us": e["device_us"]})
     # phase 11's kernel modes: launches on its own paths (the mode's runs,
     # counted from 0 each) or, for the reprojection models that no SLAM
     # caller reaches (no caller passes RANSAC a camera), through the public

@@ -74,6 +74,14 @@ SIGNATURES = {
     "rgbd_gicp_refine_full": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P),
     # T, p1, p2, C1, C2, valid, n, max_dist2, out, stream
     "rgbd_gicp_gn": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P),
+    # X, a, b, Z, weight, n_edges, k, delta, two_delta, delta_sq, H, g, cost,
+    # lam, fixed, stream
+    "rgbd_pose_graph_normal_equations": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P,
+                                         _P, _P, _P),
+    # X, sol, fixed, a, b, Z, weight, n_edges, k, delta, two_delta, delta_sq,
+    # cost_it, lam, adaptive, Xc, X_out, state_out, stream
+    "rgbd_pose_graph_trial": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _I,
+                              _P, _P, _P, _P),
 }
 
 

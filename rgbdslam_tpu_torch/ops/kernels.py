@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels of the tracking step and of the keyframe
-backend's candidate verification, their launch wrappers and
-their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py).
+"""Hand-written CUDA kernels of the tracking step, of the keyframe
+backend's candidate verification and of the loop solve, their launch
+wrappers and their plain PyTorch versions (counterpart of
+rgbdslam_tpu/ops/pallas_kernels.py).
 
 | Kernel (csrc/)           | Replaces (pallas_kernels.py)          | Plain version              |
 |--------------------------|---------------------------------------|----------------------------|
@@ -13,6 +14,7 @@ their plain PyTorch versions (counterpart of rgbdslam_tpu/ops/pallas_kernels.py)
 | mahal.cu    (K3, whole RANSAC) | the same, with the rest of ransac_se3 | solvers.ransac_se3.ransac_se3_ref |
 | gicp.cu     (K4, whole gicp_refine) | gicp_refine_kernel, 791-825, with gicp_refine's gate | gicp_refine_ref + solvers.icp._finish_gicp |
 | gicp.cu     (K5)         | gicp_gn_normal_equations, 829-862     | gicp_gn_normal_equations_ref|
+| pose_graph.cu (SE(3) LM) | none (XLA's jacfwd program)           | pose_graph's plain _dense_lm |
 
 The TPU kernels sat inside programs XLA fused around them; eager PyTorch
 launches every op, so on this card `detect_keypoints_fused` (the whole
@@ -26,6 +28,9 @@ direct counterparts of K1 (`detect_score_map`, the dense maps of one level;
 also behind `fast.detect_keypoints_level`), of K3
 (`mahal_hypothesis_scores`) and K5 are reached through their public entries
 (those, `icp.gicp_normal_equations`) and lie on no main path.
+`pose_graph_normal_equations` and `pose_graph_trial` are the dense SE(3)
+loop solve's iteration (`solvers.pose_graph.optimize_pose_graph` on the
+card): one launch each around the library's dense solve.
 
 K2 and K3 take an optional leading batch dimension (the same launches
 whatever the batch): the keyframe backend verifies all its candidate
@@ -64,6 +69,8 @@ LAUNCHES = {
     "ransac_se3_fused": 0,
     "gicp_refine_fused": 0,
     "gicp_gn_normal_equations": 0,
+    "pose_graph_normal_equations": 0,
+    "pose_graph_trial": 0,
 }
 
 
@@ -725,3 +732,86 @@ def gicp_gn_normal_equations_ref(T, p1, p2, C1, C2, valid, max_dist: float):
     b = torch.einsum("nij,ni,n->j", WJ, r, wm)
     cost = torch.sum(torch.einsum("ni,nij,nj->n", r, W, r) * wm)
     return H, b, cost, torch.sum(wm)
+
+
+# ---------------------------------------------------------------------------
+# The SE(3) pose-graph LM iteration (csrc/pose_graph.cu)
+# ---------------------------------------------------------------------------
+
+
+#: vertices `pose_graph_normal_equations` takes at most: a block holds its
+#: vertex's six rows of H in shared memory (24 x 6K bytes)
+POSE_GRAPH_MAX_VERTICES = 1024
+
+
+def _check_pose_graph(X, a, b, Z, weight) -> Tuple[int, int]:
+    K, E = X.shape[0], a.shape[0]
+    _check(X, "X", torch.float32, (K, 4, 4))
+    for t, name in ((a, "a"), (b, "b")):
+        _check(t, name, torch.int64, (E,))
+    _check(Z, "Z", torch.float32, (E, 4, 4))
+    _check(weight, "weight", torch.float32, (E,))
+    if len({t.device for t in (X, a, b, Z, weight)}) != 1:
+        raise ValueError("pose graph: the poses and the edges on different devices")
+    if not 1 <= K <= POSE_GRAPH_MAX_VERTICES:
+        raise ValueError(f"pose graph: {K} vertices, the kernels take 1 to "
+                         f"{POSE_GRAPH_MAX_VERTICES}")
+    return K, E
+
+
+def _huber(delta: float) -> Tuple[float, float, float]:
+    """delta, 2 delta and delta^2, each rounded to f32 from the double as
+    `_huber_cost`'s Python scalars are."""
+    d = float(delta)
+    return d, 2.0 * d, d * d
+
+
+def pose_graph_normal_equations(X: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                                Z: torch.Tensor, weight: torch.Tensor, huber_delta: float,
+                                lam: torch.Tensor, fixed: torch.Tensor):
+    """The SE(3) edges' damped Gauss-Newton system at the poses X (K, 4, 4)
+    in one launch of csrc/pose_graph.cu: H (6K, 6K), g (6K,) and the robust
+    cost (), as `solvers.pose_graph._normal_equations` over `edge_blocks`
+    gives them, with the closed-form Jacobians Jb = J_r^-1(r) Ad(Tb^-1),
+    Ja = -Jb, and H damped as `_damped_step` damps it: the 1e9 prior on the
+    `fixed` ((K,) bool) vertices, Marquardt's `lam` (() f32) on the
+    diagonal. Edges: a, b (E,) int64, Z (E, 4, 4) = T_{a<-b}, weight (E,)
+    (0: the slot adds nothing). A block a vertex sums its rows of H and g in
+    edge order, without atomics: the same bits every call. H, g and the
+    cost are views of one buffer, written whole by the one launch."""
+    K, E = _check_pose_graph(X, a, b, Z, weight)
+    _check(lam, "lam", torch.float32, ())
+    _check(fixed, "fixed", torch.bool, (K,))
+    n = 6 * K
+    ws = torch.empty((n * n + n + 1,), dtype=torch.float32, device=X.device)
+    H, g, cost = ws[:n * n].view(n, n), ws[n * n:n * n + n], ws[n * n + n]
+    _launch("rgbd_pose_graph_normal_equations", X.device, _ptr(X), _ptr(a), _ptr(b), _ptr(Z),
+            _ptr(weight), E, K, *_huber(huber_delta), _ptr(H), _ptr(g), _ptr(cost),
+            _ptr(lam), _ptr(fixed))
+    LAUNCHES["pose_graph_normal_equations"] += 1
+    return H, g, cost
+
+
+def pose_graph_trial(X: torch.Tensor, sol: torch.Tensor, fixed: torch.Tensor,
+                     a: torch.Tensor, b: torch.Tensor, Z: torch.Tensor, weight: torch.Tensor,
+                     huber_delta: float, cost_it: torch.Tensor, lam: torch.Tensor,
+                     adaptive: bool = True):
+    """The rest of an LM iteration in one launch of csrc/pose_graph.cu: the
+    candidate poses exp(xi) X with xi = -sol (sol (6K,) the damped solve's
+    solution; xi = 0 on the fixed vertices), their robust cost over the
+    edges, and `_lm_update`'s masked accept against the iteration's cost
+    `cost_it` (()): x1/3 on lam (()) on an accepted step, x2 on a rejected
+    one, clamped to [1e-9, 1e8]. Without `adaptive` the candidate is taken
+    with cost_it. Returns (X_next (K, 4, 4), lam_next (), cost_next ())."""
+    K, E = _check_pose_graph(X, a, b, Z, weight)
+    _check(sol, "sol", torch.float32, (6 * K,))
+    _check(fixed, "fixed", torch.bool, (K,))
+    _check(cost_it, "cost_it", torch.float32, ())
+    _check(lam, "lam", torch.float32, ())
+    X_out, Xc = torch.empty_like(X), torch.empty_like(X)
+    state = torch.empty((2,), dtype=torch.float32, device=X.device)
+    _launch("rgbd_pose_graph_trial", X.device, _ptr(X), _ptr(sol), _ptr(fixed), _ptr(a),
+            _ptr(b), _ptr(Z), _ptr(weight), E, K, *_huber(huber_delta), _ptr(cost_it),
+            _ptr(lam), int(bool(adaptive)), _ptr(Xc), _ptr(X_out), _ptr(state))
+    LAUNCHES["pose_graph_trial"] += 1
+    return X_out, state[0], state[1]

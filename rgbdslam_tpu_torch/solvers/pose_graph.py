@@ -21,6 +21,14 @@ Z (E, 4, 4), weight (E,)) with the measurement convention Z = T_{a<-b}
    JAX package), with masked step accept/reject: no host branch and no
    host synchronisation inside the loop.
 
+That is the plain version, which CPU tensors run. On the card the SE(3)
+iteration is two launches of csrc/pose_graph.cu around the same solve
+(`_lm_on_card`): `kernels.pose_graph_normal_equations` does 1-4 with the
+closed-form Jacobians Jb = J_r^-1(r) Ad(Tb^-1), Ja = -Jb, and the damping,
+`kernels.pose_graph_trial` the update, the trial cost and the accept. The
+edge-sharded solve (parallel/dist_ba.py), the Sim(3) graph and the CG
+solve (solvers/cg.py) keep the plain blocks.
+
 Unlike the JAX package the arrays are not padded to power-of-two budgets:
 there is no compiled program to reuse, and a pinned padding vertex or a
 zero-weight edge contributes nothing to the solve.
@@ -36,6 +44,7 @@ import torch
 from rgbdslam_tpu_torch.device import resolve_device, upload
 from rgbdslam_tpu_torch.geometry import se3, sim3
 from rgbdslam_tpu_torch.mesh import Mesh
+from rgbdslam_tpu_torch.ops import kernels
 from rgbdslam_tpu_torch.utils.profiling import SPANS
 
 
@@ -197,6 +206,28 @@ def _dense_lm(X, shards, fixed, mesh: Mesh, iterations: int, huber_delta: float,
     return X_cur, cost
 
 
+def _lm_on_card(Twc, edges: PoseGraphEdges, fixed, iterations: int, huber_delta: float,
+                lm_lambda0: float, adaptive: bool):
+    """`_dense_lm` of the SE(3) graph on one card, an iteration in two
+    kernel launches and the dense solve's: the damped system
+    (`kernels.pose_graph_normal_equations`), `torch.linalg.solve_ex`, and
+    the step with its trial cost and masked accept (`kernels.pose_graph_trial`).
+    The same arithmetic in f32 up to the Jacobians' closed form and the
+    order of sums. No host branch and no host read inside the loop."""
+    fixed = fixed.to(Twc.device)
+    X_cur, lam, cost = _lm_state(Twc.contiguous(), lm_lambda0)
+    for _ in range(iterations):
+        with SPANS.span("lm.linearize"):
+            Hm, gv, cost_it = kernels.pose_graph_normal_equations(X_cur, *edges, huber_delta,
+                                                                  lam, fixed)
+        with SPANS.span("lm.solve"):
+            sol = torch.linalg.solve_ex(Hm, gv[:, None])[0][:, 0]
+        with SPANS.span("lm.cost"):
+            X_cur, lam, cost = kernels.pose_graph_trial(X_cur, sol, fixed, *edges, huber_delta,
+                                                        cost_it, lam, adaptive)
+    return X_cur, cost
+
+
 def optimize_pose_graph(
     Twc: torch.Tensor,
     edges: PoseGraphEdges,
@@ -215,7 +246,13 @@ def optimize_pose_graph(
       increment (vertex 0, Solver/PoseGraph.cpp:191, 358).
     adaptive: True = Levenberg-Marquardt with step accept/reject and the
       x2 / /3 lambda schedule from lm_lambda0; False = fixed-damping
-      Gauss-Newton."""
+      Gauss-Newton.
+
+    CUDA tensors take `_lm_on_card` (csrc/pose_graph.cu, at most
+    kernels.POSE_GRAPH_MAX_VERTICES vertices; PoseGraph hands larger maps to
+    the CG solve), CPU tensors the plain `_dense_lm`."""
+    if kernels.on_cuda(Twc, *edges):
+        return _lm_on_card(Twc, edges, fixed, iterations, huber_delta, lm_lambda0, adaptive)
     return _dense_lm(Twc, (edges,), fixed, Mesh([Twc.device]), iterations, huber_delta,
                      lm_lambda0, adaptive, 6, edge_blocks, se3.exp, graph_cost)
 
@@ -312,6 +349,9 @@ class PoseGraph:
         # matrix-free CG inner solve (parallel/dist_ba.py)
         self.mesh = None
         self.dist_solves = 0     # solves that rode the mesh
+        # LM iterations of the dense solves (on the card each is one launch
+        # of either kernel of csrc/pose_graph.cu)
+        self.dense_iterations = 0
         # the multi-process publisher hooks (parallel/mp_slam.py): the
         # tracking process announces every vertex, edge and solve over the
         # constraint channel, so that backend peers hold the same graph and
@@ -393,6 +433,13 @@ class PoseGraph:
             p *= 2
         return p
 
+    def dense_fits(self, K: int) -> bool:
+        """Whether a graph of K vertices takes the dense solve: its padded
+        count under cg_threshold and, on the card, at most the kernels'
+        kernels.POSE_GRAPH_MAX_VERTICES. A larger map takes the CG solve."""
+        return self._pad(K) < self.cg_threshold and (
+            self.device.type != "cuda" or K <= kernels.POSE_GRAPH_MAX_VERTICES)
+
     def optimize(self, iterations: int = 10) -> np.ndarray:
         """Run the device solve; updates and returns Twc[:n_vertices]. One
         packed upload, one device-to-host copy of the solved poses. Like the
@@ -443,7 +490,7 @@ class PoseGraph:
                 Twc, edges, fixed, mesh, iterations, self.cg_iters, self.huber_delta,
                 self.lm_lambda0)
             self.dist_solves += 1
-        elif self._pad(K) >= self.cg_threshold:
+        elif not self.dense_fits(K):
             # large maps: matrix-free preconditioned CG, O(K + E) memory
             from rgbdslam_tpu_torch.solvers.cg import optimize_pose_graph_cg
 
@@ -453,6 +500,7 @@ class PoseGraph:
         else:
             Twc_opt, _cost = optimize_pose_graph(
                 Twc, edges, fixed, iterations, self.huber_delta, self.lm_lambda0)
+            self.dense_iterations += iterations
         with SPANS.span("lm.read"):
             out = Twc_opt.cpu().numpy()
         self.Twc[:K] = out

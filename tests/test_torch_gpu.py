@@ -162,7 +162,8 @@ def test_pipeline_on_card_uses_only_kernels(dev, kernels):
                                 "hamming_match_2nn": 23,
                                 "match_gates": 23, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": 23, "gicp_refine_fused": 23,
-                                "gicp_gn_normal_equations": 0}
+                                "gicp_gn_normal_equations": 0,
+                                "pose_graph_normal_equations": 0, "pose_graph_trial": 0}
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.05
     assert st["failures"] == 0 and np.isfinite(poses).all()
 
@@ -319,18 +320,21 @@ def test_slam_system_on_card_uses_only_kernels(dev, kernels):
         system.track(*ds.grab(i))
     system.finish()
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
+    LM = system.graph.dense_iterations
     assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": 60,
                                 "detect_keypoints_scaled": 0,
                                 "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
-                                "gicp_gn_normal_equations": 0}
+                                "gicp_gn_normal_equations": 0,
+                                "pose_graph_normal_equations": LM, "pose_graph_trial": LM}
     assert kernels.BATCHED_LAUNCHES == {"hamming_match_2nn": KF + R, "match_gates": KF + R,
                                         "mahal_hypothesis_scores": 0,
                                         "ransac_se3_fused": KF + R}
     ts, poses = system.camera_trajectory()
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
     assert KF >= 10 and system.graph.n_vertices == KF and system.graph.n_edges > KF - 1
+    assert LM >= 10                                 # finish() at least, on the kernels
     assert system.tracker.stats.failures <= 3 and np.isfinite(poses).all()
 
 
@@ -856,13 +860,15 @@ def test_batch_on_card_within_sync_budget(dev, kernels):
     system.track_batch_complete(pending)
     system.finish()
     E, KF, R = system.tracker.stats.estimates, system.store.count, system.reloc_verifications
+    LM = system.graph.dense_iterations
     assert E == len(frames) - 1
     assert kernels.LAUNCHES == {"detect_score_map": 0, "detect_keypoints_fused": len(frames),
                                 "detect_keypoints_scaled": 0,
                                 "hamming_match_2nn": E + 2 * KF + R,
                                 "match_gates": E + 2 * KF + R, "mahal_hypothesis_scores": 0,
                                 "ransac_se3_fused": E + KF + R, "gicp_refine_fused": E,
-                                "gicp_gn_normal_equations": 0}
+                                "gicp_gn_normal_equations": 0,
+                                "pose_graph_normal_equations": LM, "pose_graph_trial": LM}
     ts, poses = system.camera_trajectory()
     assert ate_rmse(ts, poses, ds.timestamps, ds.poses_twc)[0] < 0.06
     assert KF >= 5 and system.graph.n_vertices == KF == len(system.kf_backend_ms)
